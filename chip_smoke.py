@@ -5,14 +5,13 @@ Run from the repository root on a machine with one CUDA card:
     python3 chip_smoke.py
 
 It builds the Hopper kernels of ``src/repro_torch/kernels/csrc/`` from the
-checkout, drives the port's main path — the fluid flow engine,
-``make_engine("flow", topo)`` — through the paper-figure sweeps at full
-width, and holds every kernel against its plain PyTorch version on the
-card:
+checkout (one ``nvcc`` per source, all at once), drives the port's main
+paths at full width, and holds every kernel against its plain PyTorch
+version on the card:
 
 1. **build**   ``nvcc`` for ``sm_90a`` (``-Xptxas -v`` printed), the
    card's name and power limit;
-2. **paths**   each with the launch counts set to 0 just before it and
+2. **paths**   each with every launch count set to 0 just before it and
    read just after:
    - fig14: HPL gleam vs ring/long on the 1024-host fat tree (scales 8,
      16, 32) and on the 16,384-host fat tree (scales 64, 128);
@@ -24,12 +23,28 @@ card:
    rtol 1e-3, and against the JAX package's recorded values where
    ``BENCH_flowsim.json`` has them; segment rates against the numpy
    ``LinkMap.segment_rates_many`` at 1e-6;
-3. **kernels** every kernel input the paths produced, in float32 and
-   float64, plus random many-round problems: the kernel against its
-   plain version (freeze set and rates per round for the first 256
-   rounds, then the whole filling, rtol 1e-6 in float32 and 1e-12 in
-   float64; loss factors within 1e-6 and exactly 1 on
-   all-zero rows), with times from CUDA events.
+   - serve: granite_3_2b at full width (40 layers, d 2048, float32
+     weights from seed 0, bf16 compute and caches) behind
+     ``launch/serve.py``'s ``serve``: 16 requests, pool 8, 4096-slot
+     caches, 32 new tokens each; every request must complete with 32
+     tokens, the step count must be the scheduler's, the logits finite
+     and ``flash_decode`` launched steps x 40 times; steps 700-709 are
+     traced with ``torch.profiler`` (device busy time and idle share,
+     top device and host ops);
+   - cross: the granite smoke config in float32 (TF32 off) served on the
+     card and on the CPU with the same weights: identical greedy tokens,
+     per-step logits within 1e-3;
+3. **kernels** every kernel input the paths produced: the max-min
+   kernels in float32 and float64, plus random many-round problems (the
+   kernel against its plain version: freeze set and rates per round for
+   the first 256 rounds, then the whole filling, rtol 1e-6 in float32
+   and 1e-12 in float64; loss factors within 1e-6 and exactly 1 on
+   all-zero rows); ``flash_decode`` at layers 0 and 39 of the serve
+   path's first, middle and last step, the cross path's last step, and
+   ``tests/test_kernels.py``'s decode cases in float32 and bf16
+   (``out``, ``m``, ``l`` within rtol = atol = 2e-5 for a float32 q,
+   2e-2 for bf16), with ``scaled_dot_product_attention`` timed beside it
+   as a yardstick.  Times from CUDA events.
 
 It prints one ``{"kernels": [...]}`` line, the card's name and power
 limit, and last ``{"ok": true, "device": {...}}``; any failed phase exits
@@ -52,11 +67,15 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 PEAK_BYTES = 3.35e12
 PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 34e12}
 
+#: kernel -> (the TPU kernel it replaces, its source in the port)
 KERNELS = {
-    "maxmin_fill": "src/repro/kernels/maxmin.py:69",
-    "loss_factors": "src/repro/kernels/maxmin.py:232",
+    "maxmin_fill": ("src/repro/kernels/maxmin.py:69",
+                    "src/repro_torch/kernels/csrc/maxmin.cu"),
+    "loss_factors": ("src/repro/kernels/maxmin.py:232",
+                     "src/repro_torch/kernels/csrc/maxmin.cu"),
+    "flash_decode": ("src/repro/kernels/flash_decode.py:27",
+                     "src/repro_torch/kernels/csrc/flash_decode.cu"),
 }
-SOURCE = "src/repro_torch/kernels/csrc/maxmin.cu"
 
 HPL_VOLUME = 8 << 20
 HPL_CHUNKS = 8
@@ -75,6 +94,19 @@ MATRIX = (dict(n_pods=16, leaves_per_pod=16, hosts_per_leaf=16,
 #: rounds held one by one against the plain round (the whole filling is
 #: compared however many rounds it takes)
 ROUNDS_CHECKED = 256
+#: the serve path: granite_3_2b at full width, as launch/serve.py runs
+#: it; steps 700-709 (mid-run, every slot busy) traced with torch.profiler
+SERVE = dict(arch="granite_3_2b", smoke=False, requests=16, pool=8,
+             max_new=32, max_seq=4096, profile=(700, 10))
+#: the cross-device check: the smoke config in float32 on card and CPU
+CROSS = dict(arch="granite_3_2b", smoke=True, requests=6, pool=4,
+             max_new=8, max_seq=64)
+#: tests/test_kernels.py's flash-decode cases: (B, S, H, KVH, D, kv_lens)
+DECODE_CASES = ((1, 512, 4, 4, 64, (512,)), (2, 1024, 8, 2, 64, (1000, 37)),
+                (2, 512, 4, 1, 32, (1, 512)), (1, 768, 2, 2, 128, (600,)))
+#: kernel-vs-plain tolerance (rtol = atol) by the dtype of q and out,
+#: tests/test_kernels.py's
+DECODE_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 FAILURES: list = []
 
 
@@ -155,6 +187,25 @@ def matrix_ops(wl, hosts, n_groups, group, churn, n_flaps):
 
 # -------------------------------------------------------------- recording
 
+def launch_counters():
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.kernels import maxmin as mm
+    return mm.LAUNCHES, fd.LAUNCHES
+
+
+def reset_counts() -> None:
+    for counter in launch_counters():
+        for name in counter:
+            counter[name] = 0
+
+
+def counts() -> dict:
+    out = {}
+    for counter in launch_counters():
+        out.update(counter)
+    return out
+
+
 class Recorder:
     """Wraps the kernel wrappers the solver calls to keep one copy of
     each distinct input (by shape, dtype and solve options) per phase."""
@@ -189,22 +240,21 @@ class Recorder:
 class Phase:
     """One main-path phase: launch counts zeroed before, read after."""
 
-    def __init__(self, name, rec, mm, fts, lossy):
-        self.name, self.rec, self.mm, self.fts = name, rec, mm, fts
-        self.lossy = lossy
+    def __init__(self, name, rec, fts, lossy):
+        self.name, self.rec, self.fts, self.lossy = name, rec, fts, lossy
 
     def __enter__(self):
         torch.cuda.synchronize()
         self.fts.reset_solve_stats()
         self.rec.phase = self.name
-        self.mm.reset_launches()
+        reset_counts()
         self.t0 = time.perf_counter()
         return self
 
     def __exit__(self, *exc):
         torch.cuda.synchronize()
         self.wall = time.perf_counter() - self.t0
-        self.launches = dict(self.mm.LAUNCHES)
+        self.launches = counts()
         self.rec.phase = None
         st = self.fts.SOLVE_STATS
         self.stats = {"wall_s": self.wall, "solve_s": st["solve_s"],
@@ -271,7 +321,7 @@ def run_paths(rec, fig14=FIG14, fig15=FIG15, matrix=MATRIX):
         log(f"[paths] {label}: {len(topo.hosts)} hosts, "
             f"{sum(len(p) for p in topo.ports.values())} directed links, "
             f"built in {time.perf_counter() - t0:.1f} s")
-        with Phase(label, rec, mm, fts, lossy=False) as ph:
+        with Phase(label, rec, fts, lossy=False) as ph:
             recss = make_engine("flow", topo).run_workloads(wls)
         t0 = time.perf_counter()
         want = make_engine("flow-np", topo).run_workloads(wls)
@@ -294,7 +344,7 @@ def run_paths(rec, fig14=FIG14, fig15=FIG15, matrix=MATRIX):
         kw = dict(loss_rate=loss, seed=11, group_kw={"window": 512},
                   relay_kw={"window": 512})
         rows = []
-        with Phase(label, rec, mm, fts, lossy=loss > 0) as ph:
+        with Phase(label, rec, fts, lossy=loss > 0) as ph:
             got = {}
             for transport in ("gleam", "multiunicast"):
                 eng = make_engine("flow", topo, **kw)
@@ -321,7 +371,7 @@ def run_paths(rec, fig14=FIG14, fig15=FIG15, matrix=MATRIX):
     label = "matrix"
     rows, seg_err = [], 0.0
     problems = []
-    with Phase(label, rec, mm, fts, lossy=True) as ph:
+    with Phase(label, rec, fts, lossy=True) as ph:
         got = {}
         for loss in (0.0, 1e-3):
             eng = make_engine("flow", topo,
@@ -372,6 +422,221 @@ def sweep_cells(eng, wl, topo, cells, n_groups, group):
     return [sum(r.jct(len(op.surviving_receivers()))
                 for op, r in zip(ops, recs)) / len(ops)
             for ops, recs in zip(all_ops, recss)]
+
+
+# ------------------------------------------------------------------ serve
+
+class DecodeRecorder:
+    """Wraps ``kernels/ops.flash_decode`` (the attention layers look it up
+    at call time) to keep the kernel inputs of the first and last layer
+    at chosen steps of a serve phase, and at its last step.  Each step
+    calls it once per layer, in layer order."""
+
+    def __init__(self, ops):
+        self.ops, self._call = ops, ops.flash_decode
+        self.phase, self.inputs = None, {}
+        ops.flash_decode = self.wrapped
+
+    def arm(self, phase, n_layers, steps):
+        self.phase, self.n_layers, self.steps = phase, n_layers, set(steps)
+        self.calls, self.last = 0, {}
+
+    def disarm(self):
+        """Keep the last step's inputs: its k/v are views of the caches,
+        which no later step has changed."""
+        for layer, (step, q, k, v, kv_len) in self.last.items():
+            self.inputs.setdefault((self.phase, step, layer),
+                                   (q, k.clone(), v.clone(), kv_len))
+        self.phase, self.last = None, {}
+
+    def wrapped(self, q, k, v, kv_len):
+        if self.phase:
+            step, layer = divmod(self.calls, self.n_layers)
+            self.calls += 1
+            if layer in (0, self.n_layers - 1):
+                if step in self.steps:
+                    self.inputs[(self.phase, step, layer)] = tuple(
+                        t.clone() for t in (q, k, v, kv_len))
+                self.last[layer] = (step, q.clone(), k, v, kv_len.clone())
+        return self._call(q, k, v, kv_len)
+
+
+def scheduled_steps(prompt_lens, max_new, pool):
+    """Pool steps the server takes: a request holds its slot for its
+    prompt plus max_new - 1 steps (the last prompt token's step yields
+    the first new token), and a freed slot takes the next queued request
+    at the following step."""
+    free = [0] * pool
+    for n in prompt_lens:
+        start = min(free)
+        free[free.index(start)] = start + n + max_new - 1
+    return max(free)
+
+
+class FiniteSampler:
+    """Greedy sampling that also folds, on the device, whether every
+    logit of every step was finite, keeps each step's logits when asked
+    to, and traces ``profile = (first step, steps)`` with
+    ``torch.profiler``."""
+
+    def __init__(self, keep=False, profile=None):
+        self.finite, self.keep, self.logits = None, keep, []
+        self.profile, self.calls = profile, 0
+        self.prof = self.trace = None
+
+    def __call__(self, logits):
+        ok = torch.isfinite(logits).all()
+        self.finite = ok if self.finite is None else self.finite & ok
+        if self.keep:
+            self.logits.append(logits.detach().cpu())
+        if self.profile:
+            self._profile_step()
+        self.calls += 1
+        return torch.argmax(logits, -1)
+
+    def _profile_step(self):
+        first, n = self.profile
+        if self.calls == first:
+            torch.cuda.synchronize()
+            self.prof = torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA])
+            self.prof.__enter__()
+            self.t0 = time.perf_counter()
+        elif self.calls == first + n and self.prof is not None:
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - self.t0) * 1e3
+            self.prof.__exit__(None, None, None)
+            self.trace = profile_summary(self.prof, wall_ms, n)
+            self.prof = None
+
+
+def profile_summary(prof, wall_ms, steps):
+    """Device busy time (the sum of the device's own events: kernels,
+    copies and fills; the CPU ops that launched them would count them a
+    second time), the idle share of the window, the top device events
+    and the top CPU ops by self time."""
+    from torch.autograd import DeviceType
+    avgs = prof.key_averages()
+    dev = sorted(((a.key, a.self_device_time_total / 1e3, a.count)
+                  for a in avgs if a.device_type != DeviceType.CPU),
+                 key=lambda r: -r[1])
+    host = sorted(((a.key, a.self_cpu_time_total / 1e3, a.count)
+                   for a in avgs if a.device_type == DeviceType.CPU),
+                  key=lambda r: -r[1])
+    busy = sum(r[1] for r in dev)
+    return {"steps": steps, "wall_ms": wall_ms, "device_busy_ms": busy,
+            "device_idle_share": 1 - busy / wall_ms if busy else None,
+            "top_device_ms": dev[:12], "top_host_ms": host[:12]}
+
+
+def serve_phase(label, spec, rec, device="cuda", cfg=None, model=None,
+                record=True):
+    """Serve ``spec`` through ``launch/serve.py``'s ``serve`` (on the
+    seed-0 model drawn on the device unless ``model`` is given), keeping
+    flash-decode inputs when ``record``; returns the phase record and
+    the sampler."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch import serve as launch_serve
+    cfg = cfg or get_config(spec["arch"], smoke=spec["smoke"])
+    lens = [len(p) for p in launch_serve.make_prompts(
+        spec["requests"], cfg.vocab_size, spec["max_seq"])]
+    want_steps = scheduled_steps(lens, spec["max_new"], spec["pool"])
+    sampler = FiniteSampler(keep=spec["smoke"],
+                            profile=spec.get("profile"))
+    if record:
+        rec.arm(label, cfg.n_layers, (0, want_steps // 2))
+    reset_counts()
+    out = launch_serve.serve(cfg, requests=spec["requests"],
+                             pool=spec["pool"], max_new=spec["max_new"],
+                             max_seq=spec["max_seq"], device=device,
+                             sampler=sampler, model=model)
+    launches = counts()
+    if record:
+        rec.disarm()
+    stats, wall = out["stats"], out["seconds"]
+    tokens = [r.out_tokens for r in out["requests"]]
+    row = {"arch": cfg.name, "n_layers": cfg.n_layers,
+           "d_model": cfg.d_model, "compute_dtype": cfg.compute_dtype,
+           "device": device, **{k: spec[k] for k in
+                                ("requests", "pool", "max_new", "max_seq")},
+           "prompt_lens": lens, "completed": stats.completed,
+           "tokens_generated": stats.tokens_generated, "steps": stats.steps,
+           "scheduled_steps": want_steps, "wall_s": wall,
+           "ms_per_step": wall / max(stats.steps, 1) * 1e3,
+           "tokens_per_s": stats.tokens_generated / wall,
+           "logits_finite": bool(sampler.finite), "launches": launches,
+           "profile": sampler.trace}
+    log(f"[paths] {label}: {stats.completed}/{spec['requests']} completed, "
+        f"{stats.tokens_generated} tokens, {stats.steps} pool steps "
+        f"(scheduled {want_steps}), wall {wall:.3f} s, "
+        f"{row['ms_per_step']:.3f} ms/step, {row['tokens_per_s']:.1f} "
+        f"tok/s, launches {launches}")
+    if sampler.trace:
+        tr = sampler.trace
+        log(f"[paths] {label} profile of {tr['steps']} steps: wall "
+            f"{tr['wall_ms']:.3f} ms, device busy {tr['device_busy_ms']:.3f}"
+            f" ms, idle share {tr['device_idle_share']}")
+        for key, ms, n in tr["top_device_ms"]:
+            log(f"[paths]   device {ms:10.3f} ms  {n:6d}x  {key[:90]}")
+        for key, ms, n in tr["top_host_ms"]:
+            log(f"[paths]   host   {ms:10.3f} ms  {n:6d}x  {key[:90]}")
+    why = []
+    if stats.completed != spec["requests"] or any(
+            len(t) != spec["max_new"] for t in tokens):
+        why.append("not every request completed with max_new tokens")
+    if stats.steps != want_steps:
+        why.append(f"{stats.steps} steps, the scheduler gives {want_steps}")
+    if not row["logits_finite"] or not all(
+            0 <= t < cfg.vocab_size for ts in tokens for t in ts):
+        why.append("non-finite logits or tokens outside the vocabulary")
+    want_launches = stats.steps * cfg.n_layers if device == "cuda" else 0
+    if launches["flash_decode"] != want_launches:
+        why.append(f"flash_decode launched {launches['flash_decode']} "
+                   f"times, not {want_launches}")
+    for msg in why:
+        fail(f"{label}: {msg}")
+    return dict(row, tokens=tokens), sampler
+
+
+def run_serve(rec, serve=SERVE, cross=CROSS, device="cuda"):
+    """The serve path at full width, then the cross-device check."""
+    out = {}
+    row, _ = serve_phase("serve", serve, rec, device)
+    out["serve"] = {k: v for k, v in row.items() if k != "tokens"}
+
+    prev_tf32 = torch.backends.cuda.matmul.allow_tf32, \
+        torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.configs.base import get_config
+    from repro_torch.models.model import Model
+    cfg = get_config(cross["arch"], smoke=cross["smoke"]).replace(
+        compute_dtype="float32")
+    cpu_model = Model(cfg, seed=0, device="cpu")
+    card_model = Model(cfg, seed=0, device=device)
+    card_model.load_state_dict(cpu_model.state_dict())
+    try:
+        card, card_s = serve_phase("cross", cross, rec, device, cfg,
+                                   card_model)
+        cpu, cpu_s = serve_phase("cross_cpu", cross, rec, "cpu", cfg,
+                                 cpu_model, record=False)
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = prev_tf32
+    same = card["tokens"] == cpu["tokens"]
+    err = max(float((a - b).abs().max())
+              for a, b in zip(card_s.logits, cpu_s.logits)) \
+        if len(card_s.logits) == len(cpu_s.logits) else float("inf")
+    log(f"[paths] cross: tokens identical on card and CPU: {same}; "
+        f"per-step logits max abs diff {err!r} (limit 1e-3) over "
+        f"{len(card_s.logits)} steps")
+    if not same or not err <= 1e-3:
+        fail(f"cross: tokens identical {same}, logits diff {err}")
+    out["cross"] = dict({k: v for k, v in card.items() if k != "tokens"},
+                        tokens_identical=same, logits_max_abs_diff=err,
+                        cpu_wall_s=cpu["wall_s"])
+    return out
 
 
 # ---------------------------------------------------------------- kernels
@@ -554,24 +819,106 @@ def run_kernels(rec, paths):
     return rows
 
 
+def decode_bound(q, k, kv_len):
+    """The valid cache prefix's keys and values read once, q read and
+    out, m, l written once; ~4 f32 operations per (key, q head, dim)."""
+    b, h, d = q.shape
+    n_keys = int(kv_len.clamp(0, k.shape[1]).sum())
+    n_bytes = (n_keys * k.shape[2] * d * 2 * k.element_size()
+               + 2 * q.numel() * q.element_size() + 2 * b * h * 4)
+    return bound(n_bytes, 4 * n_keys * h * d, torch.float32), n_keys
+
+
+def sdpa_ms(q, k, v, kv_len):
+    """One PyTorch call computing the same attention, as a yardstick
+    (the port never calls it); None where q and the cache differ in
+    dtype, which it does not take."""
+    if q.dtype != k.dtype:
+        return None
+    mask = (torch.arange(k.shape[1], device=q.device)[None, :]
+            < kv_len[:, None])[:, None, None, :]
+    qt, kt, vt = q[:, :, None], k.transpose(1, 2), v.transpose(1, 2)
+    return cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=mask, enable_gqa=True), 20)
+
+
+def check_decode(name, q, k, v, kv_len, fd, ref, launches=0):
+    """Kernel vs plain flash decode: out, m and l; times."""
+    tol = DECODE_TOL[q.dtype]
+    got = fd.flash_decode(q, k, v, kv_len)
+    want = ref.decode_reference(q, k, v, kv_len)
+    errs = [float((g.float() - w.float()).abs().max())
+            for g, w in zip(got, want)]
+    ok = all(torch.allclose(g.float(), w.float(), rtol=tol, atol=tol)
+             for g, w in zip(got, want))
+    ms = cuda_ms(lambda: fd.flash_decode(q, k, v, kv_len), 50)
+    plain_ms = cuda_ms(lambda: ref.decode_reference(q, k, v, kv_len), 10)
+    (bound_ms, bound_by, bytes_ms), n_keys = decode_bound(q, k, kv_len)
+    row = {"kernel": "flash_decode", "phase": name,
+           "shape": [*q.shape, k.shape[1], k.shape[2]],
+           "q_dtype": str(q.dtype).split(".")[-1],
+           "kv_dtype": str(k.dtype).split(".")[-1],
+           "kv_len": kv_len.tolist(), "kv_keys": n_keys,
+           "max_abs_err": errs[0], "m_max_abs_err": errs[1],
+           "l_max_abs_err": errs[2], "tol": tol, "ms": ms,
+           "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+           "bytes_bound_ms": bytes_ms, "library_ms": sdpa_ms(q, k, v, kv_len),
+           "phase_launches": launches, "ok": ok}
+    log(f"[kernels] {json.dumps(row)}")
+    if not ok:
+        fail(f"flash_decode {name} {row['shape']} {row['q_dtype']}/"
+             f"{row['kv_dtype']}: out/m/l errors {errs}, tol {tol}")
+    return row
+
+
+def run_decode_kernels(rec, paths):
+    """Every captured flash-decode input of the serve paths, then
+    tests/test_kernels.py's decode cases in float32 and bf16."""
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.kernels import ref
+    rows = []
+    for (phase, step, layer), (q, k, v, kv_len) in sorted(
+            rec.inputs.items()):
+        rows.append(check_decode(f"{phase} step {step} layer {layer}", q, k,
+                                 v, kv_len, fd, ref,
+                                 paths[phase]["launches"]["flash_decode"]))
+    rng = np.random.default_rng(0)
+    for b, s, h, kvh, d, kv_lens in DECODE_CASES:
+        arrays = [rng.standard_normal(shape).astype(np.float32) for shape in
+                  ((b, h, d), (b, s, kvh, d), (b, s, kvh, d))]
+        kv_len = torch.tensor(kv_lens, dtype=torch.int32, device="cuda")
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = (torch.tensor(a, device="cuda").to(dtype)
+                       for a in arrays)
+            rows.append(check_decode("decode_cases", q, k, v, kv_len, fd,
+                                     ref))
+    return rows
+
+
 def kernels_line(rows, paths):
     """One entry per kernel: launches summed over the path phases, the
     worst error of any comparison, and the times of its largest
     main-path input in the dtype the path used."""
     out = []
-    for name, replaces in KERNELS.items():
+    for name, (replaces, source) in KERNELS.items():
         mine = [r for r in rows if r["kernel"] == name]
-        path_rows = [r for r in mine if r.get("path_dtype")]
         launches = sum(p["launches"][name] for p in paths.values())
-        rep = max(path_rows or mine,
-                  key=lambda r: np.prod(r["shape"]) * r["caps"])
-        out.append({"name": name, "route": "cuda", "source": SOURCE,
+        if name == "flash_decode":
+            rep = max([r for r in mine if r["phase"].startswith("serve ")]
+                      or mine, key=lambda r: r["kv_keys"])
+            dtype = f"{rep['q_dtype']}/{rep['kv_dtype']}"
+        else:
+            rep = max([r for r in mine if r.get("path_dtype")] or mine,
+                      key=lambda r: np.prod(r["shape"]) * r["caps"])
+            dtype = rep["dtype"]
+        out.append({"name": name, "route": "cuda", "source": source,
                     "replaces": replaces, "launches": launches,
                     "max_abs_err": max(r["max_abs_err"] for r in mine),
                     "ms": rep["ms"], "plain_ms": rep["plain_ms"],
                     "bound_ms": rep["bound_ms"], "bound_by": rep["bound_by"],
-                    "library_ms": None, "phase": rep["phase"],
-                    "shape": rep["shape"], "dtype": rep["dtype"]})
+                    "library_ms": rep.get("library_ms"),
+                    "phase": rep["phase"], "shape": rep["shape"],
+                    "dtype": dtype})
     return {"kernels": out}
 
 
@@ -589,23 +936,28 @@ def main() -> int:
               "card", file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.join(REPO, "src"))
-    from repro_torch.kernels import build
+    from repro_torch.kernels import build, ops
     from repro_torch.kernels import maxmin as mm
     t_start = time.perf_counter()
 
     t0 = time.perf_counter()
-    build.library()
-    log(f"[build] {os.path.basename(str(build.library_path()))} in "
-        f"{time.perf_counter() - t0:.2f} s")
-    for line in build.BUILD_LOG:
-        if "registers" in line or "spill" in line or "entry function" in line:
-            log(f"[build]   {line.strip()}")
+    built = build.build()
+    log(f"[build] {', '.join(p.name for p in built.values())} in "
+        f"{time.perf_counter() - t0:.2f} s (one nvcc per source, in "
+        f"parallel)")
+    for name, lines in build.BUILD_LOG.items():
+        for line in lines:
+            if "registers" in line or "spill" in line \
+                    or "entry function" in line:
+                log(f"[build]   {name}: {line.strip()}")
     card = gpu_name_power()
     log(f"[build] card: {card}")
 
     rec = Recorder(mm)
+    decode_rec = DecodeRecorder(ops)
     paths = run_paths(rec)
-    rows = run_kernels(rec, paths)
+    paths.update(run_serve(decode_rec))
+    rows = run_kernels(rec, paths) + run_decode_kernels(decode_rec, paths)
     line = kernels_line(rows, paths)
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
 

@@ -1,15 +1,20 @@
-"""Carry a topology and a workload across from the reference package.
+"""Carry state across from the reference package.
 
-The port's state is a fabric and the operations staged on it, so this is
-its counterpart of carrying weights across: both functions read the
-reference's objects by duck typing (attributes and ``to_dict``), never by
-importing the reference package, and rebuild the port's own objects so
-both packages can be fed the same inputs.
+A topology and a workload (the flow engine's state: a fabric and the
+operations staged on it), and a model's parameters.  Every function
+reads the reference's objects by duck typing (attributes, ``to_dict``,
+nested dicts of arrays), never by importing the reference package, and
+builds the port's own objects so both packages can be fed the same
+inputs.
 """
 from __future__ import annotations
 
+import numpy as np
+import torch
+
 from repro_torch.core.fattree import Link, Topology
 from repro_torch.core.workload import Workload
+from repro_torch.models.blocks import tree_leaves
 
 
 def topology_from_reference(topo) -> Topology:
@@ -38,3 +43,13 @@ def topology_from_reference(topo) -> Topology:
 def workload_from_reference(wl) -> Workload:
     """A port ``Workload`` equal to a reference one (through its dict)."""
     return Workload.from_dict(wl.to_dict())
+
+
+def params_from_reference(tree) -> dict:
+    """The reference's parameter tree (nested dicts of arrays) as a
+    state dict of the port's ``models.model.Model``: one CPU tensor per
+    leaf under its dotted name (``blocks.sub0.mixer.wq``), stacked
+    ``(n_blocks, ...)`` layouts kept.  Load it with
+    ``model.load_state_dict``."""
+    return {name: torch.tensor(np.asarray(leaf))
+            for name, leaf in tree_leaves(tree)}

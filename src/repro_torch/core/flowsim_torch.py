@@ -53,6 +53,7 @@ import torch
 from repro_torch.core.fattree import Topology
 from repro_torch.core.flowsim import DCQCN_MIN_RATE, DCQCN_RATE_NUM, Flow, \
     LinkMap
+from repro_torch.device import resolve_device
 from repro_torch.kernels import maxmin as mm
 from repro_torch.kernels import ref
 
@@ -84,19 +85,6 @@ def reset_solve_stats():
 def _bucket(n: int, lo: int) -> int:
     """Smallest power of two >= max(n, lo)."""
     return max(lo, 1 << max(int(n) - 1, 0).bit_length())
-
-
-def resolve_device(device) -> torch.device:
-    """The solver's device; ``cuda`` without a card raises."""
-    dev = torch.device(device)
-    if dev.type == "cuda":
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "device 'cuda' requested but no CUDA device is available; "
-                "pass device='cpu' to run the plain PyTorch solver")
-    elif dev.type != "cpu":
-        raise ValueError(f"device must be 'cuda' or 'cpu', got {device!r}")
-    return dev
 
 
 def compact_links(fl: np.ndarray, cap_ext: np.ndarray):

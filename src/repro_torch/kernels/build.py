@@ -1,12 +1,14 @@
 """Build and bind the CUDA kernels of ``csrc/`` at first use.
 
-``nvcc`` compiles ``csrc/maxmin.cu`` for Hopper (``sm_90a``) into a shared
-library with a plain C interface, which ``ctypes`` loads (no PyTorch
-headers, so the build takes seconds).  The library lands in ``_build/``
-beside this module, named by a hash of the source and the flags, so a
-rebuilt source never loads a stale library and a second process reuses
-the first one's build.  Nothing is compiled when the module is imported:
-the CPU tests import every module on a machine without ``nvcc``.
+``nvcc`` compiles each ``csrc/*.cu`` for Hopper (``sm_90a``) into its own
+shared library with a plain C interface, which ``ctypes`` loads (no
+PyTorch headers, so a build takes seconds).  ``build()`` starts one
+``nvcc`` per missing library, all at once, and waits for them.  Each
+library lands in ``_build/`` beside this module, named by a hash of its
+source and flags, so a rebuilt source never loads a stale library and a
+second process reuses the first one's build.  Nothing is compiled when
+the module is imported: the CPU tests import every module on a machine
+without ``nvcc``.
 """
 from __future__ import annotations
 
@@ -19,24 +21,44 @@ import subprocess
 import tempfile
 from pathlib import Path
 
-SOURCE = Path(__file__).resolve().parent / "csrc" / "maxmin.cu"
+CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 
-#: -fmad=false keeps every a*b+c rounding twice, as the plain PyTorch
-#: versions (one op per expression) do
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-#: compiler output of the build this process loaded (``-Xptxas -v``:
-#: registers, shared memory and spills per kernel); empty on a cache hit
-BUILD_LOG: list = []
+#: library name -> (source under csrc/, flags beyond NVCC_FLAGS).
+#: maxmin builds with -fmad=false, which keeps every a*b+c rounding twice
+#: as the plain PyTorch versions (one op per expression) do: its kernels
+#: are bit-exact with them.  flash_decode keeps fused multiply-add: its
+#: sums run in another order than the plain version's anyway, and it is
+#: held to a tolerance.
+LIBRARIES = {
+    "maxmin": ("maxmin.cu", ("-fmad=false",)),
+    "flash_decode": ("flash_decode.cu", ()),
+}
 
-_P, _I, _L, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
-    ctypes.c_double
+#: compiler output of the builds this process made, by library
+#: (``-Xptxas -v``: registers, shared memory and spills per kernel);
+#: empty for a library found already built
+BUILD_LOG: dict = {}
+
+_P, _I, _L, _D, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
+    ctypes.c_double, ctypes.c_float
 _FILL_ARGS = [_P, _I, _I, _I, _P, _L, _I, _P, _P, _P, _P, _P, _P, _P,
               _I, _D, _I, _I, _P]
 _LOSS_ARGS = [_P, _I, _I, _I, _P, _P, _P, _L, _I, _P, _P, _P, _P, _P, _P,
               _P, _D, _D, _D, _I, _P]
+_DECODE_ARGS = [_I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P, _P,
+                _P, _P, _P, _P, _P]
+_SIGNATURES = {
+    "maxmin": {"maxmin_fill_f32": _FILL_ARGS, "maxmin_fill_f64": _FILL_ARGS,
+               "loss_factors_f32": _LOSS_ARGS,
+               "loss_factors_f64": _LOSS_ARGS},
+    "flash_decode": {"flash_decode": _DECODE_ARGS},
+}
+_ERROR_STRING = {"maxmin": "kernels_error_string",
+                 "flash_decode": "flash_decode_error_string"}
 
 
 def nvcc_path() -> str:
@@ -52,51 +74,70 @@ def nvcc_path() -> str:
                        "need the CUDA toolkit (set CUDA_HOME)")
 
 
-def library_path() -> Path:
-    digest = hashlib.sha256(SOURCE.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"maxmin_{digest[:16]}.so"
+def source(name: str) -> Path:
+    return CSRC / LIBRARIES[name][0]
 
 
-def build() -> Path:
-    """Compile the library unless this source's build already exists."""
-    out = library_path()
-    if out.exists():
-        return out
+def flags(name: str) -> tuple:
+    return NVCC_FLAGS + LIBRARIES[name][1]
+
+
+def library_path(name: str) -> Path:
+    digest = hashlib.sha256(source(name).read_bytes()
+                            + " ".join(flags(name)).encode()).hexdigest()
+    return BUILD_DIR / f"{name}_{digest[:16]}.so"
+
+
+def build(names=None) -> dict:
+    """Compile every named library (all by default) whose build does not
+    exist yet, one ``nvcc`` each, in parallel; returns name -> path."""
+    names = tuple(LIBRARIES) if names is None else tuple(names)
+    todo = [n for n in names if not library_path(n).exists()]
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
+    procs = {}
     try:
-        proc = subprocess.run([nvcc_path(), *NVCC_FLAGS, "-o", tmp,
-                               str(SOURCE)], capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{proc.stdout}\n{proc.stderr}")
-        BUILD_LOG[:] = (proc.stdout + proc.stderr).splitlines()
-        os.replace(tmp, out)             # atomic: readers never see a part
+        for name in todo:
+            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+            os.close(fd)
+            procs[name] = (tmp, subprocess.Popen(
+                [nvcc_path(), *flags(name), "-o", tmp, str(source(name))],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        failed = []
+        for name, (tmp, proc) in procs.items():
+            out, _ = proc.communicate()
+            if proc.returncode != 0:
+                failed.append(f"{name}: nvcc failed ({proc.returncode}):\n"
+                              f"{out}")
+                continue
+            BUILD_LOG[name] = out.splitlines()
+            os.replace(tmp, library_path(name))  # readers never see a part
+        if failed:
+            raise RuntimeError("\n".join(failed))
     finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    return out
+        for tmp, proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            if os.path.exists(tmp):
+                os.unlink(tmp)
+    return {n: library_path(n) for n in names}
 
 
 @functools.lru_cache(maxsize=None)
-def library() -> ctypes.CDLL:
-    """The loaded kernel library, built on first call."""
-    lib = ctypes.CDLL(str(build()))
-    for name in ("maxmin_fill_f32", "maxmin_fill_f64"):
-        fn = getattr(lib, name)
-        fn.argtypes, fn.restype = _FILL_ARGS, ctypes.c_int
-    for name in ("loss_factors_f32", "loss_factors_f64"):
-        fn = getattr(lib, name)
-        fn.argtypes, fn.restype = _LOSS_ARGS, ctypes.c_int
-    lib.kernels_error_string.argtypes = [ctypes.c_int]
-    lib.kernels_error_string.restype = ctypes.c_char_p
+def library(name: str) -> ctypes.CDLL:
+    """The loaded kernel library ``name``, built on first call."""
+    lib = ctypes.CDLL(str(build((name,))[name]))
+    for fn_name, argtypes in _SIGNATURES[name].items():
+        fn = getattr(lib, fn_name)
+        fn.argtypes, fn.restype = argtypes, ctypes.c_int
+    err = getattr(lib, _ERROR_STRING[name])
+    err.argtypes, err.restype = [ctypes.c_int], ctypes.c_char_p
     return lib
 
 
-def check(code: int, what: str) -> None:
-    """Raise when a C entry point reported a CUDA error."""
+def check(name: str, code: int, what: str) -> None:
+    """Raise when a C entry point of library ``name`` reported a CUDA
+    error."""
     if code != 0:
-        msg = library().kernels_error_string(code).decode()
+        msg = getattr(library(name), _ERROR_STRING[name])(code).decode()
         raise RuntimeError(f"{what}: CUDA error {code} ({msg})")

@@ -23,6 +23,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.device import on_card
 from repro_torch.kernels import ref
 
 #: kernel launches since the last ``reset_launches()``, by kernel name
@@ -32,16 +33,6 @@ LAUNCHES = {"maxmin_fill": 0, "loss_factors": 0}
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
-
-
-def _on_card(t: torch.Tensor) -> bool:
-    """True for a CUDA tensor, False for a CPU one; other devices raise."""
-    if t.device.type == "cuda":
-        return True
-    if t.device.type == "cpu":
-        return False
-    raise ValueError(f"repro_torch kernels take CPU or CUDA tensors, "
-                     f"not {t.device}")
 
 
 def _group(n_hops: int) -> int:
@@ -94,8 +85,8 @@ def _fill(fl, cap, frozen, rates, *, tol, bound, floor_rates):
     used = torch.empty(n_caps, dtype=dtype, device=fl.device)
     cnt = torch.empty(n_caps, dtype=torch.int32, device=fl.device)
     scal = torch.empty(4, dtype=torch.int64, device=fl.device)
-    fn = build.library().maxmin_fill_f64 if dtype == torch.float64 \
-        else build.library().maxmin_fill_f32
+    fn = build.library("maxmin").maxmin_fill_f64 \
+        if dtype == torch.float64 else build.library("maxmin").maxmin_fill_f32
     with torch.cuda.device(fl.device):
         stream = torch.cuda.current_stream(fl.device).cuda_stream
         code = fn(fl.data_ptr(), b, f, h, cap.data_ptr(),
@@ -104,7 +95,7 @@ def _fill(fl, cap, frozen, rates, *, tol, bound, floor_rates):
                   used.data_ptr(), cnt.data_ptr(), scal.data_ptr(),
                   int(bound), float(tol), int(floor_rates), _group(h),
                   stream)
-    build.check(code, "maxmin_fill")
+    build.check("maxmin", code, "maxmin_fill")
     LAUNCHES["maxmin_fill"] += 1
     if single:
         return rates[0], frozen[0], cap_out[0]
@@ -113,7 +104,7 @@ def _fill(fl, cap, frozen, rates, *, tol, bound, floor_rates):
 
 def maxmin_round(flow_links, frozen, rates, cap_rem, *, tol: float = 1e-6):
     """One progressive-filling round; returns (rates, frozen, cap_rem)."""
-    if not _on_card(flow_links):
+    if not on_card(flow_links):
         return ref.maxmin_round_reference(flow_links, frozen, rates, cap_rem,
                                           tol=tol)
     return _fill(flow_links, cap_rem, frozen, rates, tol=tol, bound=0,
@@ -129,7 +120,7 @@ def maxmin_rates(flow_links, cap, active, *, tol: float = 1e-6,
     when given: the dynamic-segment lanes pass ``tol=1e-12,
     max_rounds=64`` to mirror the numpy ``static_maxmin`` filling).
     """
-    if not _on_card(flow_links):
+    if not on_card(flow_links):
         return ref.maxmin_rates_reference(flow_links, cap, active, tol=tol,
                                           max_rounds=max_rounds)
     frozen = 1.0 - active.to(cap.dtype)
@@ -142,7 +133,7 @@ def maxmin_rates(flow_links, cap, active, *, tol: float = 1e-6,
 def loss_factors(flow_links, rates, active, cap, q, wsq, wnd, ecn, *,
                  dcqcn_num: float, dcqcn_min: float, util_eps: float = 1e-3):
     """Expected-value loss/DCQCN rate factors, (F,) or (B, F) in (0, 1]."""
-    if not _on_card(flow_links):
+    if not on_card(flow_links):
         return ref.loss_factors_reference(
             flow_links, rates, active, cap, q, wsq, wnd, ecn,
             dcqcn_num=dcqcn_num, dcqcn_min=dcqcn_min, util_eps=util_eps)
@@ -155,8 +146,9 @@ def loss_factors(flow_links, rates, active, cap, q, wsq, wnd, ecn, *,
     fac = torch.empty((b, f), dtype=cap.dtype, device=fl.device)
     util = torch.empty((b, n_caps), dtype=cap.dtype, device=fl.device)
     cnt = torch.empty((b, n_caps), dtype=torch.int32, device=fl.device)
-    fn = build.library().loss_factors_f64 if cap.dtype == torch.float64 \
-        else build.library().loss_factors_f32
+    fn = build.library("maxmin").loss_factors_f64 \
+        if cap.dtype == torch.float64 \
+        else build.library("maxmin").loss_factors_f32
     with torch.cuda.device(fl.device):
         stream = torch.cuda.current_stream(fl.device).cuda_stream
         code = fn(fl.data_ptr(), b, f, h, rates.data_ptr(),
@@ -166,6 +158,6 @@ def loss_factors(flow_links, rates, active, cap, q, wsq, wnd, ecn, *,
                   fac.data_ptr(), util.data_ptr(), cnt.data_ptr(),
                   float(dcqcn_num), float(dcqcn_min), float(util_eps),
                   _group(h), stream)
-    build.check(code, "loss_factors")
+    build.check("maxmin", code, "loss_factors")
     LAUNCHES["loss_factors"] += 1
     return fac[0] if single else fac

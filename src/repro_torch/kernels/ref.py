@@ -1,17 +1,18 @@
-"""Plain PyTorch versions of the max-min and loss-factor kernels.
+"""Plain PyTorch versions of the kernels of ``csrc/``.
 
-Counterparts of the reference package's ``kernels/ref.py``
-(``maxmin_round_reference`` and ``loss_factors_reference``), written with
+Counterparts of the reference package's ``kernels/ref.py``:
+``maxmin_round_reference`` and ``loss_factors_reference``, written with
 ``index_add_`` scatters and ``gather``s in the working dtype (float32 or
-float64), plus the filling loop of the reference's ``maxmin_rates``.
-They run on any device: the wrappers in ``kernels/maxmin.py`` take them
-for CPU tensors, and ``chip_smoke.py`` holds the CUDA kernels against
-them on the card.
+float64), plus the filling loop of the reference's ``maxmin_rates``; and
+``decode_reference``, the flash-decode function with its softmax
+statistics.  They run on any device: the wrappers in
+``kernels/maxmin.py`` and ``kernels/ops.py`` take them for CPU tensors,
+and ``chip_smoke.py`` holds the CUDA kernels against them on the card.
 
-Every function takes one lane — ``flow_links`` (F, H) — or a batch of
-lanes — (B, F, H), the reference's vmap axis written out.  Link ids
-index the last axis of the capacity vector, (L+1,) shared by every lane
-or (B, L+1) per lane; its last entry is the +inf sentinel that pads
+The max-min functions take one lane — ``flow_links`` (F, H) — or a
+batch of lanes — (B, F, H), the reference's vmap axis written out.  Link
+ids index the last axis of the capacity vector, (L+1,) shared by every
+lane or (B, L+1) per lane; its last entry is the +inf sentinel that pads
 short rows.
 """
 from __future__ import annotations
@@ -141,3 +142,32 @@ def loss_factors_reference(flow_links, rates, active, cap, q, wsq, wnd, ecn,
     dc = torch.maximum(dc, floor)
     fac = torch.clamp(gbn * dc, 1e-9, 1.0)
     return fac[0] if single else fac
+
+
+NEG_INF = -1e30
+
+
+def decode_reference(q, k, v, kv_len):
+    """Single-query GQA attention over a KV cache, with its statistics.
+
+    q (B, H, D); k, v (B, S, KVH, D); kv_len (B,) valid prefix lengths.
+    Returns ``(out, m, l)`` as the flash-decode kernel does: ``out`` in
+    q's dtype, ``m`` the f32 max of the valid logits ``q.k / sqrt(D)``,
+    ``l = sum exp(s - m)`` over the valid keys, ``out = acc / max(l,
+    1e-30)``.  A row with ``kv_len = 0`` gives out 0, m -1e30, l 0.
+    """
+    b, h, d = q.shape
+    s, kvh = k.shape[1], k.shape[2]
+    qg = q.reshape(b, kvh, h // kvh, d).float()
+    logits = torch.einsum("bkrd,bskd->bkrs", qg, k.float()) \
+        * (1.0 / math.sqrt(d))
+    valid = (torch.arange(s, device=q.device)[None, :]
+             < kv_len.to(q.device)[:, None])[:, None, None, :]
+    logits = torch.where(valid, logits, NEG_INF)
+    m = logits.amax(-1)
+    p = torch.where(valid, torch.exp(logits - m[..., None]), 0.0)
+    l = p.sum(-1)
+    acc = torch.einsum("bkrs,bskd->bkrd", p, v.float())
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    return (out.reshape(b, h, d).to(q.dtype), m.reshape(b, h),
+            l.reshape(b, h))

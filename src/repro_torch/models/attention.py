@@ -1,0 +1,69 @@
+"""Attention for the decode path: GQA against a KV cache.
+
+The port of the reference package's ``models/attention.py``, decode half:
+
+- ``dense_attention``   — O(S^2)-memory attention, the oracle of the
+  tests (causal / bidirectional / sliding-window);
+- ``decode_attention``  — single-query attention against a partially
+  filled cache.  It runs ``kernels/ops.flash_decode``: the hand-written
+  Hopper kernel on a CUDA tensor, its plain version on a CPU tensor.
+
+The train/prefill functions (``chunked_attention``, ``swa_attention``)
+come with the training slice and its ``flash_attention`` kernel.
+
+Shapes: q (B, Sq, H, hd); k, v (B, Skv, KVH, hd); H = KVH * rep (GQA).
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.kernels import ops
+
+NEG_INF = -1e30
+
+
+def _split_gqa(q, n_kv):
+    b, s, h, d = q.shape
+    return q.reshape(b, s, n_kv, h // n_kv, d)
+
+
+def dense_attention(q, k, v, *, causal=True, window=0, q_offset=0):
+    """Reference O(S^2)-memory attention.  Small seqs / oracle only."""
+    b, sq, h, d = q.shape
+    skv, n_kv = k.shape[1], k.shape[2]
+    qg = _split_gqa(q, n_kv)
+    logits = torch.einsum("bqkrd,bskd->bkrqs", qg.float(), k.float()) \
+        / math.sqrt(d)
+    qpos = torch.arange(sq, device=q.device) + q_offset
+    kpos = torch.arange(skv, device=q.device)
+    mask = torch.ones((sq, skv), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kpos[None, :] <= qpos[:, None]
+    if window:
+        mask &= kpos[None, :] > qpos[:, None] - window
+    logits = torch.where(mask, logits, NEG_INF)
+    w = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bkrqs,bskd->bqkrd", w.to(v.dtype), v)
+    return out.reshape(b, sq, h, d)
+
+
+def decode_attention(q, k, v, *, kv_len=None, window=0):
+    """Single-query attention against a (possibly partially filled) cache.
+
+    q: (B, 1, H, hd); k, v: (B, S_cache, KVH, hd).
+    kv_len: (B,) integers — number of valid cache entries (<= S_cache);
+    None attends the whole cache.
+    """
+    if window:
+        raise NotImplementedError(
+            "sliding-window decode: the flash_decode kernel has no window "
+            "(ROADMAP queue 1 item 2; the reference's single-shard window "
+            "mask is queue 3's rolling-buffer fault)")
+    b = q.shape[0]
+    if kv_len is None:
+        kv_len = torch.full((b,), k.shape[1], dtype=torch.int32,
+                            device=q.device)
+    out, _, _ = ops.flash_decode(q[:, 0].contiguous(), k, v, kv_len)
+    return out[:, None]

@@ -1,0 +1,141 @@
+"""Parameter machinery and elementwise blocks (norms, MLP, RoPE).
+
+The port of the reference package's ``models/blocks.py``.  Parameters are
+described by ``ParamDef(shape, axes)`` trees (nested dicts);
+``init_params`` draws them from a ``torch.Generator`` with the reference's
+scheme.  The two frameworks' generators give different numbers from one
+seed, so the parity tests carry the reference's weights across
+(``repro_torch.convert.params_from_reference``) instead.  The sharding
+helpers (``param_shardings``, ``param_specs``) belong to the parallel
+layer, a later slice.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class ParamDef:
+    shape: tuple
+    axes: tuple                    # logical axis names, len == len(shape)
+    init: str = "normal"           # normal | zeros | ones | small
+    scale: float | None = None     # stddev override for "normal"
+
+    def __post_init__(self):
+        assert len(self.shape) == len(self.axes), (self.shape, self.axes)
+
+
+def tree_leaves(tree, prefix: str = ""):
+    """``(dotted name, leaf)`` pairs of a nested dict, keys sorted at every
+    level (the reference's pytree order)."""
+    if isinstance(tree, dict):
+        for key in sorted(tree):
+            yield from tree_leaves(tree[key], f"{prefix}{key}.")
+    else:
+        yield prefix[:-1], tree
+
+
+def tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def init_params(defs, generator: torch.Generator):
+    """Materialise a ``ParamDef`` tree in float32 on the generator's
+    device.
+
+    ``zeros``/``ones`` as named; otherwise ``normal * std`` with
+    ``std = scale`` or ``1/sqrt(shape[-2])`` (``shape[-1]`` for vectors),
+    drawn leaf by leaf in pytree order.
+    """
+    device = generator.device
+
+    def make(d: ParamDef):
+        if d.init == "zeros":
+            return torch.zeros(d.shape, device=device)
+        if d.init == "ones":
+            return torch.ones(d.shape, device=device)
+        fan_in = d.shape[-2] if len(d.shape) >= 2 else d.shape[-1]
+        std = d.scale if d.scale is not None else 1.0 / math.sqrt(fan_in)
+        return torch.randn(d.shape, generator=generator,
+                           device=device) * std
+
+    return unflatten({name: make(d) for name, d in tree_leaves(defs)})
+
+
+def unflatten(flat: dict) -> dict:
+    """``{"a.b": x}`` -> ``{"a": {"b": x}}``."""
+    tree: dict = {}
+    for name, leaf in flat.items():
+        node = tree
+        *path, last = name.split(".")
+        for key in path:
+            node = node.setdefault(key, {})
+        node[last] = leaf
+    return tree
+
+
+def count_params(defs) -> int:
+    return sum(math.prod(d.shape) for _, d in tree_leaves(defs))
+
+
+# ---------------------------------------------------------------- blocks
+
+def rms_norm(x, scale, eps):
+    dt = x.dtype
+    x = x.float()
+    x = x * torch.rsqrt(torch.mean(x * x, dim=-1, keepdim=True) + eps)
+    return (x * scale.float()).to(dt)
+
+
+def silu(x):
+    """``x * sigmoid(x)`` with ``sigmoid = 1 / (1 + exp(-x))``, rounding to
+    x's dtype after every op as the reference does (in bf16 a fused
+    ``F.silu``, rounding once, differs from it in the last bit)."""
+    return x * (1 / (1 + torch.exp(-x)))
+
+
+def swiglu(x, wi, wg, wo, compute_dtype):
+    """SwiGLU MLP: silu(x@wg) * (x@wi) @ wo, in the compute dtype."""
+    cd = compute_dtype
+    x = x.to(cd)
+    h = silu(x @ wg.to(cd)) * (x @ wi.to(cd))
+    return h @ wo.to(cd)
+
+
+def mlp_defs(d_model, d_ff):
+    return {
+        "wi": ParamDef((d_model, d_ff), ("embed", "mlp")),
+        "wg": ParamDef((d_model, d_ff), ("embed", "mlp")),
+        "wo": ParamDef((d_ff, d_model), ("mlp", "embed")),
+    }
+
+
+def stack_defs(defs, n: int):
+    """Prepend a (n, "layers") dimension to every ParamDef in a tree."""
+    return tree_map(lambda d: ParamDef((n,) + d.shape, ("layers",) + d.axes,
+                                       d.init, d.scale), defs)
+
+
+def rope(x, positions, theta):
+    """Rotary embedding over the last dim (rotate-half convention).
+
+    x: (..., seq, heads..., head_dim); positions: (..., seq) integers.
+    """
+    hd = x.shape[-1]
+    half = hd // 2
+    freqs = torch.exp(-math.log(theta) * torch.arange(
+        0, half, dtype=torch.float32, device=x.device) / half)
+    ang = positions.float()[..., None] * freqs          # (..., seq, half)
+    extra = x.dim() - positions.dim() - 1
+    ang = ang.reshape(ang.shape[:-1] + (1,) * extra + (half,))
+    sin, cos = torch.sin(ang), torch.cos(ang)
+    x1, x2 = x[..., :half], x[..., half:2 * half]
+    rot = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    if hd > 2 * half:
+        rot = torch.cat([rot, x[..., 2 * half:]], dim=-1)
+    return rot.to(x.dtype)

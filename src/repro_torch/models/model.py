@@ -1,0 +1,324 @@
+"""The dense LM's decode path.
+
+The port of the reference package's ``models/model.py``, decode half, on
+one device: parameter definitions for every architecture (so parameter
+counts agree with the reference), the ``Model`` module holding them, the
+stacked KV caches and ``decode_forward``.  Every attention layer of a
+decode step runs ``models/attention.decode_attention``, whose CUDA path
+is the hand-written flash-decode kernel.
+
+Parameters keep the reference's names and layouts (``wq`` is (d, h, hd),
+blocks are stacked on a leading ``n_blocks`` axis), so carrying weights
+across is a copy (``repro_torch.convert.params_from_reference``).  The
+matrix products the reference leaves to XLA are ``torch.einsum`` here,
+with the parameters cast to the compute dtype inside every product, as
+the reference casts them.
+
+What this slice runs: ``attn`` mixers with ``mlp`` ffns, full attention
+(``window == 0``), no encoder and no vision prefix.  Other
+configurations raise ``NotImplementedError`` naming the ROADMAP item
+that ports them.  The multi-device split-KV branches
+(``softmax_combine``) are not ported: the port serves on one card.
+"""
+from __future__ import annotations
+
+from typing import Any
+
+import numpy as np
+import torch
+from torch import nn
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.device import resolve_device
+from repro_torch.models import attention as attn
+from repro_torch.models.blocks import (ParamDef, init_params, mlp_defs,
+                                       rms_norm, rope, stack_defs, swiglu,
+                                       tree_leaves, tree_map, unflatten)
+
+# ================================================================ defs
+
+
+def _attn_defs(cfg: ArchConfig, cross: bool = False):
+    d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    defs = {
+        "norm": ParamDef((d,), ("norm",), init="ones"),
+        "wq": ParamDef((d, h, hd), ("embed", "heads", None)),
+        "wk": ParamDef((d, kv, hd), ("embed", "kv_heads", None)),
+        "wv": ParamDef((d, kv, hd), ("embed", "kv_heads", None)),
+        "wo": ParamDef((h, hd, d), ("heads", None, "embed")),
+    }
+    if cfg.qkv_bias:
+        defs["bq"] = ParamDef((h, hd), ("heads", None), init="zeros")
+        defs["bk"] = ParamDef((kv, hd), ("kv_heads", None), init="zeros")
+        defs["bv"] = ParamDef((kv, hd), ("kv_heads", None), init="zeros")
+    if cross:
+        defs["xnorm"] = ParamDef((d,), ("norm",), init="ones")
+        defs["xwq"] = ParamDef((d, h, hd), ("embed", "heads", None))
+        defs["xwk"] = ParamDef((d, kv, hd), ("embed", "kv_heads", None))
+        defs["xwv"] = ParamDef((d, kv, hd), ("embed", "kv_heads", None))
+        defs["xwo"] = ParamDef((h, hd, d), ("heads", None, "embed"))
+    return defs
+
+
+def _moe_defs(cfg: ArchConfig):
+    """The reference's ``moe.moe_defs`` (definitions only: the MoE ffn
+    is a later slice)."""
+    e, d, f = cfg.n_experts, cfg.d_model, cfg.moe_d_ff
+    return {
+        "router": ParamDef((d, e), (None, None), scale=0.02),
+        "we_i": ParamDef((e, d, f), ("experts", "embed", "mlp")),
+        "we_g": ParamDef((e, d, f), ("experts", "embed", "mlp")),
+        "we_o": ParamDef((e, f, d), ("experts", "mlp", "embed")),
+    }
+
+
+def _ssm_defs(cfg: ArchConfig):
+    """The reference's ``ssm.ssm_defs`` (definitions only: the SSM mixer
+    is a later slice)."""
+    d = cfg.d_model
+    d_in = cfg.ssm_expand * d
+    h, n, k = d_in // cfg.ssm_headdim, cfg.ssm_state, cfg.ssm_conv
+    return {
+        "wz": ParamDef((d, d_in), ("embed", "ssm_inner")),
+        "wx": ParamDef((d, d_in), ("embed", "ssm_inner")),
+        "wB": ParamDef((d, n), ("embed", None)),
+        "wC": ParamDef((d, n), ("embed", None)),
+        "wdt": ParamDef((d, h), ("embed", "ssm_heads")),
+        "dt_bias": ParamDef((h,), ("ssm_heads",), init="zeros"),
+        "A_log": ParamDef((h,), ("ssm_heads",), init="zeros"),
+        "D": ParamDef((h,), ("ssm_heads",), init="ones"),
+        "conv_x": ParamDef((k, d_in), ("conv_k", "ssm_inner"), scale=0.5),
+        "conv_B": ParamDef((k, n), ("conv_k", None), scale=0.5),
+        "conv_C": ParamDef((k, n), ("conv_k", None), scale=0.5),
+        "gnorm": ParamDef((d_in,), ("ssm_inner",), init="ones"),
+        "wo": ParamDef((d_in, d), ("ssm_inner", "embed")),
+    }
+
+
+def _ffn_defs(cfg: ArchConfig, kind):
+    d = cfg.d_model
+    if kind is None:
+        return {}
+    norm = {"norm": ParamDef((d,), ("norm",), init="ones")}
+    if kind == "mlp":
+        return {**norm, **mlp_defs(d, cfg.d_ff)}
+    if kind == "moe":
+        return {**norm, **_moe_defs(cfg)}
+    raise ValueError(kind)
+
+
+def _sublayer_defs(cfg: ArchConfig, mixer, ffn, cross=False):
+    if mixer == "attn":
+        mdefs = _attn_defs(cfg, cross=cross)
+    elif mixer == "mamba":
+        mdefs = {"norm": ParamDef((cfg.d_model,), ("norm",), init="ones"),
+                 **_ssm_defs(cfg)}
+    else:
+        raise ValueError(mixer)
+    return {"mixer": mdefs, "ffn": _ffn_defs(cfg, ffn)}
+
+
+def model_defs(cfg: ArchConfig):
+    d, v = cfg.d_model, cfg.vocab_size
+    block = {f"sub{i}": _sublayer_defs(cfg, m, f,
+                                       cross=(cfg.enc_layers > 0))
+             for i, (m, f) in enumerate(cfg.pattern)}
+    defs: dict[str, Any] = {
+        "embed": ParamDef((v, d), ("vocab_table", "embed_table"),
+                          scale=0.02),
+        "blocks": stack_defs(block, cfg.n_blocks),
+        "final_norm": ParamDef((d,), ("norm",), init="ones"),
+        "lm_head": ParamDef((d, v), ("embed", "vocab")),
+    }
+    if cfg.enc_layers > 0:
+        eblock = {"sub0": _sublayer_defs(cfg, "attn", "mlp")}
+        defs["enc_blocks"] = stack_defs(eblock, cfg.enc_layers)
+        defs["enc_in"] = ParamDef((d, d), ("embed", None))
+        defs["enc_norm"] = ParamDef((d,), ("norm",), init="ones")
+    if cfg.vision_prefix > 0:
+        defs["vis_proj"] = ParamDef((d, d), ("embed", None))
+    return defs
+
+
+def check_supported(cfg: ArchConfig) -> None:
+    """Raise for what this slice's decode path does not run."""
+    why = []
+    if any(m != "attn" for m, _ in cfg.pattern):
+        why.append("SSM mixers")
+    if any(f != "mlp" for _, f in cfg.pattern):
+        why.append("MoE or absent ffns")
+    if cfg.enc_layers > 0:
+        why.append("an encoder")
+    if cfg.vision_prefix > 0:
+        why.append("a vision prefix")
+    if cfg.window > 0:
+        why.append("a sliding window")
+    if why:
+        raise NotImplementedError(
+            f"{cfg.name}: the port's decode path runs dense full-attention "
+            f"models; {', '.join(why)} come with a later slice (ROADMAP "
+            f"queue 1 item 2)")
+
+
+class Model(nn.Module):
+    """The parameters of ``model_defs(cfg)``, named and laid out as in the
+    reference: the state-dict key ``blocks.sub0.mixer.wq`` is the
+    reference's ``params["blocks"]["sub0"]["mixer"]["wq"]``, shape
+    (n_blocks, d, h, hd).  Float32 weights are drawn on ``device`` from a
+    ``torch.Generator`` seeded with ``seed`` (``blocks.init_params``).
+    Inference only: no parameter requires a gradient.
+    """
+
+    def __init__(self, cfg: ArchConfig, *, seed: int = 0, device="cuda"):
+        super().__init__()
+        check_supported(cfg)
+        dev = resolve_device(device)
+        self.cfg = cfg
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        _register(self, init_params(model_defs(cfg), gen))
+        #: the parameters as the reference's nested dict (same tensors)
+        self.params = unflatten(dict(self.named_parameters()))
+
+
+def _register(module: nn.Module, tree: dict) -> None:
+    for key, val in tree.items():
+        if isinstance(val, dict):
+            child = nn.Module()
+            _register(child, val)
+            module.add_module(key, child)
+        else:
+            module.register_parameter(
+                key, nn.Parameter(val, requires_grad=False))
+
+
+# ================================================================ decode
+
+def _project_qkv(p, x, cfg, cd):
+    q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(cd))
+    k = torch.einsum("bsd,dhk->bshk", x, p["wk"].to(cd))
+    v = torch.einsum("bsd,dhk->bshk", x, p["wv"].to(cd))
+    if cfg.qkv_bias:
+        q = q + p["bq"].to(cd)
+        k = k + p["bk"].to(cd)
+        v = v + p["bv"].to(cd)
+    return q, k, v
+
+
+def cache_len(cfg, seq_len):
+    return min(seq_len, cfg.window) if cfg.window else seq_len
+
+
+def init_caches(cfg, batch, seq_len, *, device="cuda"):
+    """Per-layer decode caches stacked over n_blocks, zero-filled:
+    ``{"layers": {"sub<i>": {"k": (n_blocks, B, S, KVH, hd), "v": ...}}}``
+    in bf16 whatever the compute dtype (the reference's default)."""
+    check_supported(cfg)
+    dev = resolve_device(device)
+    shape = (cfg.n_blocks, batch, cache_len(cfg, seq_len), cfg.n_kv_heads,
+             cfg.hd)
+    return {"layers": {
+        f"sub{i}": {name: torch.zeros(shape, dtype=torch.bfloat16, device=dev)
+                    for name in ("k", "v")}
+        for i in range(len(cfg.pattern))}}
+
+
+def cache_insert(kc, vc, k_new, v_new, pos):
+    """Write (B, 1, KVH, hd) into the (B, S, KVH, hd) cache IN PLACE at
+    slot ``pos``: an int (one slot for every row) or a (B,) integer
+    tensor (the serve runtime's per-row positions).  The caller has
+    checked ``0 <= pos < S``."""
+    if isinstance(pos, int):
+        kc[:, pos] = k_new[:, 0].to(kc.dtype)
+        vc[:, pos] = v_new[:, 0].to(vc.dtype)
+    else:
+        rows = torch.arange(kc.shape[0], device=kc.device)
+        kc[rows, pos] = k_new[:, 0].to(kc.dtype)
+        vc[rows, pos] = v_new[:, 0].to(vc.dtype)
+    return kc, vc
+
+
+def decode_attn_core(q, kc, vc, kv_len, cfg):
+    """Single-shard decode attention: q (B, 1, H, hd) against the first
+    ``kv_len[b]`` slots of row b of the cache."""
+    return attn.decode_attention(q, kc, vc, kv_len=kv_len, window=cfg.window)
+
+
+def attn_decode_apply(p, x, cache, slot, positions, kv_len, cfg):
+    """The attention sublayer of one decode step; updates ``cache``."""
+    cd = getattr(torch, cfg.compute_dtype)
+    h = rms_norm(x, p["norm"], cfg.norm_eps).to(cd)
+    q, k, v = _project_qkv(p, h, cfg, cd)
+    if cfg.use_rope:
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
+    kc, vc = cache_insert(cache["k"], cache["v"], k, v, slot)
+    o = decode_attn_core(q, kc, vc, kv_len, cfg)
+    return x + torch.einsum("bshk,hkd->bsd", o.to(cd), p["wo"].to(cd))
+
+
+def ffn_apply(p, x, cfg):
+    cd = getattr(torch, cfg.compute_dtype)
+    h = rms_norm(x, p["norm"], cfg.norm_eps).to(cd)
+    return x + swiglu(h, p["wi"], p["wg"], p["wo"], cd)
+
+
+def run_blocks_decode(blocks, caches, x, slot, positions, kv_len, cfg):
+    """One decode step through the stacked blocks, a Python loop in place
+    of the reference's scan; the caches are updated in place."""
+    for i in range(cfg.n_blocks):
+        bp = tree_map(lambda a: a[i], blocks)
+        for j in range(len(cfg.pattern)):
+            sub = bp[f"sub{j}"]
+            cache = tree_map(lambda a: a[i], caches["layers"][f"sub{j}"])
+            x = attn_decode_apply(sub["mixer"], x, cache, slot, positions,
+                                  kv_len, cfg)
+            x = ffn_apply(sub["ffn"], x, cfg)
+    return x
+
+
+def embed_tokens(params, tokens, cfg, cd):
+    """Token embedding lookup (the reference's gather branch)."""
+    return params["embed"][tokens].to(cd)
+
+
+@torch.no_grad()
+def decode_forward(params, caches, tokens, step, cfg, *, device="cuda"):
+    """Single-token serve forward: (B, 1) tokens -> (B, 1, V) f32 logits.
+
+    ``params`` is ``Model.params``; ``caches`` comes from
+    ``init_caches`` and is updated IN PLACE (returned as well, as the
+    reference returns its new caches).  ``step`` is the host-side
+    position: an int for every row, or a (B,) array of per-row positions
+    (continuous batching); each must lie in the cache.  Everything runs
+    on ``device``, where the parameters and caches must be.
+    """
+    dev = resolve_device(device)
+    check_supported(cfg)
+    for name, t in tree_leaves({"params": params, "caches": caches}):
+        if t.device != dev:
+            raise ValueError(f"decode_forward on {dev}: {name} is on "
+                             f"{t.device}")
+    cd = getattr(torch, cfg.compute_dtype)
+    steps = np.asarray(step.cpu() if torch.is_tensor(step) else step)
+    b = tokens.shape[0]
+    n_slots = caches["layers"]["sub0"]["k"].shape[2]
+    if steps.ndim not in (0, 1) or (steps.ndim == 1 and steps.shape != (b,)):
+        raise ValueError(f"step must be a scalar or ({b},), got "
+                         f"{steps.shape}")
+    if not ((steps >= 0) & (steps < n_slots)).all():
+        raise IndexError(f"decode positions {steps} outside the "
+                         f"{n_slots}-slot cache")
+    if steps.ndim == 1:
+        slot = torch.tensor(steps, dtype=torch.long, device=dev)
+        positions = slot[:, None]
+    else:
+        slot = int(steps)
+        positions = torch.full((b, 1), slot, dtype=torch.long, device=dev)
+    kv_len = (positions[:, 0] + 1).to(torch.int32)
+    tokens = torch.as_tensor(tokens).to(dev)
+    x = embed_tokens(params, tokens, cfg, cd)
+    x = run_blocks_decode(params["blocks"], caches, x, slot, positions,
+                          kv_len, cfg)
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    logits = torch.einsum("bsd,dv->bsv", x.to(cd), params["lm_head"].to(cd))
+    return logits.float(), caches

@@ -4,9 +4,11 @@ The port's max-min round and loss factors are held against the JAX
 package's oracles (``repro.kernels.ref``) and its Pallas kernels in
 interpret mode, on the same numpy-seeded inputs, in float32 and — under
 ``jax.enable_x64`` — float64; the filling loop against the numpy
-``FlowSim`` progressive filling.  On CPU tensors the wrappers run the
-plain versions; the CUDA kernels themselves are held against them on the
-card (``gpu`` marker here, and ``chip_smoke.py``).
+``FlowSim`` progressive filling.  The port's flash decode
+``(out, m, l)`` against the Pallas ``flash_decode`` in interpret mode
+and ``decode_reference``, in float32 and bfloat16.  On CPU tensors the
+wrappers run the plain versions; the CUDA kernels themselves are held
+against them on the card (``gpu`` marker here, and ``chip_smoke.py``).
 """
 from __future__ import annotations
 
@@ -19,8 +21,11 @@ import torch
 from repro.core import fattree as ref_fattree
 from repro.core.flowsim import DCQCN_MIN_RATE, DCQCN_RATE_NUM, FlowSim
 from repro.kernels import maxmin as ref_maxmin
+from repro.kernels import ops as ref_ops
+from repro.kernels.ref import decode_reference as ref_decode_reference
 from repro.kernels.ref import loss_factors_reference, maxmin_round_reference
-from repro_torch.kernels import build, maxmin, ref
+from repro_torch.kernels import build, maxmin, ops, ref
+from repro_torch.kernels import flash_decode as fd
 
 DTYPES = {"float32": (np.float32, torch.float32, 1e-6, 1e-6),
           "float64": (np.float64, torch.float64, 1e-12, 1e-12)}
@@ -279,13 +284,20 @@ def test_plain_versions_launch_nothing():
 
 
 def test_build_targets_hopper():
-    """The nvcc line builds sm_90a with fused multiply-add off, and the
-    library name follows the source so a stale build never loads."""
-    flags = " ".join(build.NVCC_FLAGS)
-    assert "arch=compute_90a,code=sm_90a" in flags
-    assert "-fmad=false" in flags and "-shared" in flags
-    assert build.library_path().parent == build.BUILD_DIR
-    assert build.SOURCE.exists()
+    """Each library's nvcc line builds sm_90a into a shared library;
+    maxmin keeps fused multiply-add off (bit-exact with the plain
+    version), and a library's name follows its source and flags so a
+    stale build never loads."""
+    for name in build.LIBRARIES:
+        flags = " ".join(build.flags(name))
+        assert "arch=compute_90a,code=sm_90a" in flags
+        assert "-shared" in flags
+        assert build.library_path(name).parent == build.BUILD_DIR
+        assert build.source(name).exists()
+    assert "-fmad=false" in build.flags("maxmin")
+    assert "-fmad=false" not in build.flags("flash_decode")
+    assert len({build.library_path(n) for n in build.LIBRARIES}) == \
+        len(build.LIBRARIES)
 
 
 def _card():
@@ -319,3 +331,120 @@ def test_cuda_loss_factors_match_plain_on_card(dtype_name):
     want = ref.loss_factors_reference(*t, **kw)
     torch.testing.assert_close(got, want, atol=1e-6, rtol=0)
     assert (got.cpu().numpy()[zero] == 1.0).all()
+
+
+# ============================================================ flash decode
+
+#: tests/test_kernels.py's DECODE_CASES, and granite_3_2b's head shape
+#: with ragged fills and an empty row: (B, S, H, KVH, D, kv_lens)
+DECODE_CASES = [
+    (1, 512, 4, 4, 64, [512]),
+    (2, 1024, 8, 2, 64, [1000, 37]),
+    (2, 512, 4, 1, 32, [1, 512]),
+    (1, 768, 2, 2, 128, [600]),
+]
+GRANITE_CASE = (2, 512, 32, 8, 64, [300, 0])
+DECODE_DTYPES = {"float32": (jnp.float32, torch.float32, 2e-5),
+                 "bfloat16": (jnp.bfloat16, torch.bfloat16, 2e-2)}
+
+
+def decode_problem(case, seed=0):
+    b, s, h, kvh, d, kv_lens = case
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((b, h, d)).astype(np.float32),
+            rng.standard_normal((b, s, kvh, d)).astype(np.float32),
+            rng.standard_normal((b, s, kvh, d)).astype(np.float32),
+            np.asarray(kv_lens, np.int32))
+
+
+def _f32(x):
+    return np.asarray(jnp.asarray(x).astype(jnp.float32)) \
+        if not isinstance(x, torch.Tensor) else x.float().numpy()
+
+
+@pytest.mark.parametrize("case", DECODE_CASES + [GRANITE_CASE])
+@pytest.mark.parametrize("dtype_name", sorted(DECODE_DTYPES))
+def test_flash_decode_matches_pallas_and_oracle(case, dtype_name):
+    """``(out, m, l)`` of the port's flash decode equal the Pallas
+    kernel's (interpret mode) and ``out`` the reference oracle, within
+    the reference's tolerances (2e-5 in f32, 2e-2 in bf16)."""
+    j_dt, t_dt, tol = DECODE_DTYPES[dtype_name]
+    q, k, v, kv_len = decode_problem(case)
+    jq, jk, jv = (jnp.asarray(a).astype(j_dt) for a in (q, k, v))
+    want = ref_ops.flash_decode(jq, jk, jv, jnp.asarray(kv_len),
+                                interpret=True)
+    got = ops.flash_decode(*(torch.from_numpy(a).to(t_dt)
+                             for a in (q, k, v)), torch.from_numpy(kv_len))
+    assert got[0].dtype == t_dt and got[1].dtype == got[2].dtype == \
+        torch.float32
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(_f32(g), _f32(w), rtol=tol, atol=tol)
+    oracle = ref_decode_reference(jq, jk, jv, kv_len=jnp.asarray(kv_len))
+    full = kv_len > 0
+    np.testing.assert_allclose(_f32(got[0])[full], _f32(oracle)[full],
+                               rtol=tol, atol=tol)
+
+
+def test_flash_decode_empty_row_is_zero():
+    """kv_len 0 gives out 0, m -1e30, l 0, as the Pallas kernel does when
+    it skips every block."""
+    q, k, v, kv_len = decode_problem(GRANITE_CASE)
+    out, m, l = ops.flash_decode(*map(torch.from_numpy, (q, k, v, kv_len)))
+    assert (out[1] == 0).all() and (m[1] == -1e30).all() and \
+        (l[1] == 0).all()
+    assert (l[0] > 0).all()
+
+
+def test_flash_decode_split_merge_equals_full():
+    """Two halves of the cache, merged with the associative (m, l)
+    combine (acc = out * l), equal the whole: the combine the kernel's
+    split-KV pass uses, as ``tests/test_kernels.py`` checks it."""
+    q, k, v, _ = decode_problem((2, 1024, 4, 2, 64, [0, 0]), seed=3)
+    q, k, v = map(torch.from_numpy, (q, k, v))
+    s = k.shape[1]
+    full, _, _ = ops.flash_decode(q, k, v, torch.tensor([s, s]))
+    half = s // 2
+    hl = torch.tensor([half, half])
+    o1, m1, l1 = ops.flash_decode(q, k[:, :half], v[:, :half], hl)
+    o2, m2, l2 = ops.flash_decode(q, k[:, half:], v[:, half:], hl)
+    m = torch.maximum(m1, m2)
+    w1, w2 = l1 * torch.exp(m1 - m), l2 * torch.exp(m2 - m)
+    merged = (o1 * w1[..., None] + o2 * w2[..., None]) \
+        / (w1 + w2)[..., None]
+    torch.testing.assert_close(merged, full, rtol=2e-5, atol=2e-5)
+
+
+def test_flash_decode_splits_fill_the_card():
+    """The kernel's KV splits: enough (row, kv head, split) CTAs for four
+    per SM on 132 SMs, never more splits than 64-key tiles."""
+    assert fd.n_splits(8, 8, 4096, 132) == 9          # granite, pool 8
+    assert 8 * 8 * fd.n_splits(8, 8, 4096, 132) >= 4 * 132
+    assert fd.n_splits(1, 1, 100, 132) == 2           # two tiles only
+    assert fd.n_splits(64, 8, 4096, 132) == 2
+    assert fd.n_splits(512, 8, 4096, 132) == 1
+
+
+def test_flash_decode_plain_path_launches_nothing():
+    fd.reset_launches()
+    q, k, v, kv_len = decode_problem(DECODE_CASES[0])
+    ops.flash_decode(*map(torch.from_numpy, (q, k, v, kv_len)))
+    assert fd.LAUNCHES == {"flash_decode": 0}
+    with pytest.raises(ValueError):
+        fd.flash_decode(*(torch.from_numpy(a).to("meta")
+                          for a in (q, k, v, kv_len)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", DECODE_CASES + [GRANITE_CASE])
+@pytest.mark.parametrize("dtype_name", sorted(DECODE_DTYPES))
+def test_cuda_flash_decode_matches_plain_on_card(case, dtype_name):
+    _card()
+    _, t_dt, tol = DECODE_DTYPES[dtype_name]
+    args = [torch.from_numpy(a).cuda() for a in decode_problem(case)]
+    q, k, v = (a.to(t_dt) for a in args[:3])
+    before = fd.LAUNCHES["flash_decode"]
+    got = ops.flash_decode(q, k, v, args[3])
+    assert fd.LAUNCHES["flash_decode"] == before + 1
+    want = ref.decode_reference(q, k, v, args[3])
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g.float(), w.float(), rtol=tol, atol=tol)
