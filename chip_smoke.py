@@ -34,6 +34,13 @@ version on the card:
    - cross: the granite smoke config in float32 (TF32 off) served on the
      card and on the CPU with the same weights: identical greedy tokens,
      per-step logits within 1e-3;
+   - prefill: ``launch/steps.make_prefill_step`` at full width on seed-0
+     weights, bf16 compute, prompts from ``default_rng(0)``: granite_3_2b
+     4 x 4096 (40 ``flash_attention`` launches), h2o_danube_3_4b 1 x 8192
+     (window 4096; 24), mamba2_370m 8 x 4096 (48 ``ssd_scan``, chunk
+     256); finite (B, 1, V) logits; one more granite prefill traced with
+     ``torch.profiler``; then the three smoke configs in float32 (TF32
+     off) on card and CPU, last-position logits within 1e-3;
 3. **kernels** every kernel input the paths produced: the max-min
    kernels in float32 and float64, plus random many-round problems (the
    kernel against its plain version: freeze set and rates per round for
@@ -44,7 +51,13 @@ version on the card:
    ``tests/test_kernels.py``'s decode cases in float32 and bf16
    (``out``, ``m``, ``l`` within rtol = atol = 2e-5 for a float32 q,
    2e-2 for bf16), with ``scaled_dot_product_attention`` timed beside it
-   as a yardstick.  Times from CUDA events.
+   as a yardstick; ``flash_attention`` at the first and last layer of
+   each attention prefill and ``tests/test_kernels.py``'s ATTN_CASES, in
+   float32 and bf16 (2e-5 / 2e-2; SDPA timed beside it); ``ssd_scan`` at
+   the first and last layer of the mamba prefill at chunks 64, 128 and
+   256, and SSD_CASES, in float32 and bf16 (y 1e-4 / 3e-2, state 1e-3).
+   Times from CUDA events; the plain versions take the query axis in
+   blocks (``ref.mha_reference``), so no full-width input is split.
 
 It prints one ``{"kernels": [...]}`` line, the card's name and power
 limit, and last ``{"ok": true, "device": {...}}``; any failed phase exits
@@ -63,9 +76,11 @@ import torch
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 
-#: H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, non-tensor FLOP/s
+#: H100 SXM peaks (NVIDIA data sheet): HBM bytes/s; FLOP/s by the dtype
+#: of the inputs (float32/64 outside the tensor cores, bf16 dense on them)
 PEAK_BYTES = 3.35e12
-PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 34e12}
+PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 34e12,
+              torch.bfloat16: 989e12}
 
 #: kernel -> (the TPU kernel it replaces, its source in the port)
 KERNELS = {
@@ -75,6 +90,10 @@ KERNELS = {
                      "src/repro_torch/kernels/csrc/maxmin.cu"),
     "flash_decode": ("src/repro/kernels/flash_decode.py:27",
                      "src/repro_torch/kernels/csrc/flash_decode.cu"),
+    "flash_attention": ("src/repro/kernels/flash_attention.py:31",
+                        "src/repro_torch/kernels/csrc/flash_attention.cu"),
+    "ssd_scan": ("src/repro/kernels/ssd_scan.py:27",
+                 "src/repro_torch/kernels/csrc/ssd_scan.cu"),
 }
 
 HPL_VOLUME = 8 << 20
@@ -107,6 +126,44 @@ DECODE_CASES = ((1, 512, 4, 4, 64, (512,)), (2, 1024, 8, 2, 64, (1000, 37)),
 #: kernel-vs-plain tolerance (rtol = atol) by the dtype of q and out,
 #: tests/test_kernels.py's
 DECODE_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+#: the prefill paths at full width: (phase, arch, batch, prompt length,
+#: the kernel every mixer layer launches once a prefill)
+PREFILL = (("prefill_granite", "granite_3_2b", 4, 4096, "flash_attention"),
+           ("prefill_danube", "h2o_danube_3_4b", 1, 8192, "flash_attention"),
+           ("prefill_mamba", "mamba2_370m", 8, 4096, "ssd_scan"))
+#: the prefill phase traced with torch.profiler (one more call)
+PREFILL_PROFILE = "prefill_granite"
+#: the card-vs-CPU prefill check at the smoke configs, float32, TF32 off:
+#: (arch, batch, prompt length); danube where the reference applies its
+#: window of 32
+PREFILL_CROSS = (("granite_3_2b", 2, 64), ("h2o_danube_3_4b", 2, 64),
+                 ("h2o_danube_3_4b", 2, 96), ("mamba2_370m", 2, 64))
+#: tests/test_kernels.py's ATTN_CASES: (B, Sq, Skv, H, KVH, D, causal,
+#: window), and SSD_CASES: (B, S, H, P, N, chunk)
+ATTN_CASES = ((1, 128, 128, 4, 4, 64, True, 0),
+              (2, 256, 256, 8, 2, 64, True, 0),
+              (1, 128, 128, 4, 2, 32, False, 0),
+              (2, 256, 256, 4, 4, 64, True, 128),
+              (1, 384, 384, 4, 2, 64, True, 96),
+              (1, 192, 192, 2, 1, 16, True, 0),
+              (1, 100, 100, 2, 2, 64, True, 0))
+SSD_CASES = ((1, 256, 2, 64, 64, 128), (2, 128, 4, 32, 64, 64),
+             (1, 384, 2, 64, 128, 128), (1, 100, 2, 16, 32, 64))
+#: kernel-vs-plain tolerances (rtol = atol) by the input dtype,
+#: tests/test_kernels.py's: attention output; SSD y and final state
+ATTN_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+SSD_TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
+SSD_STATE_TOL = 1e-3
+#: at captured full-width inputs in float32 the kernel is held to a float64
+#: evaluation of the plain version: its max error may be at most this
+#: many times the float32 plain version's own (plus the tolerance).  The
+#: path's activations are large (|q|, |k| up to ~120 from the seed-0
+#: weights, so logits of hundreds), and any float32 order of summation,
+#: the plain version's included, lands ~1e-3 from the exact result there,
+#: beyond the element-wise 2e-5 / 1e-4 set for unit-scale inputs.
+ORACLE_FACTOR = 2.0
+#: the chunks every captured SSD input is held at (the path's is 256)
+SSD_CHUNKS = (64, 128, 256)
 FAILURES: list = []
 
 
@@ -188,9 +245,11 @@ def matrix_ops(wl, hosts, n_groups, group, churn, n_flaps):
 # -------------------------------------------------------------- recording
 
 def launch_counters():
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import flash_decode as fd
     from repro_torch.kernels import maxmin as mm
-    return mm.LAUNCHES, fd.LAUNCHES
+    from repro_torch.kernels import ssd_scan as ssd
+    return mm.LAUNCHES, fd.LAUNCHES, fa.LAUNCHES, ssd.LAUNCHES
 
 
 def reset_counts() -> None:
@@ -639,6 +698,160 @@ def run_serve(rec, serve=SERVE, cross=CROSS, device="cuda"):
     return out
 
 
+# ---------------------------------------------------------------- prefill
+
+class PrefillRecorder:
+    """Wraps ``kernels/ops.flash_attention`` and ``ops.ssd_scan`` (the
+    model's layers look them up at call time) to keep the inputs of the
+    first and the last mixer layer of an armed prefill: each layer calls
+    its kernel once."""
+
+    def __init__(self, ops):
+        self.ops, self.inputs, self.phase = ops, {}, None
+        self._attn, self._ssd = ops.flash_attention, ops.ssd_scan
+        ops.flash_attention = self.attention
+        ops.ssd_scan = self.scan
+
+    def arm(self, phase, n_layers):
+        self.phase, self.n_layers, self.calls = phase, n_layers, 0
+
+    def _keep(self, kernel, tensors, kw):
+        if self.phase:
+            if self.calls in (0, self.n_layers - 1):
+                self.inputs[(self.phase, kernel, self.calls)] = (
+                    tuple(t.clone() for t in tensors), dict(kw))
+            self.calls += 1
+
+    def attention(self, q, k, v, **kw):
+        self._keep("flash_attention", (q, k, v), kw)
+        return self._attn(q, k, v, **kw)
+
+    def scan(self, x, dt, a, B_, C_, **kw):
+        self._keep("ssd_scan", (x, dt, a, B_, C_), kw)
+        return self._ssd(x, dt, a, B_, C_, **kw)
+
+
+def prefill_phase(label, cfg, batch, seq, kernel, rec, profile=False,
+                  device="cuda"):
+    """Prefill ``batch`` prompts of ``seq`` tokens through
+    ``launch/steps.make_prefill_step`` on the seed-0 model of ``cfg``
+    drawn on the device, with the launch counts zeroed just before and
+    read just after; a second call under ``torch.profiler`` when
+    ``profile``.  Returns the phase record."""
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models.model import Model
+    model = Model(cfg, seed=0, device=device)
+    step = make_prefill_step(cfg, device=device)
+    tokens = torch.tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (batch, seq)), device=device)
+    rec.arm(label, cfg.n_layers)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    logits = step(model.params, {"tokens": tokens})
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = counts()
+    rec.phase = None
+    finite = bool(torch.isfinite(logits).all())
+    row = {"arch": cfg.name, "n_layers": cfg.n_layers,
+           "d_model": cfg.d_model, "compute_dtype": cfg.compute_dtype,
+           "batch": batch, "prompt_len": seq, "wall_s": wall,
+           "prompt_tokens_per_s": batch * seq / wall,
+           "logits_shape": list(logits.shape), "logits_finite": finite,
+           "launches": launches,
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    if profile:
+        torch.cuda.synchronize()
+        prof = torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA])
+        with prof:
+            t0 = time.perf_counter()
+            step(model.params, {"tokens": tokens})
+            torch.cuda.synchronize()
+            prof_ms = (time.perf_counter() - t0) * 1e3
+        row["profile"] = profile_summary(prof, prof_ms, 1)
+    log(f"[paths] {label}: {cfg.name} {batch} x {seq} prompt tokens, wall "
+        f"{wall:.3f} s, {row['prompt_tokens_per_s']:.1f} prompt tok/s, "
+        f"logits {row['logits_shape']} finite {finite}, launches "
+        f"{launches}, peak {row['peak_gb']:.1f} GB")
+    if row.get("profile"):
+        tr = row["profile"]
+        log(f"[paths] {label} profile of one prefill: wall "
+            f"{tr['wall_ms']:.3f} ms, device busy {tr['device_busy_ms']:.3f}"
+            f" ms, idle share {tr['device_idle_share']}")
+        for key, ms, n in tr["top_device_ms"]:
+            log(f"[paths]   device {ms:10.3f} ms  {n:6d}x  {key[:90]}")
+        for key, ms, n in tr["top_host_ms"]:
+            log(f"[paths]   host   {ms:10.3f} ms  {n:6d}x  {key[:90]}")
+    if not finite or list(logits.shape) != [batch, 1, cfg.vocab_size]:
+        fail(f"{label}: logits {list(logits.shape)}, finite {finite}")
+    want = cfg.n_layers if device == "cuda" else 0
+    if launches[kernel] != want:
+        fail(f"{label}: {kernel} launched {launches[kernel]} times, not "
+             f"{want}")
+    return row
+
+
+def prefill_cross(points=PREFILL_CROSS):
+    """The smoke configs' prefill in float32 (TF32 off) on the card and on
+    the CPU with the same weights: last-position logits within 1e-3."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models.model import Model
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rows = []
+    try:
+        for arch, batch, seq in points:
+            cfg = get_config(arch, smoke=True).replace(
+                compute_dtype="float32")
+            cpu = Model(cfg, seed=0, device="cpu")
+            card = Model(cfg, seed=0, device="cuda")
+            card.load_state_dict(cpu.state_dict())
+            tok = torch.tensor(np.random.default_rng(0).integers(
+                0, cfg.vocab_size, (batch, seq)))
+            reset_counts()
+            got = make_prefill_step(cfg, device="cuda")(
+                card.params, {"tokens": tok.cuda()})
+            torch.cuda.synchronize()
+            launches = counts()
+            want = make_prefill_step(cfg, device="cpu")(
+                cpu.params, {"tokens": tok})
+            err = float((got.cpu() - want).abs().max())
+            kernel = "ssd_scan" if cfg.family == "ssm" else "flash_attention"
+            ok = err <= 1e-3 and launches[kernel] == cfg.n_layers
+            log(f"[paths] prefill_cross {arch} {batch} x {seq}: logits max "
+                f"abs diff card vs CPU {err!r} (limit 1e-3), {kernel} "
+                f"launched {launches[kernel]}")
+            if not ok:
+                fail(f"prefill_cross {arch} s={seq}: diff {err}, launches "
+                     f"{launches}")
+            rows.append({"arch": arch, "batch": batch, "prompt_len": seq,
+                         "max_abs_diff": err, "launches": launches})
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    return rows
+
+
+def run_prefill(rec, phases=PREFILL):
+    """Every prefill phase at full width, each model freed before the
+    next is drawn; then the smoke-config cross check."""
+    from repro_torch.configs.base import get_config
+    out = {}
+    for label, arch, batch, seq, kernel in phases:
+        torch.cuda.reset_peak_memory_stats()
+        out[label] = prefill_phase(label, get_config(arch), batch, seq,
+                                   kernel, rec,
+                                   profile=label == PREFILL_PROFILE)
+        torch.cuda.empty_cache()
+    points = prefill_cross()
+    out["prefill_cross"] = {"points": points, "launches": {
+        name: sum(r["launches"][name] for r in points) for name in counts()}}
+    return out
+
+
 # ---------------------------------------------------------------- kernels
 
 def cuda_ms(fn, reps):
@@ -895,6 +1108,227 @@ def run_decode_kernels(rec, paths):
     return rows
 
 
+def attn_pairs(sq, skv, causal, window):
+    """(query, key) pairs inside the mask: what the kernel must compute."""
+    qpos = torch.arange(sq)
+    hi = torch.clamp(qpos + 1, max=skv) if causal \
+        else torch.full_like(qpos, skv)
+    lo = torch.clamp(qpos - window + 1, min=0) if window \
+        else torch.zeros_like(qpos)
+    return int(torch.clamp(hi - lo, min=0).sum())
+
+
+def attn_bound(q, k, causal, window):
+    """q, k, v read once and out written once; 4 D operations per head and
+    (query, key) pair inside the causal band or window (the two
+    products), at the peak of the inputs' dtype (bf16 on the tensor
+    cores)."""
+    b, sq, h, d = q.shape
+    n_bytes = 2 * q.numel() * q.element_size() \
+        + 2 * k.numel() * k.element_size()
+    ops = 4 * d * b * h * attn_pairs(sq, k.shape[1], causal, window)
+    return bound(n_bytes, ops, q.dtype), ops
+
+
+def sdpa_prefill_ms(q, k, v, causal, window, reps):
+    """One PyTorch call computing the same attention, as a yardstick (the
+    port never calls it): ``is_causal`` with GQA for a causal band, an
+    explicit band mask (kv heads repeated) for a window."""
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    if not window:
+        return cuda_ms(lambda: sdpa(qt, kt, vt, is_causal=causal,
+                                    enable_gqa=True), reps)
+    rep = q.shape[2] // k.shape[2]
+    kt, vt = kt.repeat_interleave(rep, 1), vt.repeat_interleave(rep, 1)
+    qpos = torch.arange(q.shape[1], device=q.device)[:, None]
+    kpos = torch.arange(k.shape[1], device=q.device)[None, :]
+    mask = kpos > qpos - window
+    if causal:
+        mask &= kpos <= qpos
+    return cuda_ms(lambda: sdpa(qt, kt, vt, attn_mask=mask), reps)
+
+
+def oracle_errors(got, want, exact):
+    """(kernel, plain) max abs distance from the float64 result."""
+    return (float((got.double() - exact).abs().max()),
+            float((want.double() - exact).abs().max()))
+
+
+def check_attention(name, q, k, v, causal, window, fa, ref, launches=0,
+                    oracle=False):
+    """Kernel vs plain flash attention (and, with ``oracle``, both against
+    the plain version in float64); times."""
+    tol = ATTN_TOL[q.dtype]
+    got = fa.flash_attention(q, k, v, causal=causal, window=window)
+    want = ref.mha_reference(q, k, v, causal=causal, window=window)
+    err = float((got.float() - want.float()).abs().max())
+    within = torch.allclose(got.float(), want.float(), rtol=tol, atol=tol)
+    ok, errs = within, None
+    if oracle:
+        exact = ref.mha_reference(q.double(), k.double(), v.double(),
+                                  causal=causal, window=window)
+        errs = oracle_errors(got, want, exact)
+        ok = errs[0] <= ORACLE_FACTOR * errs[1] + tol
+        del exact
+    del got, want
+    big = q.numel() > 1 << 22
+    ms = cuda_ms(lambda: fa.flash_attention(q, k, v, causal=causal,
+                                            window=window), 5 if big else 20)
+    plain_ms = cuda_ms(lambda: ref.mha_reference(q, k, v, causal=causal,
+                                                 window=window),
+                       2 if big else 5)
+    (bound_ms, bound_by, bytes_ms), ops = attn_bound(q, k, causal, window)
+    lib = sdpa_prefill_ms(q, k, v, causal, window, 5 if big else 20)
+    row = {"kernel": "flash_attention", "phase": name,
+           "shape": [*q.shape, k.shape[1], k.shape[2]],
+           "dtype": str(q.dtype).split(".")[-1], "causal": causal,
+           "window": window, "flops": ops, "max_abs_err": err, "tol": tol,
+           "within_tol_of_plain": within, "f64_err_kernel_plain": errs,
+           "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+           "bound_by": bound_by, "bytes_bound_ms": bytes_ms,
+           "library_ms": lib, "phase_launches": launches, "ok": ok}
+    log(f"[kernels] {json.dumps(row)}")
+    if not ok:
+        fail(f"flash_attention {name} {row['shape']} {row['dtype']}: err "
+             f"{err}, tol {tol}, float64 errors (kernel, plain) {errs}")
+    return row
+
+
+def ssd_bound(x, B_, chunk, y_dtype):
+    """x, dt, a, B_, C_ read once, y and the final state written once;
+    per (row, chunk of L) C B^T over the causal half, L(L+1) N operations
+    (shared by the heads), and per (row, head, chunk) its product with
+    x, L(L+1) P, plus C S_prev and B^T x, 2 L N P each."""
+    b, s, h, p = x.shape
+    n = B_.shape[-1]
+    es = torch.finfo(y_dtype).bits // 8
+    n_bytes = (x.numel() * x.element_size() + 2 * B_.numel()
+               * B_.element_size() + 2 * b * s * h * 4 + x.numel() * es
+               + b * h * n * p * 4)
+    lens = [min(chunk, s - c0) for c0 in range(0, s, chunk)]
+    ops = sum(b * ln * (ln + 1) * n + b * h * (ln * (ln + 1) * p
+                                              + 4 * ln * n * p)
+              for ln in lens)
+    return bound(n_bytes, ops, x.dtype), ops
+
+
+def timed_once(fn):
+    """``(fn(), its milliseconds by CUDA events)`` for one call: for the
+    plain SSD recurrence, whose one call at full width takes seconds."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def check_ssd(name, args, chunk, y_dtype, ssd, ref, launches=0, plain=None,
+              exact=None):
+    """Kernel vs plain SSD scan: y and the final state (and, given
+    ``exact``, the float64 plain result, both against it); times.
+    ``plain`` is ``(plain result, plain ms)`` when the caller has them
+    already (they do not depend on the chunk); returned with the row."""
+    x = args[0]
+    tol = SSD_TOL[x.dtype]
+    y, state = ssd.ssd_scan(*args, chunk=chunk, y_dtype=y_dtype)
+    if plain is None:
+        plain = timed_once(lambda: ref.ssd_reference(*args))
+    want, plain_ms = plain
+    y_err = float((y.float() - want[0]).abs().max())
+    s_err = float((state - want[1]).abs().max())
+    within = torch.allclose(y.float(), want[0], rtol=tol, atol=tol) and \
+        torch.allclose(state, want[1], rtol=SSD_STATE_TOL,
+                       atol=SSD_STATE_TOL)
+    ok, errs = within, None
+    if exact is not None:
+        errs = oracle_errors(y, want[0], exact[0]) \
+            + oracle_errors(state, want[1], exact[1])
+        ok = errs[0] <= ORACLE_FACTOR * errs[1] + tol and \
+            errs[2] <= ORACLE_FACTOR * errs[3] + SSD_STATE_TOL
+    del y, state
+    big = x.numel() > 1 << 22
+    ms = cuda_ms(lambda: ssd.ssd_scan(*args, chunk=chunk, y_dtype=y_dtype),
+                 5 if big else 20)
+    (bound_ms, bound_by, bytes_ms), ops = ssd_bound(x, args[3], chunk,
+                                                    y_dtype)
+    row = {"kernel": "ssd_scan", "phase": name, "shape": list(x.shape),
+           "state": args[3].shape[-1], "chunk": chunk,
+           "dtype": str(x.dtype).split(".")[-1],
+           "y_dtype": str(y_dtype).split(".")[-1], "flops": ops,
+           "max_abs_err": y_err, "state_max_abs_err": s_err, "tol": tol,
+           "within_tol_of_plain": within, "f64_err_kernel_plain": errs,
+           "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+           "bound_by": bound_by, "bytes_bound_ms": bytes_ms,
+           "library_ms": None, "phase_launches": launches, "ok": ok}
+    log(f"[kernels] {json.dumps(row)}")
+    if not ok:
+        fail(f"ssd_scan {name} {row['shape']} {row['dtype']} chunk {chunk}:"
+             f" y err {y_err}, state err {s_err}, float64 errors (kernel y, "
+             f"plain y, kernel state, plain state) {errs}")
+    return row, plain
+
+
+def run_prefill_kernels(rec, paths, device="cuda"):
+    """Every captured prefill input in bf16 and float32 (SSD inputs at
+    chunks 64, 128 and 256; float32 also against the float64 oracle),
+    then tests/test_kernels.py's attention and SSD cases."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import ssd_scan as ssd
+    rows = []
+    for (phase, kernel, layer), (tensors, kw) in sorted(
+            rec.inputs.items()):
+        name = f"{phase} layer {layer}"
+        launches = paths[phase]["launches"][kernel]
+        for dtype in (torch.bfloat16, torch.float32):
+            oracle = dtype == torch.float32
+            if kernel == "flash_attention":
+                q, k, v = (t.to(dtype) for t in tensors)
+                rows.append(check_attention(name, q, k, v, kw["causal"],
+                                            kw["window"], fa, ref, launches,
+                                            oracle))
+                continue
+            x, dt, a, B_, C_ = tensors
+            args = (x.to(dtype), dt, a, B_.to(dtype), C_.to(dtype))
+            exact = ref.ssd_reference(*(t.double() for t in args)) \
+                if oracle else None
+            plain = None
+            for chunk in SSD_CHUNKS:
+                row, plain = check_ssd(name, args, chunk, kw["y_dtype"], ssd,
+                                       ref, launches, plain, exact)
+                row["path_chunk"] = chunk == kw["chunk"]
+                rows.append(row)
+            del plain, exact
+        torch.cuda.empty_cache()
+    rng = np.random.default_rng(0)
+    for b, sq, skv, h, kvh, d, causal, window in ATTN_CASES:
+        arrays = [rng.standard_normal(shape).astype(np.float32) for shape in
+                  ((b, sq, h, d), (b, skv, kvh, d), (b, skv, kvh, d))]
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = (torch.tensor(a, device=device).to(dtype)
+                       for a in arrays)
+            rows.append(check_attention("attn_cases", q, k, v, causal,
+                                        window, fa, ref))
+    for b, s, h, p, n, chunk in SSD_CASES:
+        x = rng.standard_normal((b, s, h, p)).astype(np.float32)
+        dt = np.logaddexp(rng.standard_normal((b, s, h)), 0)
+        a = -np.abs(rng.standard_normal((b, s, h))) * 0.1
+        B_, C_ = (rng.standard_normal((b, s, n)) for _ in range(2))
+        for dtype in (torch.float32, torch.bfloat16):
+            args = (torch.tensor(x, device=device).to(dtype),
+                    torch.tensor(dt, device=device, dtype=torch.float32),
+                    torch.tensor(a, device=device, dtype=torch.float32),
+                    torch.tensor(B_, device=device).to(dtype),
+                    torch.tensor(C_, device=device).to(dtype))
+            rows.append(check_ssd("ssd_cases", args, chunk, dtype, ssd,
+                                  ref)[0])
+    return rows
+
+
 def kernels_line(rows, paths):
     """One entry per kernel: launches summed over the path phases, the
     worst error of any comparison, and the times of its largest
@@ -907,6 +1341,12 @@ def kernels_line(rows, paths):
             rep = max([r for r in mine if r["phase"].startswith("serve ")]
                       or mine, key=lambda r: r["kv_keys"])
             dtype = f"{rep['q_dtype']}/{rep['kv_dtype']}"
+        elif name in ("flash_attention", "ssd_scan"):
+            rep = max([r for r in mine if r["phase"].startswith("prefill_")
+                       and r["dtype"] == "bfloat16"
+                       and r.get("path_chunk", True)] or mine,
+                      key=lambda r: r["flops"])
+            dtype = rep["dtype"]
         else:
             rep = max([r for r in mine if r.get("path_dtype")] or mine,
                       key=lambda r: np.prod(r["shape"]) * r["caps"])
@@ -955,9 +1395,12 @@ def main() -> int:
 
     rec = Recorder(mm)
     decode_rec = DecodeRecorder(ops)
+    prefill_rec = PrefillRecorder(ops)
     paths = run_paths(rec)
     paths.update(run_serve(decode_rec))
-    rows = run_kernels(rec, paths) + run_decode_kernels(decode_rec, paths)
+    paths.update(run_prefill(prefill_rec))
+    rows = run_kernels(rec, paths) + run_decode_kernels(decode_rec, paths) \
+        + run_prefill_kernels(prefill_rec, paths)
     line = kernels_line(rows, paths)
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
 

@@ -32,10 +32,12 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 #: as the plain PyTorch versions (one op per expression) do: its kernels
 #: are bit-exact with them.  flash_decode keeps fused multiply-add: its
 #: sums run in another order than the plain version's anyway, and it is
-#: held to a tolerance.
+#: held to a tolerance, as are flash_attention and ssd_scan.
 LIBRARIES = {
     "maxmin": ("maxmin.cu", ("-fmad=false",)),
     "flash_decode": ("flash_decode.cu", ()),
+    "flash_attention": ("flash_attention.cu", ()),
+    "ssd_scan": ("ssd_scan.cu", ()),
 }
 
 #: compiler output of the builds this process made, by library
@@ -51,14 +53,20 @@ _LOSS_ARGS = [_P, _I, _I, _I, _P, _P, _P, _L, _I, _P, _P, _P, _P, _P, _P,
               _P, _D, _D, _D, _I, _P]
 _DECODE_ARGS = [_I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P, _P,
                 _P, _P, _P, _P, _P]
+_ATTN_ARGS = [_I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P]
+_SSD_ARGS = [_I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]
 _SIGNATURES = {
     "maxmin": {"maxmin_fill_f32": _FILL_ARGS, "maxmin_fill_f64": _FILL_ARGS,
                "loss_factors_f32": _LOSS_ARGS,
                "loss_factors_f64": _LOSS_ARGS},
     "flash_decode": {"flash_decode": _DECODE_ARGS},
+    "flash_attention": {"flash_attention": _ATTN_ARGS},
+    "ssd_scan": {"ssd_scan": _SSD_ARGS},
 }
 _ERROR_STRING = {"maxmin": "kernels_error_string",
-                 "flash_decode": "flash_decode_error_string"}
+                 "flash_decode": "flash_decode_error_string",
+                 "flash_attention": "flash_attention_error_string",
+                 "ssd_scan": "ssd_scan_error_string"}
 
 
 def nvcc_path() -> str:

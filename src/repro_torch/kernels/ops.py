@@ -1,21 +1,41 @@
 """Public wrappers around the kernels of the adapted layer.
 
-The port of the reference package's ``kernels/ops.py``.  Its
-``flash_decode`` pads the cache to a multiple of the Pallas block; the
-Hopper kernel masks its ragged last tile itself, so here nothing is
-padded, and the tile size and interpret mode are not arguments (the
-kernel has its own tile, and a CUDA kernel has no interpret mode: a CPU
-tensor takes the plain version).  The ``flash_attention`` and
-``ssd_scan`` wrappers come with their kernels.
+The port of the reference package's ``kernels/ops.py``.  The reference's
+wrappers pad ragged sequences to a multiple of the Pallas block (KV for
+``flash_decode`` and ``flash_attention``, chunks with a = 0 for
+``ssd_scan``); the Hopper kernels mask their ragged tiles themselves, so
+here nothing is padded, and the tile sizes and interpret mode are not
+arguments (each kernel has its own tile, and a CUDA kernel has no
+interpret mode: a CPU tensor takes the plain version).
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import flash_decode as fd
+from repro_torch.kernels import ssd_scan as ssd
+
+
+def flash_attention(q, k, v, *, causal=True, window=0):
+    """Flash attention.  q (B, Sq, H, D); k, v (B, Skv, KVH, D) ->
+    (B, Sq, H, D) in q's dtype — see ``kernels/flash_attention.py``."""
+    return fa.flash_attention(q.contiguous(), k.contiguous(),
+                              v.contiguous(), causal=causal, window=window)
 
 
 def flash_decode(q, k, v, kv_len):
     """Split-KV decode.  q (B, H, D); k, v (B, S, KVH, D); kv_len (B,)
     integers.  Returns ``(out, m, l)`` — see ``kernels/flash_decode.py``."""
     return fd.flash_decode(q, k, v, kv_len.to(q.device, torch.int32))
+
+
+def ssd_scan(x, dt, a, B_, C_, *, chunk=128, y_dtype=None):
+    """Chunked SSD scan.  Returns ``(y, final_state)`` — see
+    ``kernels/ssd_scan.py``.  The chunk is capped at the sequence length
+    (at least 16), as the reference caps it; ``y_dtype`` (x's by
+    default) is the output's dtype."""
+    chunk = min(chunk, max(x.shape[1], 16))
+    return ssd.ssd_scan(x.contiguous(), dt.float().contiguous(),
+                        a.float().contiguous(), B_.contiguous(),
+                        C_.contiguous(), chunk=chunk, y_dtype=y_dtype)

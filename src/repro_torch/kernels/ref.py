@@ -5,7 +5,10 @@ Counterparts of the reference package's ``kernels/ref.py``:
 ``index_add_`` scatters and ``gather``s in the working dtype (float32 or
 float64), plus the filling loop of the reference's ``maxmin_rates``; and
 ``decode_reference``, the flash-decode function with its softmax
-statistics.  They run on any device: the wrappers in
+statistics; ``mha_reference``, causal / sliding-window GQA attention
+(the flash-attention function); and ``ssd_reference``, the exact
+sequential Mamba-2 recurrence (the SSD-scan function).  They run on any
+device: the wrappers in
 ``kernels/maxmin.py`` and ``kernels/ops.py`` take them for CPU tensors,
 and ``chip_smoke.py`` holds the CUDA kernels against them on the card.
 
@@ -171,3 +174,69 @@ def decode_reference(q, k, v, kv_len):
     out = acc / torch.clamp(l, min=1e-30)[..., None]
     return (out.reshape(b, h, d).to(q.dtype), m.reshape(b, h),
             l.reshape(b, h))
+
+
+#: query rows the plain attention takes at a time
+MHA_BLOCK_Q = 1024
+
+
+def mha_reference(q, k, v, *, causal, window=0):
+    """Multi-head attention oracle (the reference's ``mha_reference``).
+
+    q (B, Sq, H, D); k, v (B, Skv, KVH, D); GQA: q head h reads kv head
+    ``h // (H / KVH)``.  Masks compare absolute positions: causal keeps
+    ``kpos <= qpos``, a window ``kpos > qpos - window``.  Logits in f32
+    with -1e30 where masked, softmax in f32, the result in q's dtype
+    (float64 inputs are computed in float64: an exact-arithmetic oracle
+    for both the kernel and this version).
+
+    The query axis goes in blocks of ``MHA_BLOCK_Q`` rows: each row's
+    softmax is its own, so blocking changes no number, and at full width
+    (granite prefill, 4 x 4096 x 32 heads) it keeps the f32 logits to a
+    block's share instead of B * H * S^2 (8.6 GB).
+    """
+    b, sq, h, d = q.shape
+    skv, kvh = k.shape[1], k.shape[2]
+    rep = h // kvh
+    acc = torch.promote_types(q.dtype, torch.float32)
+    kf, vf = k.to(acc), v.to(acc)
+    kpos = torch.arange(skv, device=q.device)
+    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    for q0 in range(0, sq, MHA_BLOCK_Q):
+        qb = q[:, q0:q0 + MHA_BLOCK_Q]
+        n = qb.shape[1]
+        qg = qb.reshape(b, n, kvh, rep, d).to(acc)
+        logits = torch.einsum("bqkrd,bskd->bkrqs", qg, kf) / math.sqrt(d)
+        qpos = torch.arange(q0, q0 + n, device=q.device)[:, None]
+        mask = torch.ones((n, skv), dtype=torch.bool, device=q.device)
+        if causal:
+            mask &= kpos[None, :] <= qpos
+        if window:
+            mask &= kpos[None, :] > qpos - window
+        logits = torch.where(mask, logits, NEG_INF)
+        w = torch.softmax(logits, dim=-1)
+        o = torch.einsum("bkrqs,bskd->bqkrd", w, vf)
+        out[:, q0:q0 + n] = o.reshape(b, n, h, d).to(q.dtype)
+    return out
+
+
+def ssd_reference(x, dt, a, B_, C_):
+    """Sequential SSD (Mamba-2) oracle: the exact recurrence of the
+    reference's ``ssd_reference``.
+
+    x (B, S, H, P); dt, a (B, S, H); B_, C_ (B, S, N), every input taken
+    to f32:  S_t = exp(a_t) S_{t-1} + dt_t B_t x_t^T,  y_t = C_t . S_t.
+    Returns ``(y (B, S, H, P) f32, final state (B, H, N, P) f32)``; with
+    a float64 x everything is float64 (an exact-arithmetic oracle).
+    """
+    b, s, h, p = x.shape
+    n = B_.shape[-1]
+    acc = torch.promote_types(x.dtype, torch.float32)
+    x, dt, a, B_, C_ = (t.to(acc) for t in (x, dt, a, B_, C_))
+    state = torch.zeros((b, h, n, p), dtype=acc, device=x.device)
+    y = torch.empty((b, s, h, p), dtype=acc, device=x.device)
+    for t in range(s):
+        state = state * torch.exp(a[:, t])[:, :, None, None] + torch.einsum(
+            "bn,bh,bhp->bhnp", B_[:, t], dt[:, t], x[:, t])
+        y[:, t] = torch.einsum("bn,bhnp->bhp", C_[:, t], state)
+    return y, state

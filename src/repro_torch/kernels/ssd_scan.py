@@ -1,0 +1,96 @@
+"""Chunked SSD scan (Mamba-2 state-space duality), forward.
+
+The port of the reference package's ``kernels/ssd_scan.py``.
+``ssd_scan(x, dt, a, B_, C_, chunk=, y_dtype=)`` dispatches by the
+device of ``x``: a CPU tensor takes the plain PyTorch version
+(``ref.ssd_reference``, the exact sequential recurrence, whatever the
+chunk); a CUDA tensor launches the hand-written Hopper kernel of
+``csrc/ssd_scan.cu``, counted in ``LAUNCHES["ssd_scan"]``, or raises;
+nothing falls back.  The kernel masks the ragged last chunk, so nothing
+is padded.  The public entry with the reference's name is
+``kernels/ops.py:ssd_scan``.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.device import on_card
+from repro_torch.kernels import ref
+
+#: kernel launches since the last ``reset_launches()``
+LAUNCHES = {"ssd_scan": 0}
+
+#: the kernel's limits: state size N and head dim P multiples of 8,
+#: N <= 128, P <= 64; chunks of at most 256 positions
+MAX_STATE = 128
+MAX_HEAD_DIM = 64
+MAX_CHUNK = 256
+#: dtype codes of the C entry point
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def reset_launches() -> None:
+    LAUNCHES["ssd_scan"] = 0
+
+
+def _check(x, dt, a, B_, C_, chunk, y_dtype):
+    if x.dim() != 4 or dt.dim() != 3 or a.shape != dt.shape \
+            or B_.dim() != 3 or C_.shape != B_.shape:
+        raise ValueError(f"ssd_scan: x must be (B, S, H, P), dt and a "
+                         f"(B, S, H), B_ and C_ (B, S, N); got "
+                         f"{tuple(x.shape)}, {tuple(dt.shape)}, "
+                         f"{tuple(a.shape)}, {tuple(B_.shape)}, "
+                         f"{tuple(C_.shape)}")
+    b, s, h, p = x.shape
+    n = B_.shape[-1]
+    if dt.shape != (b, s, h) or B_.shape[:2] != (b, s):
+        raise ValueError(f"ssd_scan: x {tuple(x.shape)} does not fit dt "
+                         f"{tuple(dt.shape)} or B_ {tuple(B_.shape)}")
+    if n % 8 or n > MAX_STATE or p % 8 or p > MAX_HEAD_DIM \
+            or not 1 <= chunk <= MAX_CHUNK:
+        raise ValueError(f"ssd_scan: N {n}, P {p}, chunk {chunk} are "
+                         f"outside the kernel's limits")
+    if x.dtype not in _DTYPE_CODE or B_.dtype != x.dtype \
+            or C_.dtype != x.dtype or y_dtype not in _DTYPE_CODE:
+        raise ValueError(f"ssd_scan: x, B_, C_ must share float32 or "
+                         f"bfloat16, y float32 or bfloat16; got {x.dtype}, "
+                         f"{B_.dtype}, {C_.dtype}, y {y_dtype}")
+    if dt.dtype != torch.float32 or a.dtype != torch.float32:
+        raise ValueError(f"ssd_scan: dt and a must be float32, got "
+                         f"{dt.dtype}, {a.dtype}")
+    for t in (dt, a, B_, C_):
+        if t.device != x.device:
+            raise ValueError(f"ssd_scan: tensors on {t.device} and "
+                             f"{x.device}")
+    for t in (x, dt, a, B_, C_):
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError("ssd_scan: inputs must be contiguous and "
+                             "16-byte aligned")
+
+
+def ssd_scan(x, dt, a, B_, C_, *, chunk=128, y_dtype=None):
+    """x (B, S, H, P); dt, a (B, S, H) f32; B_, C_ (B, S, N) in x's dtype.
+
+    Returns ``(y (B, S, H, P) in y_dtype (x's by default), final state
+    (B, H, N, P) f32)``.
+    """
+    y_dtype = x.dtype if y_dtype is None else y_dtype
+    if not on_card(x):
+        y, state = ref.ssd_reference(x, dt, a, B_, C_)
+        return y.to(y_dtype), state
+    from repro_torch.kernels import build
+    _check(x, dt, a, B_, C_, chunk, y_dtype)
+    b, s, h, p = x.shape
+    n = B_.shape[-1]
+    y = torch.empty((b, s, h, p), dtype=y_dtype, device=x.device)
+    state = torch.empty((b, h, n, p), dtype=torch.float32, device=x.device)
+    lib = build.library("ssd_scan")
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        code = lib.ssd_scan(
+            _DTYPE_CODE[x.dtype], _DTYPE_CODE[y_dtype], x.data_ptr(),
+            dt.data_ptr(), a.data_ptr(), B_.data_ptr(), C_.data_ptr(),
+            y.data_ptr(), state.data_ptr(), b, s, h, p, n, chunk, stream)
+    build.check("ssd_scan", code, "ssd_scan")
+    LAUNCHES["ssd_scan"] += 1
+    return y, state

@@ -1,15 +1,19 @@
-"""Attention for the decode path: GQA against a KV cache.
+"""Attention: GQA with causal / bidirectional / sliding-window variants.
 
-The port of the reference package's ``models/attention.py``, decode half:
+The port of the reference package's ``models/attention.py``:
 
 - ``dense_attention``   — O(S^2)-memory attention, the oracle of the
   tests (causal / bidirectional / sliding-window);
+- ``attention``         — the train/prefill dispatch.  Every shape runs
+  ``kernels/ops.flash_attention`` (the hand-written Hopper kernel on a
+  CUDA tensor, its plain version on a CPU tensor), which takes the place
+  of the reference's ``dense_attention``, ``chunked_attention`` and
+  ``swa_attention`` alike, so those two are not ported;
 - ``decode_attention``  — single-query attention against a partially
-  filled cache.  It runs ``kernels/ops.flash_decode``: the hand-written
-  Hopper kernel on a CUDA tensor, its plain version on a CPU tensor.
+  filled cache.  It runs ``kernels/ops.flash_decode`` the same way.
 
-The train/prefill functions (``chunked_attention``, ``swa_attention``)
-come with the training slice and its ``flash_attention`` kernel.
+The sequence-parallel ``q_offset`` branch of ``attention`` and
+``cross_attention`` come with the encoder-decoder (ROADMAP queue 1).
 
 Shapes: q (B, Sq, H, hd); k, v (B, Skv, KVH, hd); H = KVH * rep (GQA).
 """
@@ -47,6 +51,15 @@ def dense_attention(q, k, v, *, causal=True, window=0, q_offset=0):
     w = torch.softmax(logits, dim=-1)
     out = torch.einsum("bkrqs,bskd->bqkrd", w.to(v.dtype), v)
     return out.reshape(b, sq, h, d)
+
+
+def attention(q, k, v, *, causal=True, window=0):
+    """Train/prefill attention.  The reference picks ``dense_attention``,
+    ``swa_attention`` or ``chunked_attention`` by shape; the kernel
+    computes all three, and applies the window at every length (the
+    reference's ``chunked_attention`` branch drops it: ROADMAP queue
+    3)."""
+    return ops.flash_attention(q, k, v, causal=causal, window=window)
 
 
 def decode_attention(q, k, v, *, kv_len=None, window=0):

@@ -1,11 +1,14 @@
-"""The dense LM's decode path.
+"""The LM's decode path and its forward (prefill) half.
 
-The port of the reference package's ``models/model.py``, decode half, on
-one device: parameter definitions for every architecture (so parameter
-counts agree with the reference), the ``Model`` module holding them, the
-stacked KV caches and ``decode_forward``.  Every attention layer of a
-decode step runs ``models/attention.decode_attention``, whose CUDA path
-is the hand-written flash-decode kernel.
+The port of the reference package's ``models/model.py`` on one device:
+parameter definitions for every architecture (so parameter counts agree
+with the reference), the ``Model`` module holding them, the stacked KV
+caches and ``decode_forward``; and ``forward_hidden`` / ``forward`` over
+a whole sequence.  Every attention layer of a decode step runs
+``models/attention.decode_attention`` (the flash-decode kernel on the
+card); every attention layer of a forward runs ``attention.attention``
+(the flash-attention kernel) and every Mamba-2 layer
+``models/ssm.ssm_apply`` (the SSD-scan kernel).
 
 Parameters keep the reference's names and layouts (``wq`` is (d, h, hd),
 blocks are stacked on a leading ``n_blocks`` axis), so carrying weights
@@ -14,10 +17,13 @@ matrix products the reference leaves to XLA are ``torch.einsum`` here,
 with the parameters cast to the compute dtype inside every product, as
 the reference casts them.
 
-What this slice runs: ``attn`` mixers with ``mlp`` ffns, full attention
-(``window == 0``), no encoder and no vision prefix.  Other
-configurations raise ``NotImplementedError`` naming the ROADMAP item
-that ports them.  The multi-device split-KV branches
+``Model`` holds every configuration.  Decode runs ``attn`` mixers with
+``mlp`` ffns, full attention (``window == 0``), no encoder and no vision
+prefix; the forward runs ``attn`` (full or windowed) and ``mamba``
+mixers with an ``mlp`` or no ffn, no encoder and no vision prefix.
+Other configurations raise ``NotImplementedError`` naming the ROADMAP
+item that ports them (``check_decode_supported``,
+``check_forward_supported``).  The multi-device split-KV branches
 (``softmax_combine``) are not ported: the port serves on one card.
 """
 from __future__ import annotations
@@ -31,6 +37,7 @@ from torch import nn
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.blocks import (ParamDef, init_params, mlp_defs,
                                        rms_norm, rope, stack_defs, swiglu,
                                        tree_leaves, tree_map, unflatten)
@@ -72,29 +79,6 @@ def _moe_defs(cfg: ArchConfig):
     }
 
 
-def _ssm_defs(cfg: ArchConfig):
-    """The reference's ``ssm.ssm_defs`` (definitions only: the SSM mixer
-    is a later slice)."""
-    d = cfg.d_model
-    d_in = cfg.ssm_expand * d
-    h, n, k = d_in // cfg.ssm_headdim, cfg.ssm_state, cfg.ssm_conv
-    return {
-        "wz": ParamDef((d, d_in), ("embed", "ssm_inner")),
-        "wx": ParamDef((d, d_in), ("embed", "ssm_inner")),
-        "wB": ParamDef((d, n), ("embed", None)),
-        "wC": ParamDef((d, n), ("embed", None)),
-        "wdt": ParamDef((d, h), ("embed", "ssm_heads")),
-        "dt_bias": ParamDef((h,), ("ssm_heads",), init="zeros"),
-        "A_log": ParamDef((h,), ("ssm_heads",), init="zeros"),
-        "D": ParamDef((h,), ("ssm_heads",), init="ones"),
-        "conv_x": ParamDef((k, d_in), ("conv_k", "ssm_inner"), scale=0.5),
-        "conv_B": ParamDef((k, n), ("conv_k", None), scale=0.5),
-        "conv_C": ParamDef((k, n), ("conv_k", None), scale=0.5),
-        "gnorm": ParamDef((d_in,), ("ssm_inner",), init="ones"),
-        "wo": ParamDef((d_in, d), ("ssm_inner", "embed")),
-    }
-
-
 def _ffn_defs(cfg: ArchConfig, kind):
     d = cfg.d_model
     if kind is None:
@@ -112,7 +96,7 @@ def _sublayer_defs(cfg: ArchConfig, mixer, ffn, cross=False):
         mdefs = _attn_defs(cfg, cross=cross)
     elif mixer == "mamba":
         mdefs = {"norm": ParamDef((cfg.d_model,), ("norm",), init="ones"),
-                 **_ssm_defs(cfg)}
+                 **ssm_mod.ssm_defs(cfg)}
     else:
         raise ValueError(mixer)
     return {"mixer": mdefs, "ffn": _ffn_defs(cfg, ffn)}
@@ -140,8 +124,8 @@ def model_defs(cfg: ArchConfig):
     return defs
 
 
-def check_supported(cfg: ArchConfig) -> None:
-    """Raise for what this slice's decode path does not run."""
+def check_decode_supported(cfg: ArchConfig) -> None:
+    """Raise for what the port's decode path does not run yet."""
     why = []
     if any(m != "attn" for m, _ in cfg.pattern):
         why.append("SSM mixers")
@@ -160,6 +144,23 @@ def check_supported(cfg: ArchConfig) -> None:
             f"queue 1 item 2)")
 
 
+def check_forward_supported(cfg: ArchConfig) -> None:
+    """Raise for what the port's forward (prefill) path does not run
+    yet: attention (full or windowed) and Mamba-2 mixers with an MLP or
+    no ffn run; MoE ffns, encoders and vision prefixes do not."""
+    why = []
+    if any(f == "moe" for _, f in cfg.pattern):
+        why.append("MoE ffns")
+    if cfg.enc_layers > 0:
+        why.append("an encoder")
+    if cfg.vision_prefix > 0:
+        why.append("a vision prefix")
+    if why:
+        raise NotImplementedError(
+            f"{cfg.name}: the port's forward path does not run "
+            f"{', '.join(why)} yet (ROADMAP queue 1 item 2)")
+
+
 class Model(nn.Module):
     """The parameters of ``model_defs(cfg)``, named and laid out as in the
     reference: the state-dict key ``blocks.sub0.mixer.wq`` is the
@@ -171,7 +172,6 @@ class Model(nn.Module):
 
     def __init__(self, cfg: ArchConfig, *, seed: int = 0, device="cuda"):
         super().__init__()
-        check_supported(cfg)
         dev = resolve_device(device)
         self.cfg = cfg
         gen = torch.Generator(device=dev).manual_seed(seed)
@@ -212,7 +212,7 @@ def init_caches(cfg, batch, seq_len, *, device="cuda"):
     """Per-layer decode caches stacked over n_blocks, zero-filled:
     ``{"layers": {"sub<i>": {"k": (n_blocks, B, S, KVH, hd), "v": ...}}}``
     in bf16 whatever the compute dtype (the reference's default)."""
-    check_supported(cfg)
+    check_decode_supported(cfg)
     dev = resolve_device(device)
     shape = (cfg.n_blocks, batch, cache_len(cfg, seq_len), cfg.n_kv_heads,
              cfg.hd)
@@ -256,7 +256,10 @@ def attn_decode_apply(p, x, cache, slot, positions, kv_len, cfg):
     return x + torch.einsum("bshk,hkd->bsd", o.to(cd), p["wo"].to(cd))
 
 
-def ffn_apply(p, x, cfg):
+def ffn_apply(p, x, kind, cfg):
+    """The ffn sublayer: an MLP, or nothing (``kind`` None)."""
+    if kind is None:
+        return x
     cd = getattr(torch, cfg.compute_dtype)
     h = rms_norm(x, p["norm"], cfg.norm_eps).to(cd)
     return x + swiglu(h, p["wi"], p["wg"], p["wo"], cd)
@@ -267,18 +270,24 @@ def run_blocks_decode(blocks, caches, x, slot, positions, kv_len, cfg):
     of the reference's scan; the caches are updated in place."""
     for i in range(cfg.n_blocks):
         bp = tree_map(lambda a: a[i], blocks)
-        for j in range(len(cfg.pattern)):
+        for j, (_, ffn) in enumerate(cfg.pattern):
             sub = bp[f"sub{j}"]
             cache = tree_map(lambda a: a[i], caches["layers"][f"sub{j}"])
             x = attn_decode_apply(sub["mixer"], x, cache, slot, positions,
                                   kv_len, cfg)
-            x = ffn_apply(sub["ffn"], x, cfg)
+            x = ffn_apply(sub["ffn"], x, ffn, cfg)
     return x
 
 
 def embed_tokens(params, tokens, cfg, cd):
     """Token embedding lookup (the reference's gather branch)."""
     return params["embed"][tokens].to(cd)
+
+
+def _check_on(dev, tree, what):
+    for name, t in tree_leaves(tree):
+        if t.device != dev:
+            raise ValueError(f"{what} on {dev}: {name} is on {t.device}")
 
 
 @torch.no_grad()
@@ -293,11 +302,8 @@ def decode_forward(params, caches, tokens, step, cfg, *, device="cuda"):
     on ``device``, where the parameters and caches must be.
     """
     dev = resolve_device(device)
-    check_supported(cfg)
-    for name, t in tree_leaves({"params": params, "caches": caches}):
-        if t.device != dev:
-            raise ValueError(f"decode_forward on {dev}: {name} is on "
-                             f"{t.device}")
+    check_decode_supported(cfg)
+    _check_on(dev, {"params": params, "caches": caches}, "decode_forward")
     cd = getattr(torch, cfg.compute_dtype)
     steps = np.asarray(step.cpu() if torch.is_tensor(step) else step)
     b = tokens.shape[0]
@@ -322,3 +328,80 @@ def decode_forward(params, caches, tokens, step, cfg, *, device="cuda"):
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = torch.einsum("bsd,dv->bsv", x.to(cd), params["lm_head"].to(cd))
     return logits.float(), caches
+
+
+# ================================================================ forward
+
+def attn_core(q, k, v, cfg, *, causal, window):
+    """Train/prefill attention core on one device (the reference's
+    ``m == 1`` branch): ``attention.attention``, whose CUDA path is the
+    hand-written flash-attention kernel."""
+    return attn.attention(q, k, v, causal=causal, window=window)
+
+
+def attn_apply(p, x, cfg, positions, *, causal=True, window=0):
+    """The self-attention sublayer over a whole sequence (cross
+    attention comes with the encoder-decoder)."""
+    cd = getattr(torch, cfg.compute_dtype)
+    h = rms_norm(x, p["norm"], cfg.norm_eps).to(cd)
+    q, k, v = _project_qkv(p, h, cfg, cd)
+    if cfg.use_rope:
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
+    o = attn_core(q, k, v, cfg, causal=causal, window=window)
+    return x + torch.einsum("bshk,hkd->bsd", o.to(cd), p["wo"].to(cd))
+
+
+def sublayer_apply(sub, x, mixer, ffn, cfg, positions, *, causal=True):
+    """One (mixer, ffn) sublayer: attention or Mamba-2, then an MLP or
+    nothing."""
+    if mixer == "attn":
+        x = attn_apply(sub["mixer"], x, cfg, positions, causal=causal,
+                       window=cfg.window)
+    else:
+        hm = rms_norm(x, sub["mixer"]["norm"], cfg.norm_eps)
+        y, _ = ssm_mod.ssm_apply(
+            {k: v for k, v in sub["mixer"].items() if k != "norm"}, hm, cfg)
+        x = x + y
+    return ffn_apply(sub.get("ffn"), x, ffn, cfg)
+
+
+def run_blocks(blocks, x, cfg, positions, *, causal=True):
+    """The stacked blocks over a whole sequence, a Python loop in place
+    of the reference's scan (no remat: nothing keeps gradients).
+    Returns ``(x, aux)``; aux, the MoE router loss, is 0 here."""
+    for i in range(cfg.n_blocks):
+        bp = tree_map(lambda a: a[i], blocks)
+        for j, (mixer, ffn) in enumerate(cfg.pattern):
+            x = sublayer_apply(bp[f"sub{j}"], x, mixer, ffn, cfg, positions,
+                               causal=causal)
+    return x, 0.0
+
+
+def build_inputs(params, batch, cfg):
+    """The decoder input sequence from ``batch["tokens"]`` (B, S)."""
+    return embed_tokens(params, batch["tokens"],
+                        cfg, getattr(torch, cfg.compute_dtype))
+
+
+@torch.no_grad()
+def forward_hidden(params, batch, cfg, *, device="cuda"):
+    """Forward up to the final norm: ``(hidden (B, S, D) in the compute
+    dtype, aux)``.  ``params`` is ``Model.params`` on ``device``;
+    ``batch["tokens"]`` (B, S) integers."""
+    dev = resolve_device(device)
+    check_forward_supported(cfg)
+    _check_on(dev, params, "forward")
+    tokens = torch.as_tensor(batch["tokens"]).to(dev)
+    x = build_inputs(params, {"tokens": tokens}, cfg)
+    pos = torch.arange(x.shape[1], device=dev).expand(x.shape[:2])
+    x, aux = run_blocks(params["blocks"], x, cfg, pos, causal=True)
+    return rms_norm(x, params["final_norm"], cfg.norm_eps), aux
+
+
+def forward(params, batch, cfg, *, device="cuda"):
+    """Teacher-forced forward: ``(logits (B, S, V) f32, aux)``."""
+    x, aux = forward_hidden(params, batch, cfg, device=device)
+    cd = getattr(torch, cfg.compute_dtype)
+    logits = torch.einsum("bsd,dv->bsv", x.to(cd), params["lm_head"].to(cd))
+    return logits.float(), aux

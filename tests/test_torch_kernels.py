@@ -6,9 +6,13 @@ interpret mode, on the same numpy-seeded inputs, in float32 and — under
 ``jax.enable_x64`` — float64; the filling loop against the numpy
 ``FlowSim`` progressive filling.  The port's flash decode
 ``(out, m, l)`` against the Pallas ``flash_decode`` in interpret mode
-and ``decode_reference``, in float32 and bfloat16.  On CPU tensors the
-wrappers run the plain versions; the CUDA kernels themselves are held
-against them on the card (``gpu`` marker here, and ``chip_smoke.py``).
+and ``decode_reference``, in float32 and bfloat16; its flash attention
+and SSD scan against ``mha_reference`` / ``ssd_reference`` and, for a
+few cases, the Pallas kernels in interpret mode, with the SSD scan also
+held across chunk sizes and to the model's ``ssd_chunked``.  On CPU
+tensors the wrappers run the plain versions; the CUDA kernels themselves
+are held against them on the card (``gpu`` marker here, and
+``chip_smoke.py``).
 """
 from __future__ import annotations
 
@@ -24,8 +28,15 @@ from repro.kernels import maxmin as ref_maxmin
 from repro.kernels import ops as ref_ops
 from repro.kernels.ref import decode_reference as ref_decode_reference
 from repro.kernels.ref import loss_factors_reference, maxmin_round_reference
+from repro.kernels.ref import mha_reference as ref_mha_reference
+from repro.kernels.ref import ssd_reference as ref_ssd_reference
+from repro.models.ssm import ssd_chunked as ref_ssd_chunked
 from repro_torch.kernels import build, maxmin, ops, ref
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import flash_decode as fd
+from repro_torch.kernels import ssd_scan as ssd
+from repro_torch.models import attention as port_attn
+from repro_torch.models import ssm as port_ssm
 
 DTYPES = {"float32": (np.float32, torch.float32, 1e-6, 1e-6),
           "float64": (np.float64, torch.float64, 1e-12, 1e-12)}
@@ -448,3 +459,248 @@ def test_cuda_flash_decode_matches_plain_on_card(case, dtype_name):
     want = ref.decode_reference(q, k, v, args[3])
     for g, w in zip(got, want):
         torch.testing.assert_close(g.float(), w.float(), rtol=tol, atol=tol)
+
+
+# ========================================================= flash attention
+
+#: tests/test_kernels.py's ATTN_CASES, then the prefill path's head shapes
+#: (granite_3_2b's 32/8 x 64; h2o_danube_3_4b's 32/8 x 120 with a window):
+#: (B, Sq, Skv, H, KVH, D, causal, window)
+ATTN_CASES = [
+    (1, 128, 128, 4, 4, 64, True, 0),
+    (2, 256, 256, 8, 2, 64, True, 0),
+    (1, 128, 128, 4, 2, 32, False, 0),
+    (2, 256, 256, 4, 4, 64, True, 128),
+    (1, 384, 384, 4, 2, 64, True, 96),
+    (1, 192, 192, 2, 1, 16, True, 0),
+    (1, 100, 100, 2, 2, 64, True, 0),
+]
+PATH_ATTN_CASES = [(1, 96, 96, 32, 8, 64, True, 0),
+                   (1, 80, 80, 32, 8, 120, True, 32)]
+#: the cases also held against the Pallas kernel in interpret mode (the
+#: rest against ``repro.kernels.ref``: interpret mode is slow here)
+PALLAS_ATTN = {ATTN_CASES[1], ATTN_CASES[4], ATTN_CASES[6]}
+ATTN_DTYPES = {"float32": (jnp.float32, torch.float32, 2e-5),
+               "bfloat16": (jnp.bfloat16, torch.bfloat16, 2e-2)}
+
+
+def attn_problem(case, seed=0):
+    b, sq, skv, h, kvh, d = case[:6]
+    rng = np.random.default_rng(seed)
+    return [rng.standard_normal(s).astype(np.float32)
+            for s in ((b, sq, h, d), (b, skv, kvh, d), (b, skv, kvh, d))]
+
+
+@pytest.mark.parametrize("case", ATTN_CASES + PATH_ATTN_CASES)
+@pytest.mark.parametrize("dtype_name", sorted(ATTN_DTYPES))
+def test_flash_attention_matches_reference(case, dtype_name):
+    """The port's flash attention (its plain version on the CPU) equals
+    the reference's oracle ``mha_reference`` and, for a few cases, its
+    Pallas kernel in interpret mode, within 2e-5 in f32 and 2e-2 in
+    bf16 (``tests/test_kernels.py``'s tolerances)."""
+    j_dt, t_dt, tol = ATTN_DTYPES[dtype_name]
+    causal, window = case[6], case[7]
+    arrays = attn_problem(case)
+    jq, jk, jv = (jnp.asarray(a).astype(j_dt) for a in arrays)
+    got = ops.flash_attention(*(torch.from_numpy(a).to(t_dt)
+                                for a in arrays), causal=causal,
+                              window=window)
+    assert got.dtype == t_dt and got.shape == arrays[0].shape
+    want = ref_mha_reference(jq, jk, jv, causal=causal, window=window)
+    np.testing.assert_allclose(_f32(got), _f32(want), rtol=tol, atol=tol)
+    if case in PALLAS_ATTN:
+        pallas = ref_ops.flash_attention(jq, jk, jv, causal=causal,
+                                         window=window, interpret=True)
+        np.testing.assert_allclose(_f32(got), _f32(pallas), rtol=tol,
+                                   atol=tol)
+
+
+def test_mha_reference_query_blocks_change_nothing():
+    """The plain version takes the query axis in blocks of 1024 (to bound
+    its f32 logits at full width): over 1100 queries, two blocks, it
+    equals attention computed over the whole axis at once."""
+    assert ref.MHA_BLOCK_Q == 1024
+    for causal, window in ((True, 0), (True, 300), (False, 0)):
+        q, k, v = map(torch.from_numpy, attn_problem(
+            (1, 1100, 1100, 2, 1, 8), seed=1))
+        got = ref.mha_reference(q, k, v, causal=causal, window=window)
+        want = port_attn.dense_attention(q, k, v, causal=causal,
+                                         window=window)
+        torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+
+
+def test_flash_attention_plain_path_launches_nothing():
+    fa.reset_launches()
+    q, k, v = map(torch.from_numpy, attn_problem(ATTN_CASES[0]))
+    ops.flash_attention(q, k, v)
+    assert fa.LAUNCHES == {"flash_attention": 0}
+    with pytest.raises(ValueError):
+        fa.flash_attention(q.to("meta"), k.to("meta"), v.to("meta"))
+
+
+def test_flash_attention_checks_refuse_what_the_kernel_cannot_take():
+    """The CUDA path's checks (run before any launch): head dims that are
+    not multiples of 8 or above 128, mismatched GQA shapes, dtypes other
+    than f32/bf16, and a negative window raise."""
+    def problem(shape_q, shape_kv, dtype=torch.float32):
+        return (torch.zeros(shape_q, dtype=dtype),
+                torch.zeros(shape_kv, dtype=dtype),
+                torch.zeros(shape_kv, dtype=dtype))
+    fa._check(*problem((1, 8, 4, 120), (1, 8, 2, 120)), 0)
+    for args, window in ((problem((1, 8, 4, 12), (1, 8, 2, 12)), 0),
+                         (problem((1, 8, 4, 136), (1, 8, 2, 136)), 0),
+                         (problem((1, 8, 4, 16), (1, 8, 3, 16)), 0),
+                         (problem((1, 8, 4, 16), (1, 8, 2, 16),
+                                  torch.float16), 0),
+                         (problem((1, 8, 4, 16), (1, 8, 2, 16)), -1)):
+        with pytest.raises(ValueError):
+            fa._check(*args, window)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ATTN_CASES + PATH_ATTN_CASES)
+@pytest.mark.parametrize("dtype_name", sorted(ATTN_DTYPES))
+def test_cuda_flash_attention_matches_plain_on_card(case, dtype_name):
+    _card()
+    _, t_dt, tol = ATTN_DTYPES[dtype_name]
+    q, k, v = (torch.from_numpy(a).cuda().to(t_dt)
+               for a in attn_problem(case))
+    before = fa.LAUNCHES["flash_attention"]
+    got = ops.flash_attention(q, k, v, causal=case[6], window=case[7])
+    assert fa.LAUNCHES["flash_attention"] == before + 1
+    want = ref.mha_reference(q, k, v, causal=case[6], window=case[7])
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                               atol=tol)
+
+
+# ================================================================ ssd scan
+
+#: tests/test_kernels.py's SSD_CASES, then mamba2_370m's head shape
+#: (P 64, N 128) at the model's chunk of 256 over a ragged length:
+#: (B, S, H, P, N, chunk)
+SSD_CASES = [
+    (1, 256, 2, 64, 64, 128),
+    (2, 128, 4, 32, 64, 64),
+    (1, 384, 2, 64, 128, 128),
+    (1, 100, 2, 16, 32, 64),
+]
+PATH_SSD_CASES = [(1, 300, 2, 64, 128, 256)]
+PALLAS_SSD = {SSD_CASES[1], SSD_CASES[3]}
+#: (y tolerance, state tolerance) by dtype, ``tests/test_kernels.py``'s
+SSD_DTYPES = {"float32": (jnp.float32, torch.float32, 1e-4, 1e-3),
+              "bfloat16": (jnp.bfloat16, torch.bfloat16, 3e-2, 1e-3)}
+
+
+def ssd_problem(case, seed=0):
+    """x, dt = softplus(N(0,1)), a = -0.1 |N(0,1)|, B_, C_ as in
+    ``tests/test_kernels.py``, drawn with numpy."""
+    b, s, h, p, n = case[:5]
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((b, s, h, p)).astype(np.float32)
+    dt = np.logaddexp(rng.standard_normal((b, s, h)), 0).astype(np.float32)
+    a = (-np.abs(rng.standard_normal((b, s, h))) * 0.1).astype(np.float32)
+    B_ = rng.standard_normal((b, s, n)).astype(np.float32)
+    C_ = rng.standard_normal((b, s, n)).astype(np.float32)
+    return x, dt, a, B_, C_
+
+
+def _ssd_torch(arrays, t_dt):
+    x, dt, a, B_, C_ = map(torch.from_numpy, arrays)
+    return x.to(t_dt), dt, a, B_.to(t_dt), C_.to(t_dt)
+
+
+def _ssd_jax(arrays, j_dt):
+    x, dt, a, B_, C_ = map(jnp.asarray, arrays)
+    return x.astype(j_dt), dt, a, B_.astype(j_dt), C_.astype(j_dt)
+
+
+@pytest.mark.parametrize("case", SSD_CASES + PATH_SSD_CASES)
+@pytest.mark.parametrize("dtype_name", sorted(SSD_DTYPES))
+def test_ssd_scan_matches_reference(case, dtype_name):
+    """The port's SSD scan (its plain version on the CPU) equals the
+    reference's ``ssd_reference`` and, for a few cases, its Pallas
+    kernel in interpret mode: y within 1e-4 in f32 and 3e-2 in bf16, the
+    final state within 1e-3 (``tests/test_kernels.py``)."""
+    j_dt, t_dt, tol, s_tol = SSD_DTYPES[dtype_name]
+    arrays = ssd_problem(case)
+    y, state = ops.ssd_scan(*_ssd_torch(arrays, t_dt), chunk=case[5])
+    assert y.dtype == t_dt and state.dtype == torch.float32
+    jargs = _ssd_jax(arrays, j_dt)
+    wants = [ref_ssd_reference(*jargs)]
+    if case in PALLAS_SSD:
+        wants.append(ref_ops.ssd_scan(*jargs, chunk=case[5], interpret=True))
+    for y_want, s_want in wants:
+        np.testing.assert_allclose(_f32(y), _f32(y_want), rtol=tol, atol=tol)
+        np.testing.assert_allclose(state.numpy(), np.asarray(s_want),
+                                   rtol=s_tol, atol=s_tol)
+
+
+def test_ssd_scan_y_dtype_and_chunk_invariance():
+    """y comes back in the dtype asked for (f32 from bf16 x, as the
+    model's ``ssm_apply`` asks) and does not depend on the chunk (64,
+    128, 256), as ``tests/test_kernels.py:test_ssd_chunk_invariance``
+    holds the Pallas kernel."""
+    args = _ssd_torch(ssd_problem((1, 256, 2, 32, 64), seed=2),
+                      torch.bfloat16)
+    y_bf, s_bf = ops.ssd_scan(*args, chunk=64)
+    y_f32, s_f32 = ops.ssd_scan(*args, chunk=64, y_dtype=torch.float32)
+    assert y_bf.dtype == torch.bfloat16 and y_f32.dtype == torch.float32
+    assert torch.equal(y_f32.bfloat16(), y_bf) and torch.equal(s_bf, s_f32)
+    args = _ssd_torch(ssd_problem((1, 256, 2, 32, 64), seed=3),
+                      torch.float32)
+    y64, s64 = ops.ssd_scan(*args, chunk=64)
+    for chunk in (128, 256):
+        y, s = ops.ssd_scan(*args, chunk=chunk)
+        torch.testing.assert_close(y, y64, rtol=1e-4, atol=1e-4)
+        torch.testing.assert_close(s, s64, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("chunk", [64, 128, 256])
+def test_ssd_scan_matches_model_chunked_impl(chunk):
+    """The scan and the model's plain chunked ``ssd_chunked`` (the port's
+    and the reference's) agree at every chunk: the kernel can stand in
+    for it, as ``tests/test_kernels.py`` holds the Pallas kernel."""
+    arrays = ssd_problem((1, 256, 2, 32, 64), seed=4)
+    args = _ssd_torch(arrays, torch.float32)
+    y, state = ops.ssd_scan(*args, chunk=chunk)
+    y_model, s_model = port_ssm.ssd_chunked(*args, chunk)
+    torch.testing.assert_close(y, y_model, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(state, s_model, rtol=1e-3, atol=1e-3)
+    y_ref, s_ref = ref_ssd_chunked(*_ssd_jax(arrays, jnp.float32), chunk)
+    np.testing.assert_allclose(y_model.numpy(), np.asarray(y_ref),
+                               rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(s_model.numpy(), np.asarray(s_ref),
+                               rtol=1e-4, atol=1e-4)
+
+
+def test_ssd_scan_plain_path_launches_nothing_and_checks():
+    ssd.reset_launches()
+    args = _ssd_torch(ssd_problem(SSD_CASES[3]), torch.float32)
+    ops.ssd_scan(*args, chunk=64)
+    assert ssd.LAUNCHES == {"ssd_scan": 0}
+    with pytest.raises(ValueError):
+        ssd.ssd_scan(*(t.to("meta") for t in args))
+    ssd._check(*args, 64, torch.float32)
+    x, dt, a, B_, C_ = args
+    for bad in ((x, dt, a, B_, C_, 512, torch.float32),
+                (x, dt.double(), a, B_, C_, 64, torch.float32),
+                (x, dt, a, B_.bfloat16(), C_, 64, torch.float32),
+                (x[..., :12].contiguous(), dt, a, B_, C_, 64, torch.float32),
+                (x, dt, a, B_, C_, 64, torch.float16)):
+        with pytest.raises(ValueError):
+            ssd._check(*bad)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", SSD_CASES + PATH_SSD_CASES)
+@pytest.mark.parametrize("dtype_name", sorted(SSD_DTYPES))
+def test_cuda_ssd_scan_matches_plain_on_card(case, dtype_name):
+    _card()
+    _, t_dt, tol, s_tol = SSD_DTYPES[dtype_name]
+    args = [t.cuda() for t in _ssd_torch(ssd_problem(case), t_dt)]
+    before = ssd.LAUNCHES["ssd_scan"]
+    y, state = ops.ssd_scan(*args, chunk=case[5])
+    assert ssd.LAUNCHES["ssd_scan"] == before + 1
+    y_want, s_want = ref.ssd_reference(*args)
+    torch.testing.assert_close(y.float(), y_want, rtol=tol, atol=tol)
+    torch.testing.assert_close(state, s_want, rtol=s_tol, atol=s_tol)

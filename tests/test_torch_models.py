@@ -116,9 +116,15 @@ def test_init_params_scheme():
                                   "whisper_medium", "internvl2_26b",
                                   "h2o_danube_3_4b"])
 def test_later_slices_raise(arch):
+    """``Model`` holds every configuration; decode raises for what it does
+    not run yet (SSM, MoE, windows, encoders, vision prefixes)."""
+    cfg = port_base.get_config(arch, smoke=True)
+    model = port_model.Model(cfg, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port_model.Model(port_base.get_config(arch, smoke=True),
-                         device="cpu")
+        port_model.init_caches(cfg, 1, 8, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        port_model.decode_forward(model.params, {"layers": {}},
+                                  torch.tensor([[1]]), 0, cfg, device="cpu")
 
 
 # ================================================================ blocks
