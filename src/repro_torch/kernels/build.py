@@ -54,13 +54,17 @@ _LOSS_ARGS = [_P, _I, _I, _I, _P, _P, _P, _L, _I, _P, _P, _P, _P, _P, _P,
 _DECODE_ARGS = [_I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P, _P,
                 _P, _P, _P, _P, _P]
 _ATTN_ARGS = [_I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P]
+_ATTN_WG_ARGS = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P]
+_PROBE_ARGS = [_P, _P, _P, _P, _P, _I, _P]
 _SSD_ARGS = [_I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]
 _SIGNATURES = {
     "maxmin": {"maxmin_fill_f32": _FILL_ARGS, "maxmin_fill_f64": _FILL_ARGS,
                "loss_factors_f32": _LOSS_ARGS,
                "loss_factors_f64": _LOSS_ARGS},
     "flash_decode": {"flash_decode": _DECODE_ARGS},
-    "flash_attention": {"flash_attention": _ATTN_ARGS},
+    "flash_attention": {"flash_attention": _ATTN_ARGS,
+                        "flash_attention_wgmma": _ATTN_WG_ARGS,
+                        "flash_attention_wgmma_probe": _PROBE_ARGS},
     "ssd_scan": {"ssd_scan": _SSD_ARGS},
 }
 _ERROR_STRING = {"maxmin": "kernels_error_string",

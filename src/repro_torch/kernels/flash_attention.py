@@ -3,11 +3,11 @@
 The port of the reference package's ``kernels/flash_attention.py``.
 ``flash_attention(q, k, v, causal=, window=)`` dispatches by the device
 of ``q``: a CPU tensor takes the plain PyTorch version
-(``ref.mha_reference``); a CUDA tensor launches the hand-written Hopper
-kernel of ``csrc/flash_attention.cu``, counted in
-``LAUNCHES["flash_attention"]``, or raises; nothing falls back.  The
-kernel masks its own ragged tiles, so nothing is padded.  The public
-entry with the reference's name is ``kernels/ops.py:flash_attention``.
+(``ref.mha_reference``); a CUDA tensor launches one of the hand-written
+Hopper kernels of ``csrc/flash_attention.cu``, or raises; nothing falls
+back.  The kernels mask their own ragged tiles, so nothing is padded.
+The public entry with the reference's name is
+``kernels/ops.py:flash_attention``.
 """
 from __future__ import annotations
 
@@ -16,20 +16,34 @@ import torch
 from repro_torch.device import on_card
 from repro_torch.kernels import ref
 
-#: kernel launches since the last ``reset_launches()``
-LAUNCHES = {"flash_attention": 0}
+#: kernel launches since the last ``reset_launches()``: the total, and
+#: each variant's share of it
+LAUNCHES = {"flash_attention": 0, "flash_attention_wgmma": 0,
+            "flash_attention_simt": 0}
 
-#: query rows a CTA holds: 64 / rep positions of one kv head's rep q heads
-ROWS = 64
-#: the kernel's limits: head dim a multiple of 8, at most 128; at most 64
+#: the kernels' limits: head dim a multiple of 8, at most 128; at most 64
 #: q heads per kv head
+ROWS = 64
 MAX_HEAD_DIM = 128
-#: dtype codes of the C entry point
+#: the tensor maps of the wgmma variant take byte strides below 2**40
+#: (the batch stride of q and of k/v)
+MAX_TMA_STRIDE = 1 << 40
+#: dtype codes of the SIMT entry point
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def reset_launches() -> None:
-    LAUNCHES["flash_attention"] = 0
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def variant(q, k) -> str:
+    """The kernel a pair of dtypes takes: ``"wgmma"`` (tensor cores, TMA)
+    for bf16 q with bf16 k/v, ``"simt"`` (f32 FMAs) for every other
+    pair.  Chosen by dtype alone, never by trying one and catching."""
+    if q.dtype == torch.bfloat16 and k.dtype == torch.bfloat16:
+        return "wgmma"
+    return "simt"
 
 
 def _check(q, k, v, window):
@@ -37,8 +51,8 @@ def _check(q, k, v, window):
         raise ValueError(f"flash_attention: q must be (B, Sq, H, D) and k, "
                          f"v (B, Skv, KVH, D), got {tuple(q.shape)}, "
                          f"{tuple(k.shape)}, {tuple(v.shape)}")
-    b, _, h, d = q.shape
-    kvh = k.shape[2]
+    b, sq, h, d = q.shape
+    skv, kvh = k.shape[1], k.shape[2]
     if k.shape[0] != b or k.shape[3] != d or kvh < 1 or h % kvh:
         raise ValueError(f"flash_attention: q {tuple(q.shape)} does not fit "
                          f"k/v {tuple(k.shape)}")
@@ -61,25 +75,44 @@ def _check(q, k, v, window):
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError("flash_attention: q, k, v must be contiguous "
                              "and 16-byte aligned")
+    if variant(q, k) == "wgmma" \
+            and max(sq * h, skv * kvh) * d * 2 >= MAX_TMA_STRIDE:
+        raise ValueError(f"flash_attention: a batch stride of "
+                         f"{max(sq * h, skv * kvh) * d * 2} bytes is beyond "
+                         f"the bf16 kernel's tensor maps")
 
 
 def flash_attention(q, k, v, *, causal=True, window=0):
     """q (B, Sq, H, D); k, v (B, Skv, KVH, D) -> (B, Sq, H, D) in q's
-    dtype.  ``window > 0`` keeps keys with ``kpos > qpos - window``."""
+    dtype.  ``window > 0`` keeps keys with ``kpos > qpos - window``.
+
+    On the card, bf16 q with bf16 k/v launches ``flash_attention_wgmma``
+    (wgmma products fed by TMA, P multiplied as bf16 hi + lo parts);
+    every other dtype pair (float32, and float32 mixed with bf16)
+    launches the SIMT kernel ``flash_attention_fwd``, whose f32 FMAs keep
+    the float32 checks free of TF32 or bf16 rounding.  A bf16 input the
+    wgmma kernel cannot take raises in ``_check``; it is never sent to
+    the SIMT kernel.  Each call counts one launch in
+    ``LAUNCHES["flash_attention"]`` and one in its variant's entry."""
     if not on_card(q):
         return ref.mha_reference(q, k, v, causal=causal, window=window)
     from repro_torch.kernels import build
     _check(q, k, v, window)
+    kind = variant(q, k)
     b, sq, h, d = q.shape
     skv, kvh = k.shape[1], k.shape[2]
     out = torch.empty_like(q)
     lib = build.library("flash_attention")
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, sq,
+            skv, h, kvh, d, int(bool(causal)), int(window), d ** -0.5)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        code = lib.flash_attention(
-            _DTYPE_CODE[q.dtype], _DTYPE_CODE[k.dtype], q.data_ptr(),
-            k.data_ptr(), v.data_ptr(), out.data_ptr(), b, sq, skv, h, kvh,
-            d, int(bool(causal)), int(window), d ** -0.5, stream)
-    build.check("flash_attention", code, "flash_attention")
+        if kind == "wgmma":
+            code = lib.flash_attention_wgmma(*args, 1, stream)
+        else:
+            code = lib.flash_attention(_DTYPE_CODE[q.dtype],
+                                       _DTYPE_CODE[k.dtype], *args, stream)
+    build.check("flash_attention", code, f"flash_attention ({kind})")
     LAUNCHES["flash_attention"] += 1
+    LAUNCHES[f"flash_attention_{kind}"] += 1
     return out

@@ -16,6 +16,9 @@ are held against them on the card (``gpu`` marker here, and
 """
 from __future__ import annotations
 
+import contextlib
+from types import SimpleNamespace
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -477,6 +480,19 @@ ATTN_CASES = [
 ]
 PATH_ATTN_CASES = [(1, 96, 96, 32, 8, 64, True, 0),
                    (1, 80, 80, 32, 8, 120, True, 32)]
+#: edges of the wgmma variant's tiling (128 query rows = 128 / rep
+#: positions x rep heads, 128-key tiles): rep 3 with D 128 (llama3_2_3b's
+#: 24/8 x 128 heads: 42 positions, 126 rows), D 120 with a window smaller
+#: than a tile, Sq not a multiple of the q tile, Sq != Skv (causal and
+#: not, D 32 zero-filled to a 64-column panel), and B > 1 with rep 5 (25
+#: positions), whose tile 125..149 puts the causal diagonal across the
+#: key tiles' edge at 128 and a position across the two warpgroups
+WGMMA_CASES = [(1, 100, 100, 24, 8, 128, True, 0),
+               (1, 300, 300, 32, 8, 120, True, 40),
+               (1, 77, 77, 8, 2, 64, True, 0),
+               (1, 150, 260, 8, 4, 32, True, 0),
+               (2, 96, 200, 8, 2, 64, False, 0),
+               (2, 200, 200, 10, 2, 64, True, 0)]
 #: the cases also held against the Pallas kernel in interpret mode (the
 #: rest against ``repro.kernels.ref``: interpret mode is slow here)
 PALLAS_ATTN = {ATTN_CASES[1], ATTN_CASES[4], ATTN_CASES[6]}
@@ -491,7 +507,7 @@ def attn_problem(case, seed=0):
             for s in ((b, sq, h, d), (b, skv, kvh, d), (b, skv, kvh, d))]
 
 
-@pytest.mark.parametrize("case", ATTN_CASES + PATH_ATTN_CASES)
+@pytest.mark.parametrize("case", ATTN_CASES + PATH_ATTN_CASES + WGMMA_CASES)
 @pytest.mark.parametrize("dtype_name", sorted(ATTN_DTYPES))
 def test_flash_attention_matches_reference(case, dtype_name):
     """The port's flash attention (its plain version on the CPU) equals
@@ -532,8 +548,10 @@ def test_mha_reference_query_blocks_change_nothing():
 def test_flash_attention_plain_path_launches_nothing():
     fa.reset_launches()
     q, k, v = map(torch.from_numpy, attn_problem(ATTN_CASES[0]))
-    ops.flash_attention(q, k, v)
-    assert fa.LAUNCHES == {"flash_attention": 0}
+    for dtype in (torch.float32, torch.bfloat16):
+        ops.flash_attention(q.to(dtype), k.to(dtype), v.to(dtype))
+    assert fa.LAUNCHES == {"flash_attention": 0, "flash_attention_wgmma": 0,
+                           "flash_attention_simt": 0}
     with pytest.raises(ValueError):
         fa.flash_attention(q.to("meta"), k.to("meta"), v.to("meta"))
 
@@ -557,17 +575,66 @@ def test_flash_attention_checks_refuse_what_the_kernel_cannot_take():
             fa._check(*args, window)
 
 
+def test_flash_attention_variant_is_chosen_by_dtype(monkeypatch):
+    """On a CUDA tensor the wrapper launches the wgmma kernel for bf16 q
+    with bf16 k/v and the SIMT kernel for every other dtype pair, by
+    dtype alone, counting the launch in the total and in its variant; a
+    bf16 input beyond the wgmma kernel's tensor maps raises in
+    ``_check`` and is not sent to the SIMT kernel.  The card is stood in
+    for by a library that records which entry point was called."""
+    calls = []
+    lib = SimpleNamespace(
+        flash_attention=lambda *a: calls.append("simt") or 0,
+        flash_attention_wgmma=lambda *a: calls.append("wgmma") or 0)
+    monkeypatch.setattr(fa, "on_card", lambda t: True)
+    monkeypatch.setattr(build, "library", lambda name: lib)
+    monkeypatch.setattr(build, "check", lambda *a: None)
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda d: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda d=None: SimpleNamespace(cuda_stream=0))
+    bf16, f32 = torch.bfloat16, torch.float32
+    for q_dt, kv_dt, want in ((bf16, bf16, "wgmma"), (f32, f32, "simt"),
+                              (f32, bf16, "simt"), (bf16, f32, "simt")):
+        q = torch.zeros((1, 8, 4, 16), dtype=q_dt)
+        k = torch.zeros((1, 8, 2, 16), dtype=kv_dt)
+        assert fa.variant(q, k) == want
+        fa.reset_launches()
+        calls.clear()
+        ops.flash_attention(q, k, k.clone())
+        assert calls == [want]
+        assert fa.LAUNCHES == {"flash_attention": 1,
+                               "flash_attention_wgmma": int(want == "wgmma"),
+                               "flash_attention_simt": int(want == "simt")}
+    # a batch stride of 2**40 bytes: the SIMT kernel's checks take it in
+    # float32, the wgmma kernel's refuse it in bf16
+    fa.reset_launches()
+    calls.clear()
+    for dtype in (f32, bf16):
+        q, k = (torch.empty((1, 2 ** 36, 1, 8), dtype=dtype, device="meta")
+                for _ in range(2))
+        if dtype == f32:
+            fa._check(q, k, k, 0)
+            continue
+        with pytest.raises(ValueError, match="tensor maps"):
+            fa.flash_attention(q, k, k)
+    assert calls == [] and fa.LAUNCHES["flash_attention"] == 0
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("case", ATTN_CASES + PATH_ATTN_CASES)
+@pytest.mark.parametrize("case", ATTN_CASES + PATH_ATTN_CASES + WGMMA_CASES)
 @pytest.mark.parametrize("dtype_name", sorted(ATTN_DTYPES))
 def test_cuda_flash_attention_matches_plain_on_card(case, dtype_name):
     _card()
     _, t_dt, tol = ATTN_DTYPES[dtype_name]
     q, k, v = (torch.from_numpy(a).cuda().to(t_dt)
                for a in attn_problem(case))
-    before = fa.LAUNCHES["flash_attention"]
+    kind = "flash_attention_" + ("wgmma" if t_dt == torch.bfloat16
+                                 else "simt")
+    before = dict(fa.LAUNCHES)
     got = ops.flash_attention(q, k, v, causal=case[6], window=case[7])
-    assert fa.LAUNCHES["flash_attention"] == before + 1
+    assert fa.LAUNCHES["flash_attention"] == before["flash_attention"] + 1
+    assert fa.LAUNCHES[kind] == before[kind] + 1
     want = ref.mha_reference(q, k, v, causal=case[6], window=case[7])
     torch.testing.assert_close(got.float(), want.float(), rtol=tol,
                                atol=tol)

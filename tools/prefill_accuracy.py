@@ -10,7 +10,11 @@ and the max abs distance of the kernel and of the plain version from the
 plain version run in float64 (SSD at chunks 64 and 256).  It shows how
 far any float32 evaluation lands from the exact result at the path's
 activations, which sets the kernel-vs-plain check of ``chip_smoke.py``'s
-float32 rows at captured inputs.
+float32 rows at captured inputs.  The attention inputs are also run in
+bf16 through the wgmma kernel with P multiplied as bf16 hi + lo (as the
+wrapper runs it) and as bf16 alone: distance from float64 and from the
+plain version, and whether the 2e-2 check holds, which is why the
+kernel splits P.
 """
 import os
 import sys
@@ -18,10 +22,12 @@ import sys
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 sys.path.insert(0, ROOT)
+sys.path.insert(0, os.path.join(ROOT, "tools"))
 
 import torch  # noqa: E402
 
 import chip_smoke as cs  # noqa: E402
+import probe_prefill_kernels as probe  # noqa: E402
 from repro_torch.configs.base import get_config  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
@@ -55,6 +61,17 @@ def main():
             want = ref.mha_reference(q, k, v, **kw)
             print("  from float64: kernel", dist(got, exact), "plain",
                   dist(want, exact), "out absmax", float(exact.abs().max()))
+            q, k, v = t
+            want = ref.mha_reference(q, k, v, **kw)
+            for split in (1, 0):
+                got = probe.wgmma_call(build.library("flash_attention"), q,
+                                       k, v, kw["causal"], kw["window"],
+                                       split)
+                diff = (got.float() - want.float()).abs()
+                print(f"  bf16 wgmma split={split}: from float64 "
+                      f"{dist(got, exact)} (plain {dist(want, exact)}); vs "
+                      f"plain max {float(diff.max())}, within 2e-2: "
+                      f"{bool((diff <= 2e-2 + 2e-2 * want.float().abs()).all())}")
             continue
         x, dt, a, B, C = t
         x, B, C = x.float(), B.float(), C.float()

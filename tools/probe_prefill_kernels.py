@@ -3,14 +3,29 @@
     python3 tools/probe_prefill_kernels.py        # on a machine with a card
 
 A short first call for the flash-attention and SSD-scan kernels of
-``src/repro_torch/kernels/csrc/``: builds both (``-Xptxas -v`` lines
-printed), holds each against its plain version at
-``tests/test_kernels.py``'s cases plus a few head shapes of the prefill
-path, in float32 and bf16, then times one call at granite_3_2b-,
-h2o_danube_3_4b- and mamba2_370m-shaped random inputs by CUDA events.
+``src/repro_torch/kernels/csrc/``:
+
+1. builds both (``-Xptxas -v`` lines printed) and counts, in the SASS of
+   each kernel of the attention library (``cuobjdump --dump-sass``),
+   the ``HGMMA`` (wgmma) and ``UTMALDG`` (TMA load) instructions;
+2. the one-tile probe of the wgmma variant: one TMA load of q (64, D),
+   k and v (128, D), s = q k^T from the shared-memory wgmma and
+   o = bf16(s) v from the register-A wgmma, each against
+   ``torch.matmul`` of the same tile, at D = 16, 32, 64, 120, 128;
+3. holds each kernel against its plain version at
+   ``tests/test_kernels.py``'s cases, the prefill path's head shapes and
+   the wgmma variant's edge cases, in float32 (SIMT) and bf16 (wgmma);
+4. times one call at granite_3_2b-, h2o_danube_3_4b- and
+   mamba2_370m-shaped random inputs by CUDA events: the wgmma variant
+   (P multiplied as bf16 hi + lo, and as bf16 alone), the SIMT variant on
+   float32 inputs of the same shape, and ``scaled_dot_product_attention``.
+
 ``chip_smoke.py`` is the full check; this is the quick one.
 """
+import glob
 import os
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -25,11 +40,16 @@ from repro_torch.kernels import build, ref  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import ssd_scan as ssd  # noqa: E402
 
+#: (B, Sq, Skv, H, KVH, D, causal, window): tests/test_kernels.py's cases,
+#: the prefill path's heads, then the wgmma variant's edge cases
 ATTN = [(1, 128, 128, 4, 4, 64, True, 0), (2, 256, 256, 8, 2, 64, True, 0),
         (1, 128, 128, 4, 2, 32, False, 0), (2, 256, 256, 4, 4, 64, True, 128),
         (1, 384, 384, 4, 2, 64, True, 96), (1, 192, 192, 2, 1, 16, True, 0),
         (1, 100, 100, 2, 2, 64, True, 0), (1, 200, 200, 32, 8, 120, True, 64),
-        (1, 300, 300, 24, 8, 128, False, 50)]
+        (1, 300, 300, 24, 8, 128, False, 50),
+        (1, 300, 300, 24, 8, 128, True, 0), (1, 333, 333, 32, 8, 120, True, 40),
+        (2, 200, 260, 8, 2, 64, False, 0), (1, 77, 300, 4, 1, 128, True, 0),
+        (3, 160, 160, 4, 1, 64, True, 0), (1, 64, 64, 64, 1, 32, True, 0)]
 SSD = [(1, 256, 2, 64, 64, 128), (2, 128, 4, 32, 64, 64),
        (1, 384, 2, 64, 128, 128), (1, 100, 2, 16, 32, 64),
        (2, 700, 3, 64, 128, 256)]
@@ -48,31 +68,145 @@ def ms(fn, reps=5):
     return s.elapsed_time(e) / reps
 
 
+def cuobjdump():
+    found = shutil.which("cuobjdump")
+    if found:
+        return found
+    for path in ["/usr/local/cuda/bin/cuobjdump"] + glob.glob(
+            os.path.join(os.path.dirname(torch.__file__), "..", "triton",
+                         "backends", "nvidia", "bin", "cuobjdump")):
+        if os.path.exists(path):
+            return path
+    return None
+
+
+def sass(lib_path):
+    """{kernel: {opcode: count}} from the library's SASS (static
+    instruction counts, without the predicate or modifiers)."""
+    tool = cuobjdump()
+    if tool is None:
+        print("sass: no cuobjdump found")
+        return {}
+    text = subprocess.run([tool, "--dump-sass", str(lib_path)],
+                          capture_output=True, text=True).stdout
+    out, name = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = m.group(1)
+            out[name] = {}
+            continue
+        m = re.match(r"\s+/\*[0-9a-f]{4,}\*/\s+(@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)",
+                     line)
+        if name and m:
+            out[name][m.group(2)] = out[name].get(m.group(2), 0) + 1
+    return out
+
+
+def tile_probe(lib, d, rng):
+    """One tile through the wgmma variant's TMA maps and both products."""
+    q, k, v = (torch.tensor(rng.standard_normal(s), dtype=torch.float32,
+                            device="cuda").to(torch.bfloat16)
+               for s in ((64, d), (128, d), (128, d)))
+    n = 64 * ((d + 63) // 64)
+    s = torch.empty(64, 128, device="cuda")
+    o = torch.empty(64, n, device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    build.check("flash_attention", lib.flash_attention_wgmma_probe(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), s.data_ptr(),
+        o.data_ptr(), d, stream), "tile probe")
+    torch.cuda.synchronize()
+    want_s = q.float() @ k.float().T
+    want_o = s.to(torch.bfloat16).float() @ v.float()
+    err_s = float((s - want_s).abs().max())
+    err_o = float((o[:, :d] - want_o).abs().max())
+    pad = float(o[:, d:].abs().max()) if n > d else 0.0
+    ok = err_s <= 1e-3 * float(want_s.abs().max()) and \
+        err_o <= 1e-3 * float(want_o.abs().max()) and pad == 0.0
+    print(f"tile probe D={d}: s err {err_s:.3e} (|s| max "
+          f"{float(want_s.abs().max()):.2f}), o err {err_o:.3e} (|o| max "
+          f"{float(want_o.abs().max()):.2f}), padded columns {pad} -> "
+          f"{'ok' if ok else 'WRONG'}")
+    return ok
+
+
+def wgmma_call(lib, q, k, v, causal, window, split):
+    """The wgmma entry point with P split (1) or not (0)."""
+    b, sq, h, d = q.shape
+    out = torch.empty_like(q)
+    build.check("flash_attention", lib.flash_attention_wgmma(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, sq,
+        k.shape[1], h, k.shape[2], d, int(causal), window, d ** -0.5, split,
+        torch.cuda.current_stream().cuda_stream), "flash_attention_wgmma")
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("probe_prefill_kernels: needs a CUDA card")
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip())
+    print("python", sys.version.split()[0], "torch", torch.__version__,
+          "cuda", torch.version.cuda)
     t0 = time.time()
-    build.build(("flash_attention", "ssd_scan"))
+    paths = build.build(("flash_attention", "ssd_scan"))
     print("build", time.time() - t0)
     for name, lines in build.BUILD_LOG.items():
         for line in lines:
-            if "registers" in line or "spill" in line or "entry" in line:
+            if "registers" in line or "spill" in line or "entry" in line \
+                    or "warning" in line or "setmaxnreg" in line:
                 print(name, line.strip())
+    for kernel, ops in sass(paths["flash_attention"]).items():
+        print(f"sass {kernel}: HGMMA {ops.get('HGMMA', 0)}, UTMALDG "
+              f"{ops.get('UTMALDG', 0)}")
+        if "wgmma" in kernel:
+            print("  opcodes:", sorted(ops.items(), key=lambda x: -x[1])[:24])
+    lib = build.library("flash_attention")
     rng = np.random.default_rng(0)
+    probes = [tile_probe(lib, d, rng) for d in (16, 32, 64, 120, 128)]
+    if not all(probes):
+        print("probe_prefill_kernels: the one-tile probe disagrees")
     for b, sq, skv, h, kvh, d, causal, w in ATTN:
         arrays = [rng.standard_normal(s).astype(np.float32)
                   for s in ((b, sq, h, d), (b, skv, kvh, d), (b, skv, kvh, d))]
         for dt, tol in ((torch.float32, 2e-5), (torch.bfloat16, 2e-2)):
             q, k, v = (torch.tensor(a, device="cuda").to(dt) for a in arrays)
+            fa.reset_launches()
             got = fa.flash_attention(q, k, v, causal=causal, window=w)
             want = ref.mha_reference(q, k, v, causal=causal, window=w)
-            print("attn", (b, sq, skv, h, kvh, d, causal, w), dt,
+            kind = [n for n, c in fa.LAUNCHES.items()
+                    if c and n != "flash_attention"]
+            print("attn", (b, sq, skv, h, kvh, d, causal, w), dt, kind,
                   float((got.float() - want.float()).abs().max()),
                   torch.allclose(got.float(), want.float(), rtol=tol,
                                  atol=tol))
+    bf = dict(device="cuda", dtype=torch.bfloat16)
+    for label, shape_q, shape_kv, window in (
+            ("granite", (4, 4096, 32, 64), (4, 4096, 8, 64), 0),
+            ("danube", (1, 8192, 32, 120), (1, 8192, 8, 120), 4096)):
+        q = torch.randn(*shape_q, **bf)
+        k = torch.randn(*shape_kv, **bf)
+        v = torch.randn_like(k)
+        times = {f"wgmma split={s}": ms(lambda s=s: wgmma_call(
+            lib, q, k, v, True, window, s)) for s in (1, 0)}
+        times["simt f32"] = ms(lambda: fa.flash_attention(
+            q.float(), k.float(), v.float(), causal=True, window=window), 2)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        if not window:
+            times["sdpa"] = ms(lambda: torch.nn.functional.
+                               scaled_dot_product_attention(
+                                   qt, kt, vt, is_causal=True,
+                                   enable_gqa=True))
+        print(f"{label}-shaped attention ms", times)
+    x = torch.randn(8, 4096, 32, 64, **bf)
+    dtv = torch.nn.functional.softplus(torch.randn(8, 4096, 32, device="cuda"))
+    a = -torch.rand(8, 4096, 32, device="cuda") * 0.1
+    B = torch.randn(8, 4096, 128, **bf)
+    C = torch.randn_like(B)
+    print("mamba-shaped scan ms",
+          ms(lambda: ssd.ssd_scan(x, dtv, a, B, C, chunk=256,
+                                  y_dtype=torch.float32)))
     for b, s, h, p, n, ch in SSD:
         x = rng.standard_normal((b, s, h, p)).astype(np.float32)
         dtv = np.log1p(np.exp(rng.standard_normal((b, s, h)))).astype(
@@ -94,26 +228,6 @@ def main():
                   float((S - Sr).abs().max()),
                   torch.allclose(y.float(), yr, rtol=tol, atol=tol),
                   torch.allclose(S, Sr, rtol=1e-3, atol=1e-3))
-    bf = dict(device="cuda", dtype=torch.bfloat16)
-    q = torch.randn(4, 4096, 32, 64, **bf)
-    k = torch.randn(4, 4096, 8, 64, **bf)
-    v = torch.randn_like(k)
-    print("granite-shaped attention ms",
-          ms(lambda: fa.flash_attention(q, k, v, causal=True)))
-    q = torch.randn(1, 8192, 32, 120, **bf)
-    k = torch.randn(1, 8192, 8, 120, **bf)
-    v = torch.randn_like(k)
-    print("danube-shaped attention ms",
-          ms(lambda: fa.flash_attention(q, k, v, causal=True, window=4096)))
-    x = torch.randn(8, 4096, 32, 64, **bf)
-    dtv = torch.nn.functional.softplus(torch.randn(8, 4096, 32, device="cuda"))
-    a = -torch.rand(8, 4096, 32, device="cuda") * 0.1
-    B = torch.randn(8, 4096, 128, **bf)
-    C = torch.randn_like(B)
-    print("mamba-shaped scan ms",
-          ms(lambda: ssd.ssd_scan(x, dtv, a, B, C, chunk=256,
-                                  y_dtype=torch.float32)))
-
 
 if __name__ == "__main__":
     main()
