@@ -40,11 +40,10 @@
 //     heads, so each K/V tile is read once for the whole group.  WG0 and
 //     WG1 each own 64 rows and run wgmma; one thread of a ninth warp
 //     issues every TMA copy.  Nine warps put three on one SM
-//     sub-partition, whose 16K registers cap a thread at 168: enough for
-//     S (64 f32), O (32 or 64) and P (32 + 32), no spill for D <= 64, a
-//     few bytes at D = 128 with the split P (5).  (With 12 warps and
-//     setmaxnreg 40/232 this toolchain still compiled the consumers to
-//     168 registers and spilled more.)
+//     sub-partition, whose 16K registers cap a thread at 168: room for
+//     S (64 f32), O (32 or 64) and P (32 + 32).  The registers and spill
+//     bytes of each instantiation are what tools/probe_prefill_kernels.py
+//     prints from -Xptxas -v.
 // (2) TMA: 4-D tensor maps (D, heads, S, B) over the untouched layouts
 //     with 128-byte swizzle, one map per tensor encoded on the host each
 //     call.  A tile is 64-column panels of 128 rows x 128 B (one panel for
@@ -69,19 +68,18 @@
 //     loaded.  Masked scores are -inf, so their probabilities are exactly
 //     0, and a row with no valid key ends at 0 (acc / max(l, 1e-30)).
 // (5) P is split into bf16 hi + lo parts (p = hi + lo to ~16 bits) and
-//     both are multiplied by V (SPLIT, which the wrapper always sets): P
-//     rounded once to bf16 moves an output by up to 2^-9 of the |v| it
-//     averages, and at the prefill path's activations (|v| up to ~120)
-//     that misses the 2e-2 kernel-vs-plain check where values cancel
-//     (tools/prefill_accuracy.py compares the two).  The split costs a
-//     second P V product: about a quarter of the time at D = 64.
+//     both are multiplied by V: P rounded once to bf16 moves an output by
+//     up to 2^-9 of the |v| it averages, and at the prefill path's
+//     activations (|v| up to ~120) that misses the 2e-2 kernel-vs-plain
+//     check where values cancel (tools/prefill_accuracy.py measures the
+//     plain version with P rounded once).  The split costs a second P V
+//     product.
 // (6) Longest causal CTAs launch first (the q tile index is reversed and
 //     slowest), so the short ones fill the tail of the last wave.
-// What bounds it: at D = 128 (danube) the tensor cores, at about 85% of
-// the time its split products need; at D = 64 (granite) the softmax's
-// instruction issue and exponentials, which neither overlapping a tile's
-// softmax with the previous P V (64-key tiles) nor a ping-pong of the
-// two warpgroups moved by more than a few per cent.
+// What bounds it: at D = 128 (danube) the tensor cores, with the split
+// doubling the P V products; at D = 64 (granite) the softmax's
+// instruction issue and exponentials, for which a tile's products are
+// too short to hide them.
 // (7) Epilogue: each warpgroup writes its bf16 output into its own Q rows
 //     of shared memory (same swizzle, so conflict-free), then stores rows
 //     with 16-byte writes, masked to valid positions and D columns.
@@ -484,7 +482,7 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 
 // grid: ceil(Sq / (128 / rep)) x KVH x B CTAs on one axis, the q tile
 // slowest and reversed; kThreads threads.  NP 64-column panels (D <= 64 NP).
-template <int NP, int STAGES, bool SPLIT>
+template <int NP, int STAGES>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_attention_wgmma(const __grid_constant__ CUtensorMap tm_q,
                       const __grid_constant__ CUtensorMap tm_k,
@@ -638,10 +636,8 @@ flash_attention_wgmma(const __grid_constant__ CUtensorMap tm_q,
 #pragma unroll
       for (int x = 0; x < 32; ++x) {
         p_hi[x] = pack_bf16(sc[2 * x], sc[2 * x + 1]);
-        if (SPLIT) {
-          const __nv_bfloat162 h = *reinterpret_cast<const __nv_bfloat162*>(&p_hi[x]);
-          p_lo[x] = pack_bf16(sc[2 * x] - __low2float(h), sc[2 * x + 1] - __high2float(h));
-        }
+        const __nv_bfloat162 h = *reinterpret_cast<const __nv_bfloat162*>(&p_hi[x]);
+        p_lo[x] = pack_bf16(sc[2 * x] - __low2float(h), sc[2 * x + 1] - __high2float(h));
       }
 
       // O += P V
@@ -651,11 +647,9 @@ flash_attention_wgmma(const __grid_constant__ CUtensorMap tm_q,
 #pragma unroll
       for (int kk = 0; kk < 8; ++kk)
         mma_rs(o, p_hi + 4 * kk, desc(v_addr + kk * 2048, kPanelBytes, 1024));
-      if (SPLIT) {
 #pragma unroll
-        for (int kk = 0; kk < 8; ++kk)
-          mma_rs(o, p_lo + 4 * kk, desc(v_addr + kk * 2048, kPanelBytes, 1024));
-      }
+      for (int kk = 0; kk < 8; ++kk)
+        mma_rs(o, p_lo + 4 * kk, desc(v_addr + kk * 2048, kPanelBytes, 1024));
       wg_commit();
       wg_wait();
       pin(o);
@@ -799,7 +793,7 @@ int encode(CUtensorMap* map, const void* ptr, int B, int S, int heads, int D, in
   return res == CUDA_SUCCESS ? 0 : kEncodeError + (int)res;
 }
 
-template <int NP, int STAGES, bool SPLIT>
+template <int NP, int STAGES>
 int launch(const void* q, const void* k, const void* v, void* out, int B, int Sq, int Skv, int H,
            int KVH, int D, int causal, int window, float scale, cudaStream_t stream) {
   const int rep = H / KVH, bq = kRows / rep;
@@ -808,7 +802,7 @@ int launch(const void* q, const void* k, const void* v, void* out, int B, int Sq
   if (!code) code = encode(&tk, k, B, Skv, KVH, D, 1, kKeys);
   if (!code) code = encode(&tv, v, B, Skv, KVH, D, 1, kKeys);
   if (code) return code;
-  const auto kernel = flash_attention_wgmma<NP, STAGES, SPLIT>;
+  const auto kernel = flash_attention_wgmma<NP, STAGES>;
   const int smem = Layout<NP, STAGES>::bytes;
   const cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -861,27 +855,20 @@ int flash_attention(int q_dtype, int kv_dtype, const void* q, const void* k, con
   return (int)cudaErrorInvalidValue;
 }
 
-// bf16 q, k, v and out, the shapes and limits of flash_attention; split
-// != 0 multiplies P by V as bf16 hi + lo parts.  Skv = 0 writes zeros
-// (no key is valid), as the plain version does.
+// bf16 q, k, v and out, the shapes and limits of flash_attention.  Skv = 0
+// writes zeros (no key is valid), as the plain version does.
 int flash_attention_wgmma(const void* q, const void* k, const void* v, void* out, int B, int Sq,
                           int Skv, int H, int KVH, int D, int causal, int window, float scale,
-                          int split, void* stream) {
+                          void* stream) {
   const cudaStream_t st = (cudaStream_t)stream;
   if (KVH < 1 || H % KVH != 0 || H / KVH > kRows || D < 8 || D % 8 != 0 || D > kMaxD ||
       window < 0)
     return (int)cudaErrorInvalidValue;
   if (B == 0 || Sq == 0) return (int)cudaGetLastError();
   if (Skv == 0) return (int)cudaMemsetAsync(out, 0, (size_t)B * Sq * H * D * 2, st);
-#define WG_CASE(NP, STAGES, SPLIT) \
-  return wg::launch<NP, STAGES, SPLIT>(q, k, v, out, B, Sq, Skv, H, KVH, D, causal, window, scale, st)
-  if (D <= 64) {
-    if (split) WG_CASE(1, 4, true);
-    WG_CASE(1, 4, false);
-  }
-  if (split) WG_CASE(2, 2, true);
-  WG_CASE(2, 2, false);
-#undef WG_CASE
+  if (D <= 64)
+    return wg::launch<1, 4>(q, k, v, out, B, Sq, Skv, H, KVH, D, causal, window, scale, st);
+  return wg::launch<2, 2>(q, k, v, out, B, Sq, Skv, H, KVH, D, causal, window, scale, st);
 }
 
 // The one-tile probe (wg::tile_probe): q (64, D), k and v (128, D) bf16;

@@ -108,7 +108,7 @@ def flash_attention(q, k, v, *, causal=True, window=0):
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         if kind == "wgmma":
-            code = lib.flash_attention_wgmma(*args, 1, stream)
+            code = lib.flash_attention_wgmma(*args, stream)
         else:
             code = lib.flash_attention(_DTYPE_CODE[q.dtype],
                                        _DTYPE_CODE[k.dtype], *args, stream)

@@ -581,11 +581,14 @@ def test_flash_attention_variant_is_chosen_by_dtype(monkeypatch):
     dtype alone, counting the launch in the total and in its variant; a
     bf16 input beyond the wgmma kernel's tensor maps raises in
     ``_check`` and is not sent to the SIMT kernel.  The card is stood in
-    for by a library that records which entry point was called."""
+    for by a library that records which entry point was called, and with
+    as many arguments as its ctypes signature declares."""
     calls = []
     lib = SimpleNamespace(
-        flash_attention=lambda *a: calls.append("simt") or 0,
-        flash_attention_wgmma=lambda *a: calls.append("wgmma") or 0)
+        flash_attention=lambda *a: calls.append(("simt", len(a))) or 0,
+        flash_attention_wgmma=lambda *a: calls.append(("wgmma", len(a)))
+        or 0)
+    entry = {"simt": "flash_attention", "wgmma": "flash_attention_wgmma"}
     monkeypatch.setattr(fa, "on_card", lambda t: True)
     monkeypatch.setattr(build, "library", lambda name: lib)
     monkeypatch.setattr(build, "check", lambda *a: None)
@@ -602,7 +605,8 @@ def test_flash_attention_variant_is_chosen_by_dtype(monkeypatch):
         fa.reset_launches()
         calls.clear()
         ops.flash_attention(q, k, k.clone())
-        assert calls == [want]
+        n_args = len(build._SIGNATURES["flash_attention"][entry[want]])
+        assert calls == [(want, n_args)]
         assert fa.LAUNCHES == {"flash_attention": 1,
                                "flash_attention_wgmma": int(want == "wgmma"),
                                "flash_attention_simt": int(want == "simt")}

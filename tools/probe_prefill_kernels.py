@@ -5,9 +5,10 @@
 A short first call for the flash-attention and SSD-scan kernels of
 ``src/repro_torch/kernels/csrc/``:
 
-1. builds both (``-Xptxas -v`` lines printed) and counts, in the SASS of
-   each kernel of the attention library (``cuobjdump --dump-sass``),
-   the ``HGMMA`` (wgmma) and ``UTMALDG`` (TMA load) instructions;
+1. builds both and prints, for each kernel, the registers and spill
+   bytes ``-Xptxas -v`` reports and, in the SASS of each kernel of the
+   attention library (``cuobjdump --dump-sass``), the count of ``HGMMA``
+   (wgmma) and ``UTMALDG`` (TMA load) instructions;
 2. the one-tile probe of the wgmma variant: one TMA load of q (64, D),
    k and v (128, D), s = q k^T from the shared-memory wgmma and
    o = bf16(s) v from the register-A wgmma, each against
@@ -16,9 +17,9 @@ A short first call for the flash-attention and SSD-scan kernels of
    ``tests/test_kernels.py``'s cases, the prefill path's head shapes and
    the wgmma variant's edge cases, in float32 (SIMT) and bf16 (wgmma);
 4. times one call at granite_3_2b-, h2o_danube_3_4b- and
-   mamba2_370m-shaped random inputs by CUDA events: the wgmma variant
-   (P multiplied as bf16 hi + lo, and as bf16 alone), the SIMT variant on
-   float32 inputs of the same shape, and ``scaled_dot_product_attention``.
+   mamba2_370m-shaped random inputs by CUDA events: the wgmma variant on
+   bf16 inputs, the SIMT variant on float32 inputs of the same shape, and
+   ``scaled_dot_product_attention``.
 
 ``chip_smoke.py`` is the full check; this is the quick one.
 """
@@ -103,6 +104,27 @@ def sass(lib_path):
     return out
 
 
+def ptxas(lines):
+    """[(kernel, registers, spill store bytes, spill load bytes)] from
+    ``-Xptxas -v`` lines, in the order ptxas reports them."""
+    out, name, spill = [], None, (0, 0)
+    for line in lines:
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            name = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spill = (int(m.group(1)), int(m.group(2)))
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out.append((name, int(m.group(1)), *spill))
+            name, spill = None, (0, 0)
+    return out
+
+
 def tile_probe(lib, d, rng):
     """One tile through the wgmma variant's TMA maps and both products."""
     q, k, v = (torch.tensor(rng.standard_normal(s), dtype=torch.float32,
@@ -130,17 +152,6 @@ def tile_probe(lib, d, rng):
     return ok
 
 
-def wgmma_call(lib, q, k, v, causal, window, split):
-    """The wgmma entry point with P split (1) or not (0)."""
-    b, sq, h, d = q.shape
-    out = torch.empty_like(q)
-    build.check("flash_attention", lib.flash_attention_wgmma(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, sq,
-        k.shape[1], h, k.shape[2], d, int(causal), window, d ** -0.5, split,
-        torch.cuda.current_stream().cuda_stream), "flash_attention_wgmma")
-    return out
-
-
 def main():
     if not torch.cuda.is_available():
         sys.exit("probe_prefill_kernels: needs a CUDA card")
@@ -154,9 +165,11 @@ def main():
     print("build", time.time() - t0)
     for name, lines in build.BUILD_LOG.items():
         for line in lines:
-            if "registers" in line or "spill" in line or "entry" in line \
-                    or "warning" in line or "setmaxnreg" in line:
+            if "warning" in line or "setmaxnreg" in line:
                 print(name, line.strip())
+        for kernel, regs, stores, loads in ptxas(lines):
+            print(f"ptxas {name} {kernel}: {regs} registers, spill stores "
+                  f"{stores} B, spill loads {loads} B")
     for kernel, ops in sass(paths["flash_attention"]).items():
         print(f"sass {kernel}: HGMMA {ops.get('HGMMA', 0)}, UTMALDG "
               f"{ops.get('UTMALDG', 0)}")
@@ -188,8 +201,8 @@ def main():
         q = torch.randn(*shape_q, **bf)
         k = torch.randn(*shape_kv, **bf)
         v = torch.randn_like(k)
-        times = {f"wgmma split={s}": ms(lambda s=s: wgmma_call(
-            lib, q, k, v, True, window, s)) for s in (1, 0)}
+        times = {"wgmma": ms(lambda: fa.flash_attention(
+            q, k, v, causal=True, window=window))}
         times["simt f32"] = ms(lambda: fa.flash_attention(
             q.float(), k.float(), v.float(), causal=True, window=window), 2)
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
