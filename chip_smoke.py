@@ -28,9 +28,10 @@ version on the card:
      ``launch/serve.py``'s ``serve``: 16 requests, pool 8, 4096-slot
      caches, 32 new tokens each; every request must complete with 32
      tokens, the step count must be the scheduler's, the logits finite
-     and ``flash_decode`` launched steps x 40 times; steps 700-709 are
-     traced with ``torch.profiler`` (device busy time and idle share,
-     top device and host ops);
+     and ``flash_decode`` launched steps x 40 times, every one of them
+     the tensor-core variant; steps 700-709 are traced with
+     ``torch.profiler`` (device busy time and idle share, each kernel's
+     device time a step, top device and host ops);
    - cross: the granite smoke config in float32 (TF32 off) served on the
      card and on the CPU with the same weights: identical greedy tokens,
      per-step logits within 1e-3;
@@ -38,7 +39,8 @@ version on the card:
      weights, bf16 compute, prompts from ``default_rng(0)``: granite_3_2b
      4 x 4096 (40 ``flash_attention`` launches, every one of them the
      wgmma variant), h2o_danube_3_4b 1 x 8192 (window 4096; 24),
-     mamba2_370m 8 x 4096 (48 ``ssd_scan``, chunk 256); finite (B, 1, V)
+     mamba2_370m 8 x 4096 (48 ``ssd_scan``, chunk 256, every one the
+     chunk-parallel tensor-core variant); finite (B, 1, V)
      logits; one more granite prefill traced with ``torch.profiler``;
      then the three smoke configs in float32 (TF32 off, so the SIMT
      attention variant) on card and CPU, last-position logits within
@@ -49,19 +51,26 @@ version on the card:
    the first 256 rounds, then the whole filling, rtol 1e-6 in float32
    and 1e-12 in float64; loss factors within 1e-6 and exactly 1 on
    all-zero rows); ``flash_decode`` at layers 0 and 39 of the serve
-   path's first, middle and last step, the cross path's last step, and
-   ``tests/test_kernels.py``'s decode cases in float32 and bf16
-   (``out``, ``m``, ``l`` within rtol = atol = 2e-5 for a float32 q,
-   2e-2 for bf16), with ``scaled_dot_product_attention`` timed beside it
-   as a yardstick; ``flash_attention`` at the first and last layer of
+   path's first, middle and last step, the cross path's last step,
+   ``tests/test_kernels.py``'s decode cases in float32 and bf16 and the
+   one-launch kernel's edge cases in every dtype pair (``out``, ``m``,
+   ``l`` within rtol = atol = 2e-5 for a float32 q, 2e-2 for bf16; a
+   second call bit-identical to the first; one device kernel a call),
+   with ``scaled_dot_product_attention`` timed beside it as a yardstick;
+   ``flash_attention`` at the first and last layer of
    each attention prefill, ``tests/test_kernels.py``'s ATTN_CASES and the
    wgmma variant's WGMMA_CASES, in float32 (SIMT variant) and bf16
    (wgmma variant) (2e-5 / 2e-2; SDPA timed beside it; each row with its
    variant, useful TFLOP/s and share of the bound); ``ssd_scan`` at
    the first and last layer of the mamba prefill at chunks 64, 128 and
-   256, and SSD_CASES, in float32 and bf16 (y 1e-4 / 3e-2, state 1e-3).
-   Times from CUDA events; the plain versions take the query axis in
-   blocks (``ref.mha_reference``), so no full-width input is split.
+   256, SSD_CASES in float32 and bf16 and the chunk-parallel variant's
+   edge cases in f32, bf16 and bf16 x with f32 y (y 1e-4 / 3e-2, state
+   1e-3).  Times through the wrapper from CUDA events; for
+   ``flash_decode`` and ``ssd_scan`` also the device time a call and the
+   device kernels a call, from torch.profiler, with the share of the
+   bound taken on the device time.  The plain versions take the query
+   axis in blocks (``ref.mha_reference``), so no full-width input is
+   split.
 
 It prints one ``{"kernels": [...]}`` line, the card's name and power
 limit, and last ``{"ok": true, "device": {...}}``; any failed phase exits
@@ -127,6 +136,25 @@ CROSS = dict(arch="granite_3_2b", smoke=True, requests=6, pool=4,
 #: tests/test_kernels.py's flash-decode cases: (B, S, H, KVH, D, kv_lens)
 DECODE_CASES = ((1, 512, 4, 4, 64, (512,)), (2, 1024, 8, 2, 64, (1000, 37)),
                 (2, 512, 4, 1, 32, (1, 512)), (1, 768, 2, 2, 128, (600,)))
+#: the cases the one-launch decode kernel makes risky, also
+#: tests/test_torch_kernels.py's DECODE_EDGE_CASES: kv_len 0 and kv_len > S,
+#: rows of very unequal length at granite's heads, splits that get no tile
+#: (8 splits, 2 tiles), rep 1 / 8 / 32 (two head groups of 16), D 120
+#: (zero columns up to 128), D 128 and 256; each in every dtype pair
+DECODE_EDGE_CASES = ((2, 256, 8, 2, 64, (0, 300)),
+                     (4, 4096, 32, 8, 64, (1, 4096, 65, 2000)),
+                     (1, 4096, 4, 1, 64, (70,)),
+                     (2, 512, 8, 8, 64, (300, 512)),
+                     (2, 512, 16, 2, 64, (129, 7)),
+                     (1, 256, 32, 1, 64, (200,)),
+                     (1, 300, 8, 2, 120, (250,)),
+                     (1, 600, 8, 2, 128, (600,)),
+                     (2, 300, 8, 1, 256, (257, 33)))
+#: (q dtype, cache dtype) pairs of the edge cases
+DECODE_PAIRS = ((torch.float32, torch.float32),
+                (torch.bfloat16, torch.bfloat16),
+                (torch.float32, torch.bfloat16),
+                (torch.bfloat16, torch.float32))
 #: kernel-vs-plain tolerance (rtol = atol) by the dtype of q and out,
 #: tests/test_kernels.py's
 DECODE_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
@@ -163,6 +191,20 @@ WGMMA_CASES = ((1, 100, 100, 24, 8, 128, True, 0),
                (2, 200, 200, 10, 2, 64, True, 0))
 SSD_CASES = ((1, 256, 2, 64, 64, 128), (2, 128, 4, 32, 64, 64),
              (1, 384, 2, 64, 128, 128), (1, 100, 2, 16, 32, 64))
+#: the cases the chunk-parallel scan makes risky, also
+#: tests/test_torch_kernels.py's SSD_EDGE_CASES: ragged last chunks, S <
+#: chunk, a single chunk, chunks 64 / 128 / 256 with N 32 / 128 and P 16 /
+#: 64, and N 40, P 24 (zero columns up to 48 and 32); each in f32 and in
+#: bf16 x with y in bf16 and in f32
+SSD_EDGE_CASES = ((1, 300, 2, 64, 128, 256), (2, 200, 3, 32, 64, 64),
+                  (1, 100, 2, 64, 128, 256), (2, 256, 2, 64, 128, 256),
+                  (1, 512, 2, 16, 32, 64), (1, 512, 4, 64, 128, 128),
+                  (1, 640, 2, 16, 128, 256), (2, 384, 2, 64, 32, 128),
+                  (1, 200, 2, 24, 40, 64))
+#: (x dtype, y dtype) pairs of the SSD edge cases
+SSD_PAIRS = ((torch.float32, torch.float32),
+             (torch.bfloat16, torch.bfloat16),
+             (torch.bfloat16, torch.float32))
 #: kernel-vs-plain tolerances (rtol = atol) by the input dtype,
 #: tests/test_kernels.py's: attention output; SSD y and final state
 ATTN_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
@@ -598,8 +640,11 @@ def profile_summary(prof, wall_ms, steps):
                    for a in avgs if a.device_type == DeviceType.CPU),
                   key=lambda r: -r[1])
     busy = sum(r[1] for r in dev)
+    per_step = {name: sum(ms for key, ms, _ in dev if name in key) / steps
+                for name in KERNELS}
     return {"steps": steps, "wall_ms": wall_ms, "device_busy_ms": busy,
             "device_idle_share": 1 - busy / wall_ms if busy else None,
+            "kernel_device_ms_per_step": per_step,
             "top_device_ms": dev[:12], "top_host_ms": host[:12]}
 
 
@@ -649,7 +694,9 @@ def serve_phase(label, spec, rec, device="cuda", cfg=None, model=None,
         tr = sampler.trace
         log(f"[paths] {label} profile of {tr['steps']} steps: wall "
             f"{tr['wall_ms']:.3f} ms, device busy {tr['device_busy_ms']:.3f}"
-            f" ms, idle share {tr['device_idle_share']}")
+            f" ms, idle share {tr['device_idle_share']}, flash_decode "
+            f"{tr['kernel_device_ms_per_step']['flash_decode']!r} ms of "
+            f"device time a step")
         for key, ms, n in tr["top_device_ms"]:
             log(f"[paths]   device {ms:10.3f} ms  {n:6d}x  {key[:90]}")
         for key, ms, n in tr["top_host_ms"]:
@@ -667,6 +714,11 @@ def serve_phase(label, spec, rec, device="cuda", cfg=None, model=None,
     if launches["flash_decode"] != want_launches:
         why.append(f"flash_decode launched {launches['flash_decode']} "
                    f"times, not {want_launches}")
+    kind = "flash_decode_mma" if cfg.compute_dtype == "bfloat16" \
+        else "flash_decode_simt"
+    if launches[kind] != want_launches:
+        why.append(f"{kind} launched {launches[kind]} times, not "
+                   f"{want_launches}")
     for msg in why:
         fail(f"{label}: {msg}")
     return dict(row, tokens=tokens), sampler
@@ -805,10 +857,12 @@ def prefill_phase(label, cfg, batch, seq, kernel, rec, profile=False,
     if launches[kernel] != want:
         fail(f"{label}: {kernel} launched {launches[kernel]} times, not "
              f"{want}")
-    if kernel == "flash_attention" and cfg.compute_dtype == "bfloat16" \
-            and launches["flash_attention_wgmma"] != want:
-        fail(f"{label}: the wgmma variant launched "
-             f"{launches['flash_attention_wgmma']} times, not {want}")
+    if cfg.compute_dtype == "bfloat16":
+        kind = {"flash_attention": "flash_attention_wgmma",
+                "ssd_scan": "ssd_scan_mma"}[kernel]
+        if launches[kind] != want:
+            fail(f"{label}: {kind} launched {launches[kind]} times, not "
+                 f"{want}")
     return row
 
 
@@ -886,6 +940,44 @@ def cuda_ms(fn, reps):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_kernels(fn, reps, attempts=3):
+    """torch.profiler's device events (kernels, copies, fills; not the
+    ``ProfilerStep`` range that marks a cycle) over ``reps`` calls of
+    ``fn``, after one warm-up call and a traced warm-up cycle of ``reps``
+    calls.  The tracer sometimes loses some or all of a cycle's device
+    events, and sometimes counts stray ones, so the cycle is traced
+    ``attempts`` times and one with the median count of events is
+    returned."""
+    from torch.autograd import DeviceType
+    fn()
+    torch.cuda.synchronize()
+    cycles = []
+    for _ in range(attempts):
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CPU,
+                            torch.profiler.ProfilerActivity.CUDA],
+                schedule=torch.profiler.schedule(wait=0, warmup=1, active=1,
+                                                 repeat=1)) as prof:
+            for _ in range(2):
+                for _ in range(reps):
+                    fn()
+                torch.cuda.synchronize()
+                prof.step()
+        cycles.append([a for a in prof.key_averages()
+                       if a.device_type != DeviceType.CPU
+                       and not a.key.startswith("ProfilerStep")])
+    cycles.sort(key=lambda dev: sum(a.count for a in dev))
+    return cycles[len(cycles) // 2]
+
+
+def device_time(fn, reps):
+    """``(device ms per call, device kernels per call)`` of ``fn``: every
+    kernel (copy or fill) that one call launches, summed."""
+    dev = device_kernels(fn, reps)
+    return (sum(a.self_device_time_total for a in dev) / 1e3 / reps,
+            sum(a.count for a in dev) / reps)
 
 
 def bound(n_bytes, ops, dtype):
@@ -1071,41 +1163,52 @@ def sdpa_ms(q, k, v, kv_len):
             < kv_len[:, None])[:, None, None, :]
     qt, kt, vt = q[:, :, None], k.transpose(1, 2), v.transpose(1, 2)
     return cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-        qt, kt, vt, attn_mask=mask, enable_gqa=True), 20)
+        qt, kt, vt, attn_mask=mask, enable_gqa=True), 200)
 
 
 def check_decode(name, q, k, v, kv_len, fd, ref, launches=0):
     """Kernel vs plain flash decode: out, m and l; times."""
     tol = DECODE_TOL[q.dtype]
     got = fd.flash_decode(q, k, v, kv_len)
+    again = fd.flash_decode(q, k, v, kv_len)  # on the same scratch
+    same = all(torch.equal(g, a) for g, a in zip(got, again))
     want = ref.decode_reference(q, k, v, kv_len)
     errs = [float((g.float() - w.float()).abs().max())
             for g, w in zip(got, want)]
-    ok = all(torch.allclose(g.float(), w.float(), rtol=tol, atol=tol)
-             for g, w in zip(got, want))
-    ms = cuda_ms(lambda: fd.flash_decode(q, k, v, kv_len), 50)
+    within = all(torch.allclose(g.float(), w.float(), rtol=tol, atol=tol)
+                 for g, w in zip(got, want))
+    ms = cuda_ms(lambda: fd.flash_decode(q, k, v, kv_len), 200)
+    dev_ms, per_call = device_time(lambda: fd.flash_decode(q, k, v, kv_len),
+                                   50)
     plain_ms = cuda_ms(lambda: ref.decode_reference(q, k, v, kv_len), 10)
     (bound_ms, bound_by, bytes_ms), n_keys = decode_bound(q, k, kv_len)
+    ok = within and same and per_call == 1
     row = {"kernel": "flash_decode", "phase": name,
+           "variant": fd.variant(q, k),
            "shape": [*q.shape, k.shape[1], k.shape[2]],
            "q_dtype": str(q.dtype).split(".")[-1],
            "kv_dtype": str(k.dtype).split(".")[-1],
            "kv_len": kv_len.tolist(), "kv_keys": n_keys,
            "max_abs_err": errs[0], "m_max_abs_err": errs[1],
-           "l_max_abs_err": errs[2], "tol": tol, "ms": ms,
+           "l_max_abs_err": errs[2], "tol": tol,
+           "within_tol_of_plain": within, "repeat_identical": same, "ms": ms,
+           "device_ms": dev_ms, "kernels_per_call": per_call,
+           "bound_share": bound_ms / dev_ms if dev_ms else None,
            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
            "bytes_bound_ms": bytes_ms, "library_ms": sdpa_ms(q, k, v, kv_len),
            "phase_launches": launches, "ok": ok}
     log(f"[kernels] {json.dumps(row)}")
     if not ok:
         fail(f"flash_decode {name} {row['shape']} {row['q_dtype']}/"
-             f"{row['kv_dtype']}: out/m/l errors {errs}, tol {tol}")
+             f"{row['kv_dtype']}: out/m/l errors {errs}, tol {tol}, second "
+             f"call identical {same}, device kernels a call {per_call}")
     return row
 
 
 def run_decode_kernels(rec, paths):
     """Every captured flash-decode input of the serve paths, then
-    tests/test_kernels.py's decode cases in float32 and bf16."""
+    tests/test_kernels.py's decode cases in float32 and bf16, then the
+    edge cases in every dtype pair."""
     from repro_torch.kernels import flash_decode as fd
     from repro_torch.kernels import ref
     rows = []
@@ -1123,6 +1226,15 @@ def run_decode_kernels(rec, paths):
             q, k, v = (torch.tensor(a, device="cuda").to(dtype)
                        for a in arrays)
             rows.append(check_decode("decode_cases", q, k, v, kv_len, fd,
+                                     ref))
+    for b, s, h, kvh, d, kv_lens in DECODE_EDGE_CASES:
+        arrays = [rng.standard_normal(shape).astype(np.float32) for shape in
+                  ((b, h, d), (b, s, kvh, d), (b, s, kvh, d))]
+        kv_len = torch.tensor(kv_lens, dtype=torch.int32, device="cuda")
+        for q_dt, kv_dt in DECODE_PAIRS:
+            q, k, v = (torch.tensor(a, device="cuda").to(dt) for a, dt in
+                       zip(arrays, (q_dt, kv_dt, kv_dt)))
+            rows.append(check_decode("decode_edges", q, k, v, kv_len, fd,
                                      ref))
     return rows
 
@@ -1277,17 +1389,24 @@ def check_ssd(name, args, chunk, y_dtype, ssd, ref, launches=0, plain=None,
     big = x.numel() > 1 << 22
     ms = cuda_ms(lambda: ssd.ssd_scan(*args, chunk=chunk, y_dtype=y_dtype),
                  5 if big else 20)
+    dev_ms, per_call = device_time(
+        lambda: ssd.ssd_scan(*args, chunk=chunk, y_dtype=y_dtype),
+        5 if big else 20)
     (bound_ms, bound_by, bytes_ms), ops = ssd_bound(x, args[3], chunk,
                                                     y_dtype)
-    row = {"kernel": "ssd_scan", "phase": name, "shape": list(x.shape),
+    row = {"kernel": "ssd_scan", "phase": name, "variant": ssd.variant(x),
+           "shape": list(x.shape),
            "state": args[3].shape[-1], "chunk": chunk,
            "dtype": str(x.dtype).split(".")[-1],
            "y_dtype": str(y_dtype).split(".")[-1], "flops": ops,
            "max_abs_err": y_err, "state_max_abs_err": s_err, "tol": tol,
            "within_tol_of_plain": within, "f64_err_kernel_plain": errs,
-           "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-           "bound_by": bound_by, "bytes_bound_ms": bytes_ms,
-           "library_ms": None, "phase_launches": launches, "ok": ok}
+           "ms": ms, "device_ms": dev_ms, "kernels_per_call": per_call,
+           "bound_share": bound_ms / dev_ms if dev_ms else None,
+           "plain_ms": plain_ms,
+           "bound_ms": bound_ms, "bound_by": bound_by,
+           "bytes_bound_ms": bytes_ms, "library_ms": None,
+           "phase_launches": launches, "ok": ok}
     log(f"[kernels] {json.dumps(row)}")
     if not ok:
         fail(f"ssd_scan {name} {row['shape']} {row['dtype']} chunk {chunk}:"
@@ -1337,19 +1456,23 @@ def run_prefill_kernels(rec, paths, device="cuda"):
                        for a in arrays)
             rows.append(check_attention("attn_cases", q, k, v, causal,
                                         window, fa, ref))
-    for b, s, h, p, n, chunk in SSD_CASES:
-        x = rng.standard_normal((b, s, h, p)).astype(np.float32)
-        dt = np.logaddexp(rng.standard_normal((b, s, h)), 0)
-        a = -np.abs(rng.standard_normal((b, s, h))) * 0.1
-        B_, C_ = (rng.standard_normal((b, s, n)) for _ in range(2))
-        for dtype in (torch.float32, torch.bfloat16):
-            args = (torch.tensor(x, device=device).to(dtype),
-                    torch.tensor(dt, device=device, dtype=torch.float32),
-                    torch.tensor(a, device=device, dtype=torch.float32),
-                    torch.tensor(B_, device=device).to(dtype),
-                    torch.tensor(C_, device=device).to(dtype))
-            rows.append(check_ssd("ssd_cases", args, chunk, dtype, ssd,
-                                  ref)[0])
+    for name, cases, pairs in (
+            ("ssd_cases", SSD_CASES, ((torch.float32, torch.float32),
+                                      (torch.bfloat16, torch.bfloat16))),
+            ("ssd_edges", SSD_EDGE_CASES, SSD_PAIRS)):
+        for b, s, h, p, n, chunk in cases:
+            x = rng.standard_normal((b, s, h, p)).astype(np.float32)
+            dt = np.logaddexp(rng.standard_normal((b, s, h)), 0)
+            a = -np.abs(rng.standard_normal((b, s, h))) * 0.1
+            B_, C_ = (rng.standard_normal((b, s, n)) for _ in range(2))
+            for dtype, y_dtype in pairs:
+                args = (torch.tensor(x, device=device).to(dtype),
+                        torch.tensor(dt, device=device, dtype=torch.float32),
+                        torch.tensor(a, device=device, dtype=torch.float32),
+                        torch.tensor(B_, device=device).to(dtype),
+                        torch.tensor(C_, device=device).to(dtype))
+                rows.append(check_ssd(name, args, chunk, y_dtype, ssd,
+                                      ref)[0])
     return rows
 
 
@@ -1382,6 +1505,8 @@ def kernels_line(rows, paths):
                     "ms": rep["ms"], "plain_ms": rep["plain_ms"],
                     "bound_ms": rep["bound_ms"], "bound_by": rep["bound_by"],
                     "library_ms": rep.get("library_ms"),
+                    **{k: rep[k] for k in ("device_ms", "kernels_per_call")
+                       if k in rep},
                     "phase": rep["phase"], "shape": rep["shape"],
                     "dtype": dtype})
     return {"kernels": out}

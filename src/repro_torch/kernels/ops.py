@@ -27,7 +27,9 @@ def flash_attention(q, k, v, *, causal=True, window=0):
 def flash_decode(q, k, v, kv_len):
     """Split-KV decode.  q (B, H, D); k, v (B, S, KVH, D); kv_len (B,)
     integers.  Returns ``(out, m, l)`` — see ``kernels/flash_decode.py``."""
-    return fd.flash_decode(q, k, v, kv_len.to(q.device, torch.int32))
+    if kv_len.dtype != torch.int32 or kv_len.device != q.device:
+        kv_len = kv_len.to(q.device, torch.int32)
+    return fd.flash_decode(q, k, v, kv_len)
 
 
 def ssd_scan(x, dt, a, B_, C_, *, chunk=128, y_dtype=None):

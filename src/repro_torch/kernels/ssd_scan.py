@@ -4,11 +4,14 @@ The port of the reference package's ``kernels/ssd_scan.py``.
 ``ssd_scan(x, dt, a, B_, C_, chunk=, y_dtype=)`` dispatches by the
 device of ``x``: a CPU tensor takes the plain PyTorch version
 (``ref.ssd_reference``, the exact sequential recurrence, whatever the
-chunk); a CUDA tensor launches the hand-written Hopper kernel of
-``csrc/ssd_scan.cu``, counted in ``LAUNCHES["ssd_scan"]``, or raises;
-nothing falls back.  The kernel masks the ragged last chunk, so nothing
-is padded.  The public entry with the reference's name is
-``kernels/ops.py:ssd_scan``.
+chunk); a CUDA tensor launches the hand-written Hopper kernels of
+``csrc/ssd_scan.cu``, or raises; nothing falls back.  bf16 x takes the
+chunk-parallel variant on tensor cores (three kernels: the chunks' own
+states, the carry across chunks, the outputs), f32 x the FMA variant
+(one kernel); either way one call counts one launch in
+``LAUNCHES["ssd_scan"]`` and in its variant's count.  The kernels mask
+the ragged last chunk, so nothing is padded.  The public entry with the
+reference's name is ``kernels/ops.py:ssd_scan``.
 """
 from __future__ import annotations
 
@@ -17,8 +20,9 @@ import torch
 from repro_torch.device import on_card
 from repro_torch.kernels import ref
 
-#: kernel launches since the last ``reset_launches()``
-LAUNCHES = {"ssd_scan": 0}
+#: kernel launches since the last ``reset_launches()``: the total, and
+#: each variant's share of it
+LAUNCHES = {"ssd_scan": 0, "ssd_scan_mma": 0, "ssd_scan_simt": 0}
 
 #: the kernel's limits: state size N and head dim P multiples of 8,
 #: N <= 128, P <= 64; chunks of at most 256 positions
@@ -30,7 +34,23 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def reset_launches() -> None:
-    LAUNCHES["ssd_scan"] = 0
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def variant(x) -> str:
+    """The kernel x's dtype takes: ``"mma"`` (chunk-parallel, tensor
+    cores) for bf16, ``"simt"`` (one CTA per row and head walking the
+    chunks on f32 FMAs) for float32."""
+    return "mma" if x.dtype == torch.bfloat16 else "simt"
+
+
+def chunk_states_shape(b: int, s: int, h: int, n: int, p: int,
+                       chunk: int) -> tuple:
+    """The chunk-parallel variant's f32 scratch: every chunk's state
+    (B, chunks, H, N, P), then each chunk's decay (B, chunks, H)."""
+    nc = -(-s // chunk)
+    return (b, nc, h, n, p), (b, nc, h)
 
 
 def _check(x, dt, a, B_, C_, chunk, y_dtype):
@@ -82,15 +102,25 @@ def ssd_scan(x, dt, a, B_, C_, *, chunk=128, y_dtype=None):
     _check(x, dt, a, B_, C_, chunk, y_dtype)
     b, s, h, p = x.shape
     n = B_.shape[-1]
+    kind = variant(x)
     y = torch.empty((b, s, h, p), dtype=y_dtype, device=x.device)
     state = torch.empty((b, h, n, p), dtype=torch.float32, device=x.device)
+    states = decay = None
+    if kind == "mma":
+        st_shape, dec_shape = chunk_states_shape(b, s, h, n, p, chunk)
+        states = torch.empty(st_shape, dtype=torch.float32, device=x.device)
+        decay = torch.empty(dec_shape, dtype=torch.float32, device=x.device)
     lib = build.library("ssd_scan")
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         code = lib.ssd_scan(
             _DTYPE_CODE[x.dtype], _DTYPE_CODE[y_dtype], x.data_ptr(),
             dt.data_ptr(), a.data_ptr(), B_.data_ptr(), C_.data_ptr(),
-            y.data_ptr(), state.data_ptr(), b, s, h, p, n, chunk, stream)
+            y.data_ptr(), state.data_ptr(),
+            None if states is None else states.data_ptr(),
+            None if decay is None else decay.data_ptr(), b, s, h, p, n,
+            chunk, stream)
     build.check("ssd_scan", code, "ssd_scan")
     LAUNCHES["ssd_scan"] += 1
+    LAUNCHES[f"ssd_scan_{kind}"] += 1
     return y, state

@@ -429,23 +429,154 @@ def test_flash_decode_split_merge_equals_full():
 
 
 def test_flash_decode_splits_fill_the_card():
-    """The kernel's KV splits: enough (row, kv head, split) CTAs for four
-    per SM on 132 SMs, never more splits than 64-key tiles."""
-    assert fd.n_splits(8, 8, 4096, 132) == 9          # granite, pool 8
-    assert 8 * 8 * fd.n_splits(8, 8, 4096, 132) >= 4 * 132
+    """The kernel's KV splits: enough (row, CTA group, split) CTAs for two
+    per SM on 132 SMs, never more splits than 64-key tiles, nor than 8 (the
+    splits of a group are one portable thread-block cluster).  At
+    granite's serve step (pool 8, 8 kv heads, 4 q heads each: one head
+    group) that is 5 splits, so a CTA walks up to 4 of the 17 tiles of the
+    longest row at the last step (kv_len 1,033): the depth of the ring."""
+    assert fd.n_splits(8, 8, 4096, 132) == 5          # granite, pool 8
+    assert 8 * 8 * fd.n_splits(8, 8, 4096, 132) >= 2 * 132
+    assert -(-(-(-1033 // fd.TILE)) // 5) == 4
     assert fd.n_splits(1, 1, 100, 132) == 2           # two tiles only
-    assert fd.n_splits(64, 8, 4096, 132) == 2
+    assert fd.n_splits(1, 1, 4096, 132) == fd.MAX_SPLITS == 8
+    assert fd.n_splits(64, 8, 4096, 132) == 1
     assert fd.n_splits(512, 8, 4096, 132) == 1
+    # head groups of 16 are CTA groups of their own in the tensor-core
+    # variant; the FMA variant holds all rep heads in one CTA
+    assert fd.head_groups(4, "mma") == 1 and fd.head_groups(32, "mma") == 2
+    assert fd.head_groups(32, "simt") == 1
+    assert fd.n_splits(1, 1 * fd.head_groups(32, "mma"), 4096, 132) == 8
+
+
+def _fake_card(monkeypatch, module, lib):
+    """Stand the card in for ``module``'s CUDA path with ``lib``."""
+    monkeypatch.setattr(module, "on_card", lambda t: True)
+    monkeypatch.setattr(build, "library", lambda name: lib)
+    monkeypatch.setattr(build, "check", lambda *a: None)
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda d: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda d=None: SimpleNamespace(cuda_stream=0))
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+
+
+def test_flash_decode_dispatch_matches_its_ctypes_signature(monkeypatch):
+    """On a CUDA tensor the wrapper makes one call of the C entry point,
+    with as many arguments as its ctypes signature declares and the split
+    count of the rule, allocates its outputs and nothing else (the splits
+    merge in shared memory: no scratch, no counters), and counts one
+    launch in the total and in the variant its dtypes pick (tensor cores
+    for bf16 on bf16 only).  The card is stood in for by a library that
+    records the call."""
+    calls, made = [], []
+    lib = SimpleNamespace(flash_decode=lambda *a: calls.append(a) or 0)
+    _fake_card(monkeypatch, fd, lib)
+    monkeypatch.setattr(fd, "_sm_count", lambda index: 132)
+    real_empty, real_like = torch.empty, torch.empty_like
+    monkeypatch.setattr(torch, "empty", lambda *a, **kw: made.append(
+        tuple(a[0])) or real_empty(*a, **kw))
+    monkeypatch.setattr(torch, "empty_like", lambda t, **kw: made.append(
+        tuple(t.shape)) or real_like(t, **kw))
+    n_args = len(build._SIGNATURES["flash_decode"]["flash_decode"])
+    bf16, f32 = torch.bfloat16, torch.float32
+    for q_dt, kv_dt, want in ((bf16, bf16, "mma"), (f32, f32, "simt"),
+                              (f32, bf16, "simt"), (bf16, f32, "simt")):
+        q = torch.zeros((8, 32, 64), dtype=q_dt)
+        k = torch.zeros((8, 512, 8, 64), dtype=kv_dt)
+        assert fd.variant(q, k) == want
+        v = k.clone()
+        fd.reset_launches()
+        calls.clear()
+        made.clear()
+        out, m, l = ops.flash_decode(q, k, v,
+                                     torch.ones(8, dtype=torch.int32))
+        assert len(calls) == 1 and len(calls[0]) == n_args
+        assert calls[0][11] == fd.n_splits(8, 8, 512, 132) == 5
+        assert made == [(8, 32, 64), (2, 8, 32)]  # out; m and l
+        assert out.shape == q.shape and out.dtype == q_dt
+        assert m.shape == l.shape == (8, 32) and m.dtype == torch.float32
+        assert fd.LAUNCHES == {"flash_decode": 1,
+                               f"flash_decode_{want}": 1,
+                               **{f"flash_decode_{o}": 0 for o in
+                                  {"mma", "simt"} - {want}}}
 
 
 def test_flash_decode_plain_path_launches_nothing():
     fd.reset_launches()
     q, k, v, kv_len = decode_problem(DECODE_CASES[0])
     ops.flash_decode(*map(torch.from_numpy, (q, k, v, kv_len)))
-    assert fd.LAUNCHES == {"flash_decode": 0}
+    assert fd.LAUNCHES == {"flash_decode": 0, "flash_decode_mma": 0,
+                           "flash_decode_simt": 0}
     with pytest.raises(ValueError):
         fd.flash_decode(*(torch.from_numpy(a).to("meta")
                           for a in (q, k, v, kv_len)))
+
+
+#: chip_smoke.py's DECODE_EDGE_CASES, the cases the one-launch kernel
+#: makes risky: kv_len 0 and kv_len > S, rows of very unequal length,
+#: splits that get no tile, rep 1 / 8 / 32 (two head groups of 16), D 120,
+#: 128 and 256
+DECODE_EDGE_CASES = [
+    (2, 256, 8, 2, 64, [0, 300]),
+    (4, 4096, 32, 8, 64, [1, 4096, 65, 2000]),
+    (1, 4096, 4, 1, 64, [70]),
+    (2, 512, 8, 8, 64, [300, 512]),
+    (2, 512, 16, 2, 64, [129, 7]),
+    (1, 256, 32, 1, 64, [200]),
+    (1, 300, 8, 2, 120, [250]),
+    (1, 600, 8, 2, 128, [600]),
+    (2, 300, 8, 1, 256, [257, 33]),
+]
+#: (q dtype, cache dtype) pairs, the serve path's, the cross path's and
+#: the other two
+DECODE_PAIRS = ["float32/float32", "bfloat16/bfloat16", "float32/bfloat16",
+                "bfloat16/float32"]
+
+
+def _pair(name):
+    return tuple(getattr(torch, n) for n in name.split("/"))
+
+
+@pytest.mark.parametrize("case", DECODE_EDGE_CASES)
+def test_flash_decode_edge_cases_match_reference_oracle(case):
+    """The port's flash decode (its plain version on the CPU) equals the
+    reference's ``decode_reference`` at the edge cases, with kv_len past
+    the cache taken as the whole cache and kv_len 0 as an empty row."""
+    q, k, v, kv_len = decode_problem(case, seed=5)
+    got = ops.flash_decode(*map(torch.from_numpy, (q, k, v, kv_len)))
+    want = ref_decode_reference(*map(jnp.asarray, (q, k, v)),
+                                kv_len=jnp.asarray(kv_len))
+    full = kv_len > 0
+    np.testing.assert_allclose(got[0].numpy()[full], np.asarray(want)[full],
+                               rtol=2e-5, atol=2e-5)
+    assert (got[0].numpy()[~full] == 0).all()
+    assert (got[2].numpy()[full] > 0).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", DECODE_EDGE_CASES)
+@pytest.mark.parametrize("pair", DECODE_PAIRS)
+def test_cuda_flash_decode_edge_cases_on_card(case, pair):
+    """The kernel against its plain version at the edge cases in every
+    dtype pair (the tolerance of q's dtype), one launch a call, and a
+    second call on the same scratch bit-identical to the first."""
+    _card()
+    q_dt, kv_dt = _pair(pair)
+    q, k, v, kv_len = (torch.from_numpy(a).cuda()
+                       for a in decode_problem(case, seed=5))
+    q, k, v = q.to(q_dt), k.to(kv_dt), v.to(kv_dt)
+    tol = DECODE_DTYPES[str(q_dt)[6:]][2]
+    before = dict(fd.LAUNCHES)
+    got = ops.flash_decode(q, k, v, kv_len)
+    again = ops.flash_decode(q, k, v, kv_len)
+    kind = "flash_decode_" + fd.variant(q, k)
+    assert fd.LAUNCHES["flash_decode"] == before["flash_decode"] + 2
+    assert fd.LAUNCHES[kind] == before[kind] + 2
+    want = ref.decode_reference(q, k, v, kv_len)
+    for g, a, w in zip(got, again, want):
+        assert torch.equal(g, a)
+        torch.testing.assert_close(g.float(), w.float(), rtol=tol, atol=tol)
 
 
 @pytest.mark.gpu
@@ -589,13 +720,7 @@ def test_flash_attention_variant_is_chosen_by_dtype(monkeypatch):
         flash_attention_wgmma=lambda *a: calls.append(("wgmma", len(a)))
         or 0)
     entry = {"simt": "flash_attention", "wgmma": "flash_attention_wgmma"}
-    monkeypatch.setattr(fa, "on_card", lambda t: True)
-    monkeypatch.setattr(build, "library", lambda name: lib)
-    monkeypatch.setattr(build, "check", lambda *a: None)
-    monkeypatch.setattr(torch.cuda, "device",
-                        lambda d: contextlib.nullcontext())
-    monkeypatch.setattr(torch.cuda, "current_stream",
-                        lambda d=None: SimpleNamespace(cuda_stream=0))
+    _fake_card(monkeypatch, fa, lib)
     bf16, f32 = torch.bfloat16, torch.float32
     for q_dt, kv_dt, want in ((bf16, bf16, "wgmma"), (f32, f32, "simt"),
                               (f32, bf16, "simt"), (bf16, f32, "simt")):
@@ -748,7 +873,8 @@ def test_ssd_scan_plain_path_launches_nothing_and_checks():
     ssd.reset_launches()
     args = _ssd_torch(ssd_problem(SSD_CASES[3]), torch.float32)
     ops.ssd_scan(*args, chunk=64)
-    assert ssd.LAUNCHES == {"ssd_scan": 0}
+    assert ssd.LAUNCHES == {"ssd_scan": 0, "ssd_scan_mma": 0,
+                            "ssd_scan_simt": 0}
     with pytest.raises(ValueError):
         ssd.ssd_scan(*(t.to("meta") for t in args))
     ssd._check(*args, 64, torch.float32)
@@ -760,6 +886,110 @@ def test_ssd_scan_plain_path_launches_nothing_and_checks():
                 (x, dt, a, B_, C_, 64, torch.float16)):
         with pytest.raises(ValueError):
             ssd._check(*bad)
+
+
+def test_ssd_chunk_states_shape():
+    """The chunk-parallel variant's scratch: every chunk's state (B,
+    chunks, H, N, P) and each chunk's decay (B, chunks, H), f32, chunks
+    rounded up over a ragged last one; 134 MB at mamba2_370m's prefill."""
+    states, decay = ssd.chunk_states_shape(8, 4096, 32, 128, 64, 256)
+    assert states == (8, 16, 32, 128, 64) and decay == (8, 16, 32)
+    assert np.prod(states) * 4 == 134_217_728
+    assert ssd.chunk_states_shape(1, 300, 2, 128, 64, 256)[0] == \
+        (1, 2, 2, 128, 64)
+    assert ssd.chunk_states_shape(2, 100, 3, 32, 16, 256) == \
+        ((2, 1, 3, 32, 16), (2, 1, 3))
+
+
+def test_ssd_scan_dispatch_matches_its_ctypes_signature(monkeypatch):
+    """On a CUDA tensor the wrapper makes one call of the C entry point
+    with as many arguments as its ctypes signature declares; bf16 x
+    takes the chunk-parallel variant and hands it scratch of
+    ``chunk_states_shape``, f32 x the FMA variant and null scratch; one
+    launch counted in the total and in the variant."""
+    calls = []
+    lib = SimpleNamespace(ssd_scan=lambda *a: calls.append(a) or 0)
+    _fake_card(monkeypatch, ssd, lib)
+    made = []
+    real_empty = torch.empty
+    monkeypatch.setattr(torch, "empty", lambda *a, **kw: made.append(
+        tuple(a[0])) or real_empty(*a, **kw))
+    n_args = len(build._SIGNATURES["ssd_scan"]["ssd_scan"])
+    for dtype, want in ((torch.bfloat16, "mma"), (torch.float32, "simt")):
+        args = _ssd_torch(ssd_problem((1, 300, 2, 64, 128)), dtype)
+        assert ssd.variant(args[0]) == want
+        ssd.reset_launches()
+        calls.clear()
+        made.clear()
+        y, state = ops.ssd_scan(*args, chunk=256, y_dtype=torch.float32)
+        assert len(calls) == 1 and len(calls[0]) == n_args
+        scratch = calls[0][9:11]
+        if want == "mma":
+            assert all(scratch) and made[2:] == list(
+                ssd.chunk_states_shape(1, 300, 2, 128, 64, 256))
+        else:
+            assert scratch == (None, None) and len(made) == 2
+        assert y.shape == args[0].shape and state.shape == (1, 2, 128, 64)
+        assert ssd.LAUNCHES == {"ssd_scan": 1, f"ssd_scan_{want}": 1,
+                                **{f"ssd_scan_{o}": 0 for o in
+                                   {"mma", "simt"} - {want}}}
+
+
+#: chip_smoke.py's SSD_EDGE_CASES, the cases the chunk-parallel scan makes
+#: risky: ragged last chunks, S < chunk, a single chunk, chunks 64 / 128 /
+#: 256 with N 32 / 128 and P 16 / 64, and N 40 with P 24:
+#: (B, S, H, P, N, chunk)
+SSD_EDGE_CASES = [
+    (1, 300, 2, 64, 128, 256),
+    (2, 200, 3, 32, 64, 64),
+    (1, 100, 2, 64, 128, 256),
+    (2, 256, 2, 64, 128, 256),
+    (1, 512, 2, 16, 32, 64),
+    (1, 512, 4, 64, 128, 128),
+    (1, 640, 2, 16, 128, 256),
+    (2, 384, 2, 64, 32, 128),
+    (1, 200, 2, 24, 40, 64),
+]
+#: (x dtype, y dtype) pairs: f32, bf16 with y in bf16 and in f32 (the
+#: model's ssm_apply)
+SSD_PAIRS = ["float32/float32", "bfloat16/bfloat16", "bfloat16/float32"]
+
+
+@pytest.mark.parametrize("case", SSD_EDGE_CASES)
+def test_ssd_scan_edge_cases_match_model_chunked_impl(case):
+    """At the edge cases the port's scan (its plain version on the CPU)
+    equals the reference's ``ssd_chunked`` at the chunk given (the whole
+    sequence where the chunk does not divide it, as ``ssd_chunked``
+    does): y within 1e-4, the final state within 1e-3."""
+    arrays = ssd_problem(case, seed=6)
+    y, state = ops.ssd_scan(*_ssd_torch(arrays, torch.float32),
+                            chunk=case[5])
+    y_ref, s_ref = ref_ssd_chunked(*_ssd_jax(arrays, jnp.float32), case[5])
+    np.testing.assert_allclose(y.numpy(), np.asarray(y_ref), rtol=1e-4,
+                               atol=1e-4)
+    np.testing.assert_allclose(state.numpy(), np.asarray(s_ref), rtol=1e-3,
+                               atol=1e-3)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", SSD_EDGE_CASES)
+@pytest.mark.parametrize("pair", SSD_PAIRS)
+def test_cuda_ssd_scan_edge_cases_on_card(case, pair):
+    """The kernels against the plain recurrence at the edge cases: y in
+    the dtype asked for within x's tolerance, the state within 1e-3, one
+    launch counted in x's variant."""
+    _card()
+    x_dt, y_dt = _pair(pair)
+    _, _, tol, s_tol = SSD_DTYPES[str(x_dt)[6:]]
+    args = [t.cuda() for t in _ssd_torch(ssd_problem(case, seed=6), x_dt)]
+    before = dict(ssd.LAUNCHES)
+    y, state = ops.ssd_scan(*args, chunk=case[5], y_dtype=y_dt)
+    kind = "ssd_scan_" + ssd.variant(args[0])
+    assert ssd.LAUNCHES[kind] == before[kind] + 1
+    assert y.dtype == y_dt
+    y_want, s_want = ref.ssd_reference(*args)
+    torch.testing.assert_close(y.float(), y_want, rtol=tol, atol=tol)
+    torch.testing.assert_close(state, s_want, rtol=s_tol, atol=s_tol)
 
 
 @pytest.mark.gpu

@@ -14,7 +14,14 @@ float32 rows at captured inputs.  The attention inputs are also run in
 bf16 through the wgmma kernel (P multiplied as bf16 hi + lo) and through
 a plain version that rounds P once to bf16 before P V: distance from
 float64 and from the plain version, and whether the 2e-2 check holds,
-which is why the kernel splits P.
+which is why the kernel splits P.  The SSD inputs are also run in bf16
+through the chunk-parallel kernel (every f32 operand of a tensor-core
+product split into bf16 hi + lo) and through a plain chunked version
+that rounds one such operand once to bf16 instead (``G`` = (C B^T) o L o
+dt against x, ``S`` = the carried state against C, ``wx`` = the decayed
+dt x against B): distance from the plain recurrence and from float64,
+and whether the 3e-2 (y) and 1e-3 (state) checks hold, which is why the
+kernel splits each of them.
 """
 import os
 import sys
@@ -69,6 +76,40 @@ def p_rounded_once(q, k, v, *, causal, window=0):
     return out
 
 
+def ssd_rounded_once(x, dt, a, B, C, chunk, once=()):
+    """The chunked SSD scan in plain PyTorch, f32 with the chunk's cumsum
+    in f64, as the chunk-parallel kernel orders it, with the operands
+    named in ``once`` ("G", "S", "wx") rounded once to bf16 before their
+    product.  x (B, S, H, P) and B, C (B, S, N) bf16; y and the final
+    state f32."""
+    def rnd(t, name):
+        return t.bfloat16().float() if name in once else t
+    b, s, h, p = x.shape
+    state = torch.zeros((b, h, B.shape[-1], p), device=x.device)
+    y = torch.empty((b, s, h, p), device=x.device)
+    for c0 in range(0, s, chunk):
+        xs, Bs, Cs = (t[:, c0:c0 + chunk].float() for t in (x, B, C))
+        dts = dt[:, c0:c0 + chunk]
+        cum = torch.cumsum(a[:, c0:c0 + chunk].double(), 1)   # (b, q, h)
+        last = cum[:, -1]
+        q = xs.shape[1]
+        w = torch.exp((last[:, None] - cum).float()) * dts
+        own = torch.einsum("bqn,bqhp->bhnp", Bs,
+                           rnd(xs * w[..., None], "wx"))
+        tri = torch.tril(torch.ones((q, q), dtype=torch.bool,
+                                    device=x.device))[None, :, :, None]
+        L = torch.exp((cum[:, :, None] - cum[:, None]).float())
+        G = torch.einsum("bin,bjn->bij", Cs, Bs)[..., None] * L \
+            * dts[:, None]
+        G = rnd(torch.where(tri, G, 0.0), "G")                 # (b, i, j, h)
+        y1 = torch.einsum("bijh,bjhp->bihp", G, xs)
+        y2 = torch.einsum("bin,bhnp->bihp", Cs, rnd(state, "S")) \
+            * torch.exp(cum.float())[..., None]
+        y[:, c0:c0 + chunk] = y1 + y2
+        state = torch.exp(last.float())[..., None, None] * state + own
+    return y, state
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("prefill_accuracy: needs a CUDA card")
@@ -112,6 +153,29 @@ def main():
             print(f"  chunk {chunk} from float64: y kernel {dist(y, ey)} "
                   f"plain {dist(wy, ey)}; state kernel {dist(st, es)} plain "
                   f"{dist(ws, es)}; y absmax {float(ey.abs().max())}")
+        x, B, C = t[0], t[3], t[4]  # bf16, as the model calls the scan
+        ey, es = ref.ssd_reference(x.double(), dt, a, B.double(),
+                                   C.double())
+        wy, ws = ref.ssd_reference(x, dt, a, B, C)
+        for name, fn in (
+                ("chunk-parallel kernel, hi + lo", lambda: ssd.ssd_scan(
+                    x, dt, a, B, C, chunk=256, y_dtype=torch.float32)),
+                ("plain chunked, nothing rounded",
+                 lambda: ssd_rounded_once(x, dt, a, B, C, 256)),
+                *((f"plain chunked, {op} rounded once",
+                   lambda op=op: ssd_rounded_once(x, dt, a, B, C, 256,
+                                                  (op,)))
+                  for op in ("G", "S", "wx"))):
+            y, st = fn()
+            dy, ds = (y - wy).abs(), (st - ws).abs()
+            print(f"  bf16 {name}: y vs plain max {float(dy.max())}, "
+                  f"within 3e-2: "
+                  f"{bool((dy <= 3e-2 + 3e-2 * wy.abs()).all())}; state vs "
+                  f"plain max {float(ds.max())}, within 1e-3: "
+                  f"{bool((ds <= 1e-3 + 1e-3 * ws.abs()).all())}; from "
+                  f"float64 y {dist(y, ey)} (plain {dist(wy, ey)}), state "
+                  f"{dist(st, es)} (plain {dist(ws, es)})")
+            del y, st
 
 
 if __name__ == "__main__":
