@@ -220,6 +220,8 @@ SSD_STATE_TOL = 1e-3
 ORACLE_FACTOR = 2.0
 #: the chunks every captured SSD input is held at (the path's is 256)
 SSD_CHUNKS = (64, 128, 256)
+#: what the name of the fill kernel that opens a timing trace contains
+PAD_KERNEL = "FillFunctor"
 FAILURES: list = []
 
 
@@ -942,42 +944,59 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def device_kernels(fn, reps, attempts=3):
-    """torch.profiler's device events (kernels, copies, fills; not the
-    ``ProfilerStep`` range that marks a cycle) over ``reps`` calls of
-    ``fn``, after one warm-up call and a traced warm-up cycle of ``reps``
-    calls.  The tracer sometimes loses some or all of a cycle's device
-    events, and sometimes counts stray ones, so the cycle is traced
-    ``attempts`` times and one with the median count of events is
-    returned."""
+def device_kernels(fn, reps, attempts=4):
+    """``(events, traces)``: torch.profiler's device events (kernels,
+    copies, fills) of ``reps`` calls of ``fn``, after ``reps`` calls
+    untraced, and the traces taken; events None when no trace of
+    ``attempts`` was whole.  Late in a long process the tracer drops the
+    first device events of each trace (a few, then tens), so a trace
+    first launches a run of one-element fills (64, four times more on
+    each retry), whose events are left out: a trace counts when some of
+    the fills' events are there and every kernel of ``fn`` ran a whole
+    multiple of ``reps`` times."""
     from torch.autograd import DeviceType
-    fn()
-    torch.cuda.synchronize()
-    cycles = []
-    for _ in range(attempts):
+    pad = torch.zeros(1, device="cuda")
+    for traces in range(1, attempts + 1):
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
         with torch.profiler.profile(
                 activities=[torch.profiler.ProfilerActivity.CPU,
-                            torch.profiler.ProfilerActivity.CUDA],
-                schedule=torch.profiler.schedule(wait=0, warmup=1, active=1,
-                                                 repeat=1)) as prof:
-            for _ in range(2):
-                for _ in range(reps):
-                    fn()
-                torch.cuda.synchronize()
-                prof.step()
-        cycles.append([a for a in prof.key_averages()
-                       if a.device_type != DeviceType.CPU
-                       and not a.key.startswith("ProfilerStep")])
-    cycles.sort(key=lambda dev: sum(a.count for a in dev))
-    return cycles[len(cycles) // 2]
+                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(64 * 4 ** (traces - 1)):
+                pad.fill_(0.0)
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        dev = [a for a in prof.key_averages()
+               if a.device_type != DeviceType.CPU]
+        mine = [a for a in dev if PAD_KERNEL not in a.key]
+        if len(mine) < len(dev) and mine \
+                and all(a.count % reps == 0 for a in mine):
+            return mine, traces
+    return None, attempts
 
 
 def device_time(fn, reps):
-    """``(device ms per call, device kernels per call)`` of ``fn``: every
-    kernel (copy or fill) that one call launches, summed."""
-    dev = device_kernels(fn, reps)
+    """``(device ms per call, device kernels per call, traces)`` of
+    ``fn``: every kernel (copy or fill) that one call launches, summed;
+    the first two None, not measured, when the tracer gave no whole
+    trace."""
+    dev, traces = device_kernels(fn, reps)
+    if dev is None:
+        return None, None, traces
     return (sum(a.self_device_time_total for a in dev) / 1e3 / reps,
-            sum(a.count for a in dev) / reps)
+            sum(a.count for a in dev) // reps, traces)
+
+
+def kernels_per_call(count, fn, reps):
+    """Device kernels one call of ``fn`` launches, by its library's own
+    count (``count()``, one added beside each launch) over ``reps``
+    calls: no tracer, so nothing is lost."""
+    before = count()
+    for _ in range(reps):
+        fn()
+    return (count() - before) / reps
 
 
 def bound(n_bytes, ops, dtype):
@@ -1166,23 +1185,28 @@ def sdpa_ms(q, k, v, kv_len):
         qt, kt, vt, attn_mask=mask, enable_gqa=True), 200)
 
 
-def check_decode(name, q, k, v, kv_len, fd, ref, launches=0):
-    """Kernel vs plain flash decode: out, m and l; times."""
+def check_decode(name, q, k, v, kv_len, fd, ref, launches=0, timed=True):
+    """Kernel vs plain flash decode: out, m and l within the tolerance, a
+    second call bit-identical, one device kernel a call (the library's
+    count; the tracer's, where it gave a whole trace, must agree); then,
+    when ``timed``, times."""
     tol = DECODE_TOL[q.dtype]
-    got = fd.flash_decode(q, k, v, kv_len)
-    again = fd.flash_decode(q, k, v, kv_len)  # on the same scratch
+
+    def call():
+        return fd.flash_decode(q, k, v, kv_len)
+    got = call()
+    again = call()
     same = all(torch.equal(g, a) for g, a in zip(got, again))
     want = ref.decode_reference(q, k, v, kv_len)
     errs = [float((g.float() - w.float()).abs().max())
             for g, w in zip(got, want)]
     within = all(torch.allclose(g.float(), w.float(), rtol=tol, atol=tol)
                  for g, w in zip(got, want))
-    ms = cuda_ms(lambda: fd.flash_decode(q, k, v, kv_len), 200)
-    dev_ms, per_call = device_time(lambda: fd.flash_decode(q, k, v, kv_len),
-                                   50)
-    plain_ms = cuda_ms(lambda: ref.decode_reference(q, k, v, kv_len), 10)
+    per_call = kernels_per_call(fd.kernels_launched, call, 10)
+    dev_ms, traced, traces = device_time(call, 50) if timed \
+        else (None, None, 0)
+    ok = within and same and per_call == 1 and traced in (None, per_call)
     (bound_ms, bound_by, bytes_ms), n_keys = decode_bound(q, k, kv_len)
-    ok = within and same and per_call == 1
     row = {"kernel": "flash_decode", "phase": name,
            "variant": fd.variant(q, k),
            "shape": [*q.shape, k.shape[1], k.shape[2]],
@@ -1191,18 +1215,43 @@ def check_decode(name, q, k, v, kv_len, fd, ref, launches=0):
            "kv_len": kv_len.tolist(), "kv_keys": n_keys,
            "max_abs_err": errs[0], "m_max_abs_err": errs[1],
            "l_max_abs_err": errs[2], "tol": tol,
-           "within_tol_of_plain": within, "repeat_identical": same, "ms": ms,
-           "device_ms": dev_ms, "kernels_per_call": per_call,
-           "bound_share": bound_ms / dev_ms if dev_ms else None,
-           "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-           "bytes_bound_ms": bytes_ms, "library_ms": sdpa_ms(q, k, v, kv_len),
+           "within_tol_of_plain": within, "repeat_identical": same,
+           "kernels_per_call": per_call, "traced_kernels_per_call": traced,
+           "traces": traces,
            "phase_launches": launches, "ok": ok}
+    if timed:
+        row.update({
+            "ms": cuda_ms(call, 200), "device_ms": dev_ms,
+            "bound_share": bound_ms / dev_ms if dev_ms else None,
+            "plain_ms": cuda_ms(lambda: ref.decode_reference(q, k, v,
+                                                             kv_len), 10),
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "bytes_bound_ms": bytes_ms,
+            "library_ms": sdpa_ms(q, k, v, kv_len)})
     log(f"[kernels] {json.dumps(row)}")
     if not ok:
         fail(f"flash_decode {name} {row['shape']} {row['q_dtype']}/"
              f"{row['kv_dtype']}: out/m/l errors {errs}, tol {tol}, second "
-             f"call identical {same}, device kernels a call {per_call}")
+             f"call identical {same}, device kernels a call {per_call} "
+             f"(traced {traced})")
     return row
+
+
+def decode_case_inputs(rng):
+    """``(name, q, k, v, kv_len)`` on the card: tests/test_kernels.py's
+    decode cases in float32 and bf16, then the edge cases in every dtype
+    pair, drawn from ``rng``."""
+    for name, cases, pairs in (
+            ("decode_cases", DECODE_CASES, DECODE_PAIRS[:2]),
+            ("decode_edges", DECODE_EDGE_CASES, DECODE_PAIRS)):
+        for b, s, h, kvh, d, kv_lens in cases:
+            arrays = [rng.standard_normal(shape).astype(np.float32)
+                      for shape in ((b, h, d), (b, s, kvh, d), (b, s, kvh, d))]
+            kv_len = torch.tensor(kv_lens, dtype=torch.int32, device="cuda")
+            for q_dt, kv_dt in pairs:
+                q, k, v = (torch.tensor(a, device="cuda").to(dt) for a, dt in
+                           zip(arrays, (q_dt, kv_dt, kv_dt)))
+                yield name, q, k, v, kv_len
 
 
 def run_decode_kernels(rec, paths):
@@ -1217,25 +1266,9 @@ def run_decode_kernels(rec, paths):
         rows.append(check_decode(f"{phase} step {step} layer {layer}", q, k,
                                  v, kv_len, fd, ref,
                                  paths[phase]["launches"]["flash_decode"]))
-    rng = np.random.default_rng(0)
-    for b, s, h, kvh, d, kv_lens in DECODE_CASES:
-        arrays = [rng.standard_normal(shape).astype(np.float32) for shape in
-                  ((b, h, d), (b, s, kvh, d), (b, s, kvh, d))]
-        kv_len = torch.tensor(kv_lens, dtype=torch.int32, device="cuda")
-        for dtype in (torch.float32, torch.bfloat16):
-            q, k, v = (torch.tensor(a, device="cuda").to(dtype)
-                       for a in arrays)
-            rows.append(check_decode("decode_cases", q, k, v, kv_len, fd,
-                                     ref))
-    for b, s, h, kvh, d, kv_lens in DECODE_EDGE_CASES:
-        arrays = [rng.standard_normal(shape).astype(np.float32) for shape in
-                  ((b, h, d), (b, s, kvh, d), (b, s, kvh, d))]
-        kv_len = torch.tensor(kv_lens, dtype=torch.int32, device="cuda")
-        for q_dt, kv_dt in DECODE_PAIRS:
-            q, k, v = (torch.tensor(a, device="cuda").to(dt) for a, dt in
-                       zip(arrays, (q_dt, kv_dt, kv_dt)))
-            rows.append(check_decode("decode_edges", q, k, v, kv_len, fd,
-                                     ref))
+    for name, q, k, v, kv_len in decode_case_inputs(
+            np.random.default_rng(0)):
+        rows.append(check_decode(name, q, k, v, kv_len, fd, ref))
     return rows
 
 
@@ -1363,14 +1396,19 @@ def timed_once(fn):
 
 
 def check_ssd(name, args, chunk, y_dtype, ssd, ref, launches=0, plain=None,
-              exact=None):
+              exact=None, timed=True):
     """Kernel vs plain SSD scan: y and the final state (and, given
-    ``exact``, the float64 plain result, both against it); times.
-    ``plain`` is ``(plain result, plain ms)`` when the caller has them
-    already (they do not depend on the chunk); returned with the row."""
+    ``exact``, the float64 plain result, both against it), and device
+    kernels a call by the library's count (the tracer's, where it gave a
+    whole trace, must agree); then, when ``timed``, times.  ``plain`` is
+    ``(plain result, plain ms)`` when the caller has them already (they
+    do not depend on the chunk); returned with the row."""
     x = args[0]
     tol = SSD_TOL[x.dtype]
-    y, state = ssd.ssd_scan(*args, chunk=chunk, y_dtype=y_dtype)
+
+    def call():
+        return ssd.ssd_scan(*args, chunk=chunk, y_dtype=y_dtype)
+    y, state = call()
     if plain is None:
         plain = timed_once(lambda: ref.ssd_reference(*args))
     want, plain_ms = plain
@@ -1386,12 +1424,11 @@ def check_ssd(name, args, chunk, y_dtype, ssd, ref, launches=0, plain=None,
         ok = errs[0] <= ORACLE_FACTOR * errs[1] + tol and \
             errs[2] <= ORACLE_FACTOR * errs[3] + SSD_STATE_TOL
     del y, state
-    big = x.numel() > 1 << 22
-    ms = cuda_ms(lambda: ssd.ssd_scan(*args, chunk=chunk, y_dtype=y_dtype),
-                 5 if big else 20)
-    dev_ms, per_call = device_time(
-        lambda: ssd.ssd_scan(*args, chunk=chunk, y_dtype=y_dtype),
-        5 if big else 20)
+    reps = 5 if x.numel() > 1 << 22 else 20
+    per_call = kernels_per_call(ssd.kernels_launched, call, 2)
+    dev_ms, traced, traces = device_time(call, reps) if timed \
+        else (None, None, 0)
+    ok = ok and traced in (None, per_call)
     (bound_ms, bound_by, bytes_ms), ops = ssd_bound(x, args[3], chunk,
                                                     y_dtype)
     row = {"kernel": "ssd_scan", "phase": name, "variant": ssd.variant(x),
@@ -1401,18 +1438,44 @@ def check_ssd(name, args, chunk, y_dtype, ssd, ref, launches=0, plain=None,
            "y_dtype": str(y_dtype).split(".")[-1], "flops": ops,
            "max_abs_err": y_err, "state_max_abs_err": s_err, "tol": tol,
            "within_tol_of_plain": within, "f64_err_kernel_plain": errs,
-           "ms": ms, "device_ms": dev_ms, "kernels_per_call": per_call,
-           "bound_share": bound_ms / dev_ms if dev_ms else None,
-           "plain_ms": plain_ms,
-           "bound_ms": bound_ms, "bound_by": bound_by,
-           "bytes_bound_ms": bytes_ms, "library_ms": None,
-           "phase_launches": launches, "ok": ok}
+           "kernels_per_call": per_call, "traced_kernels_per_call": traced,
+           "traces": traces,
+           "plain_ms": plain_ms, "phase_launches": launches, "ok": ok}
+    if timed:
+        row.update({
+            "ms": cuda_ms(call, reps), "device_ms": dev_ms,
+            "bound_share": bound_ms / dev_ms if dev_ms else None,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "bytes_bound_ms": bytes_ms, "library_ms": None})
     log(f"[kernels] {json.dumps(row)}")
     if not ok:
         fail(f"ssd_scan {name} {row['shape']} {row['dtype']} chunk {chunk}:"
              f" y err {y_err}, state err {s_err}, float64 errors (kernel y, "
-             f"plain y, kernel state, plain state) {errs}")
+             f"plain y, kernel state, plain state) {errs}, device kernels a "
+             f"call {per_call} (traced {traced})")
     return row, plain
+
+
+def ssd_case_inputs(rng, device="cuda"):
+    """``(name, args, chunk, y dtype)``: tests/test_kernels.py's SSD cases
+    in float32 and bf16, then the edge cases in every (x, y) dtype pair,
+    drawn from ``rng``."""
+    for name, cases, pairs in (
+            ("ssd_cases", SSD_CASES, ((torch.float32, torch.float32),
+                                      (torch.bfloat16, torch.bfloat16))),
+            ("ssd_edges", SSD_EDGE_CASES, SSD_PAIRS)):
+        for b, s, h, p, n, chunk in cases:
+            x = rng.standard_normal((b, s, h, p)).astype(np.float32)
+            dt = np.logaddexp(rng.standard_normal((b, s, h)), 0)
+            a = -np.abs(rng.standard_normal((b, s, h))) * 0.1
+            B_, C_ = (rng.standard_normal((b, s, n)) for _ in range(2))
+            for dtype, y_dtype in pairs:
+                args = (torch.tensor(x, device=device).to(dtype),
+                        torch.tensor(dt, device=device, dtype=torch.float32),
+                        torch.tensor(a, device=device, dtype=torch.float32),
+                        torch.tensor(B_, device=device).to(dtype),
+                        torch.tensor(C_, device=device).to(dtype))
+                yield name, args, chunk, y_dtype
 
 
 def run_prefill_kernels(rec, paths, device="cuda"):
@@ -1456,23 +1519,8 @@ def run_prefill_kernels(rec, paths, device="cuda"):
                        for a in arrays)
             rows.append(check_attention("attn_cases", q, k, v, causal,
                                         window, fa, ref))
-    for name, cases, pairs in (
-            ("ssd_cases", SSD_CASES, ((torch.float32, torch.float32),
-                                      (torch.bfloat16, torch.bfloat16))),
-            ("ssd_edges", SSD_EDGE_CASES, SSD_PAIRS)):
-        for b, s, h, p, n, chunk in cases:
-            x = rng.standard_normal((b, s, h, p)).astype(np.float32)
-            dt = np.logaddexp(rng.standard_normal((b, s, h)), 0)
-            a = -np.abs(rng.standard_normal((b, s, h))) * 0.1
-            B_, C_ = (rng.standard_normal((b, s, n)) for _ in range(2))
-            for dtype, y_dtype in pairs:
-                args = (torch.tensor(x, device=device).to(dtype),
-                        torch.tensor(dt, device=device, dtype=torch.float32),
-                        torch.tensor(a, device=device, dtype=torch.float32),
-                        torch.tensor(B_, device=device).to(dtype),
-                        torch.tensor(C_, device=device).to(dtype))
-                rows.append(check_ssd(name, args, chunk, y_dtype, ssd,
-                                      ref)[0])
+    for name, args, chunk, y_dtype in ssd_case_inputs(rng, device):
+        rows.append(check_ssd(name, args, chunk, y_dtype, ssd, ref)[0])
     return rows
 
 

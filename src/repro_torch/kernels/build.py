@@ -68,6 +68,10 @@ _SIGNATURES = {
                         "flash_attention_wgmma_probe": _PROBE_ARGS},
     "ssd_scan": {"ssd_scan": _SSD_ARGS},
 }
+#: library -> its count of device kernels launched (no arguments, long
+#: long): kernels a call without a tracer
+KERNEL_COUNT = {"flash_decode": "flash_decode_kernels_launched",
+                "ssd_scan": "ssd_scan_kernels_launched"}
 _ERROR_STRING = {"maxmin": "kernels_error_string",
                  "flash_decode": "flash_decode_error_string",
                  "flash_attention": "flash_attention_error_string",
@@ -145,7 +149,16 @@ def library(name: str) -> ctypes.CDLL:
         fn.argtypes, fn.restype = argtypes, ctypes.c_int
     err = getattr(lib, _ERROR_STRING[name])
     err.argtypes, err.restype = [ctypes.c_int], ctypes.c_char_p
+    if name in KERNEL_COUNT:
+        count = getattr(lib, KERNEL_COUNT[name])
+        count.argtypes, count.restype = [], ctypes.c_longlong
     return lib
+
+
+def kernels_launched(name: str) -> int:
+    """Device kernels library ``name`` (one of ``KERNEL_COUNT``) has
+    launched in this process, by its own count."""
+    return getattr(library(name), KERNEL_COUNT[name])()
 
 
 def check(name: str, code: int, what: str) -> None:

@@ -64,11 +64,15 @@
 //
 // The entry point returns cudaGetLastError() (or the first error of a
 // runtime call) as an int; the Python wrapper raises when it is non-zero.
+// flash_decode_kernels_launched() returns how many device kernels the
+// library has launched so far, counted beside each launch: kernels per
+// call without a tracer.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <atomic>
 #include <cstdint>
 
 namespace cg = cooperative_groups;
@@ -76,6 +80,8 @@ namespace cg = cooperative_groups;
 namespace {
 
 using bf16 = __nv_bfloat16;
+
+std::atomic<long long> g_kernels{0};  // device kernels launched
 
 constexpr int kThreads = 128;
 constexpr int kMmaTile = 64;      // keys per tile, tensor-core variant (16 a warp)
@@ -632,6 +638,7 @@ int launch_clusters(void (*kernel)(Params...), const Args& a, int groups, size_t
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   err = cudaLaunchKernelEx(&cfg, kernel, args...);
+  if (err == cudaSuccess) ++g_kernels;
   return (int)(err != cudaSuccess ? err : cudaGetLastError());
 }
 
@@ -692,5 +699,7 @@ int flash_decode(int q_dtype, int kv_dtype, const void* q, const void* k, const 
 const char* flash_decode_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
+
+long long flash_decode_kernels_launched() { return g_kernels.load(); }
 
 }  // extern "C"

@@ -70,13 +70,19 @@
 //
 // The entry point returns cudaGetLastError() (or the first error of a
 // runtime call) as an int; the Python wrapper raises when it is non-zero.
+// ssd_scan_kernels_launched() returns how many device kernels the library
+// has launched so far, counted beside each launch: kernels per call
+// without a tracer.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <atomic>
 #include <cstdint>
 
 namespace {
+
+std::atomic<long long> g_kernels{0};  // device kernels launched
 
 constexpr int kThreads = 256;
 constexpr int kBlk = 64;              // rows of a (query or key) block
@@ -359,7 +365,8 @@ int launch(const void* x, const float* dt, const float* a, const void* Bm, const
   ssd_scan_fwd<T, TY><<<dim3(H, B), kThreads, smem, stream>>>(
       static_cast<const T*>(x), dt, a, static_cast<const T*>(Bm), static_cast<const T*>(Cm),
       static_cast<TY*>(y), state, S, H, P, N, chunk);
-  return (int)cudaGetLastError();
+  if ((err = cudaGetLastError()) == cudaSuccess) ++g_kernels;
+  return (int)err;
 }
 
 // ------------------------------------------- chunk-parallel variant (bf16)
@@ -776,12 +783,15 @@ int launch_chunked(const bf16* x, const float* dt, const float* a, const bf16* B
   ssd_scan_states<<<dim3(H, nc, B), kThreads, dim.states_bytes(), stream>>>(
       x, dt, a, Bm, S, H, P, N, chunk, states, decay);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  ++g_kernels;
   ssd_scan_carry<<<dim3((np4 + kThreads - 1) / kThreads, H, B), kThreads, 0, stream>>>(
       states, decay, state, H, np4, nc);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  ++g_kernels;
   ssd_scan_out<TY><<<dim3(H, nc, B), kOutThreads, dim.out_bytes(N), stream>>>(
       x, dt, a, Bm, Cm, states, y, S, H, P, N, chunk);
-  return (int)cudaGetLastError();
+  if ((err = cudaGetLastError()) == cudaSuccess) ++g_kernels;
+  return (int)err;
 }
 
 }  // namespace
@@ -821,5 +831,7 @@ int ssd_scan(int x_dtype, int y_dtype, const void* x, const float* dt, const flo
 const char* ssd_scan_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
+
+long long ssd_scan_kernels_launched() { return g_kernels.load(); }
 
 }  // extern "C"

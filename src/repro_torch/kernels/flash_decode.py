@@ -49,6 +49,14 @@ def reset_launches() -> None:
         LAUNCHES[name] = 0
 
 
+def kernels_launched() -> int:
+    """Device kernels the CUDA library has launched in this process, by
+    its own count (one added beside each launch): a wrapper call's share
+    is the kernels per call, with no tracer to lose any."""
+    from repro_torch.kernels import build
+    return build.kernels_launched("flash_decode")
+
+
 def variant(q, k) -> str:
     """The kernel a pair of dtypes takes: ``"mma"`` (tensor cores) for
     bf16 q on a bf16 cache, ``"simt"`` (f32 FMAs) for every other pair.

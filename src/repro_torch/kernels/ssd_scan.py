@@ -38,6 +38,14 @@ def reset_launches() -> None:
         LAUNCHES[name] = 0
 
 
+def kernels_launched() -> int:
+    """Device kernels the CUDA library has launched in this process, by
+    its own count (one added beside each launch): a wrapper call's share
+    is the kernels per call, with no tracer to lose any."""
+    from repro_torch.kernels import build
+    return build.kernels_launched("ssd_scan")
+
+
 def variant(x) -> str:
     """The kernel x's dtype takes: ``"mma"`` (chunk-parallel, tensor
     cores) for bf16, ``"simt"`` (one CTA per row and head walking the

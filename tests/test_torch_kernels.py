@@ -17,6 +17,10 @@ are held against them on the card (``gpu`` marker here, and
 from __future__ import annotations
 
 import contextlib
+import ctypes
+import importlib.util
+import os
+import re
 from types import SimpleNamespace
 
 import jax
@@ -314,6 +318,120 @@ def test_build_targets_hopper():
         len(build.LIBRARIES)
 
 
+#: C parameter type -> the ctypes type that binds it
+_C_TYPES = {"int": ctypes.c_int, "long long": ctypes.c_longlong,
+            "float": ctypes.c_float, "double": ctypes.c_double}
+
+
+def _c_entry_points(path):
+    """name -> ctypes types of the parameters of every function defined in
+    the source's ``extern "C"`` block (pointers as ``c_void_p``)."""
+    text = open(path).read().split('extern "C" {', 1)[1]
+    found = {}
+    for name, params in re.findall(r"^[\w ]+?[\s*]+(\w+)\(([^)]*)\)\s*\{",
+                                   text, re.M):
+        types = []
+        for param in filter(None, (p.strip() for p in params.split(","))):
+            kind = re.sub(r"\bconst\b|\s+\w+$", "", param).strip()
+            types.append(ctypes.c_void_p if "*" in kind
+                         else _C_TYPES[" ".join(kind.split())])
+        found[name] = types
+    return found
+
+
+@pytest.mark.parametrize("name", sorted(build.LIBRARIES))
+def test_entry_points_match_their_ctypes_signatures(name):
+    """Every function ``build.py`` binds is defined in its library's
+    source with the parameters its ctypes signature declares, one for
+    one in type; the kernel counters take none."""
+    defined = _c_entry_points(build.source(name))
+    for fn, argtypes in build._SIGNATURES[name].items():
+        assert defined[fn] == argtypes, fn
+    assert build._ERROR_STRING[name] in defined
+    if name in build.KERNEL_COUNT:
+        assert defined[build.KERNEL_COUNT[name]] == []
+
+
+def test_kernels_launched_reads_each_librarys_count(monkeypatch):
+    """``kernels_launched()`` of the decode and SSD wrappers reads the
+    counter of its own library."""
+    libs = {"flash_decode": SimpleNamespace(
+                flash_decode_kernels_launched=lambda: 7),
+            "ssd_scan": SimpleNamespace(ssd_scan_kernels_launched=lambda: 9)}
+    monkeypatch.setattr(build, "library", libs.__getitem__)
+    assert fd.kernels_launched() == 7 and ssd.kernels_launched() == 9
+
+
+def _chip_smoke():
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "chip_smoke.py")
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+@pytest.mark.parametrize("traces, want", [
+    ([(9, [50])], (1.0, 1)),                      # whole at once
+    ([(9, [0]), (9, [49]), (0, [50]), (200, [50])],
+     (1.0, 1)),                                   # lost: all, one, fills
+    ([(9, [50, 50, 50])], (3.0, 3)),              # three kernels a call
+    ([(9, []), (9, [0]), (9, [48]), (9, [51])],
+     (None, None)),                               # never whole
+])
+def test_chip_smoke_device_time_keeps_only_whole_traces(monkeypatch, traces,
+                                                        want):
+    """``chip_smoke.device_time`` leaves out the fills that open a trace
+    and traces again, with four times more fills, when the tracer lost
+    all of the fills or lost or added events of the calls (a kernel's
+    count not a whole multiple of the calls), up to four traces; it
+    reports "not measured" (None), never 0, when none was whole.
+    ``kernels_per_call`` reads the library's own count."""
+    from torch.autograd import DeviceType
+    cs = _chip_smoke()
+    left, pads = list(traces), []
+
+    class FakeProfile:
+        def __init__(self, activities):
+            self.fills, self.counts = left.pop(0)
+
+        def __enter__(self):
+            return self
+
+        def __exit__(self, *exc):
+            return False
+
+        def key_averages(self):
+            cuda = [SimpleNamespace(device_type=DeviceType.CUDA,
+                                    key=f"kernel_{i}", count=n,
+                                    self_device_time_total=20.0 * n)
+                    for i, n in enumerate(self.counts) if n]
+            if self.fills:
+                cuda.append(SimpleNamespace(
+                    device_type=DeviceType.CUDA, count=self.fills,
+                    key=f"fill<{cs.PAD_KERNEL}<float>>",
+                    self_device_time_total=1e6))
+            return cuda + [SimpleNamespace(device_type=DeviceType.CPU,
+                                           key="flash_decode", count=50,
+                                           self_device_time_total=0.0)]
+
+    class FakePad:
+        def fill_(self, value):
+            pads.append(value)
+
+    monkeypatch.setattr(torch.profiler, "profile", FakeProfile)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+    monkeypatch.setattr(torch, "zeros", lambda *a, **kw: FakePad())
+    calls = []
+    ms, per_call, used = cs.device_time(lambda: calls.append(1), 50)
+    assert (ms and round(ms, 6), per_call) == \
+        ((round(want[0] * 0.02, 6) if want[0] else None), want[1])
+    assert used == len(traces) - len(left) and len(calls) == 100 * used
+    assert len(pads) == sum(64 * 4 ** i for i in range(used))
+    count = iter(range(0, 100, 3))
+    assert cs.kernels_per_call(lambda: next(count), lambda: None, 5) == 0.6
+
+
 def _card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
@@ -555,43 +673,30 @@ def test_flash_decode_edge_cases_match_reference_oracle(case):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("case", DECODE_EDGE_CASES)
+@pytest.mark.parametrize("case",
+                         DECODE_CASES + [GRANITE_CASE] + DECODE_EDGE_CASES)
 @pytest.mark.parametrize("pair", DECODE_PAIRS)
-def test_cuda_flash_decode_edge_cases_on_card(case, pair):
-    """The kernel against its plain version at the edge cases in every
-    dtype pair (the tolerance of q's dtype), one launch a call, and a
-    second call on the same scratch bit-identical to the first."""
+def test_cuda_flash_decode_matches_plain_on_card(case, pair):
+    """The kernel against its plain version at the decode cases and the
+    edge cases in every dtype pair (the tolerance of q's dtype): one
+    launch counted and one device kernel a call, and a second call
+    bit-identical to the first."""
     _card()
     q_dt, kv_dt = _pair(pair)
     q, k, v, kv_len = (torch.from_numpy(a).cuda()
                        for a in decode_problem(case, seed=5))
     q, k, v = q.to(q_dt), k.to(kv_dt), v.to(kv_dt)
     tol = DECODE_DTYPES[str(q_dt)[6:]][2]
-    before = dict(fd.LAUNCHES)
+    before, kernels = dict(fd.LAUNCHES), fd.kernels_launched()
     got = ops.flash_decode(q, k, v, kv_len)
     again = ops.flash_decode(q, k, v, kv_len)
     kind = "flash_decode_" + fd.variant(q, k)
     assert fd.LAUNCHES["flash_decode"] == before["flash_decode"] + 2
     assert fd.LAUNCHES[kind] == before[kind] + 2
+    assert fd.kernels_launched() == kernels + 2
     want = ref.decode_reference(q, k, v, kv_len)
     for g, a, w in zip(got, again, want):
         assert torch.equal(g, a)
-        torch.testing.assert_close(g.float(), w.float(), rtol=tol, atol=tol)
-
-
-@pytest.mark.gpu
-@pytest.mark.parametrize("case", DECODE_CASES + [GRANITE_CASE])
-@pytest.mark.parametrize("dtype_name", sorted(DECODE_DTYPES))
-def test_cuda_flash_decode_matches_plain_on_card(case, dtype_name):
-    _card()
-    _, t_dt, tol = DECODE_DTYPES[dtype_name]
-    args = [torch.from_numpy(a).cuda() for a in decode_problem(case)]
-    q, k, v = (a.to(t_dt) for a in args[:3])
-    before = fd.LAUNCHES["flash_decode"]
-    got = ops.flash_decode(q, k, v, args[3])
-    assert fd.LAUNCHES["flash_decode"] == before + 1
-    want = ref.decode_reference(q, k, v, args[3])
-    for g, w in zip(got, want):
         torch.testing.assert_close(g.float(), w.float(), rtol=tol, atol=tol)
 
 
@@ -972,36 +1077,26 @@ def test_ssd_scan_edge_cases_match_model_chunked_impl(case):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("case", SSD_EDGE_CASES)
+@pytest.mark.parametrize("case",
+                         SSD_CASES + PATH_SSD_CASES + SSD_EDGE_CASES)
 @pytest.mark.parametrize("pair", SSD_PAIRS)
-def test_cuda_ssd_scan_edge_cases_on_card(case, pair):
-    """The kernels against the plain recurrence at the edge cases: y in
-    the dtype asked for within x's tolerance, the state within 1e-3, one
-    launch counted in x's variant."""
+def test_cuda_ssd_scan_matches_plain_on_card(case, pair):
+    """The kernels against the plain recurrence at the SSD cases and the
+    edge cases: y in the dtype asked for within x's tolerance, the state
+    within 1e-3, one launch counted in x's variant (three device kernels
+    for the chunk-parallel one, one for the FMA one)."""
     _card()
     x_dt, y_dt = _pair(pair)
     _, _, tol, s_tol = SSD_DTYPES[str(x_dt)[6:]]
     args = [t.cuda() for t in _ssd_torch(ssd_problem(case, seed=6), x_dt)]
-    before = dict(ssd.LAUNCHES)
+    before, kernels = dict(ssd.LAUNCHES), ssd.kernels_launched()
     y, state = ops.ssd_scan(*args, chunk=case[5], y_dtype=y_dt)
     kind = "ssd_scan_" + ssd.variant(args[0])
+    assert ssd.LAUNCHES["ssd_scan"] == before["ssd_scan"] + 1
     assert ssd.LAUNCHES[kind] == before[kind] + 1
+    assert ssd.kernels_launched() == kernels + (3 if kind.endswith("mma")
+                                                else 1)
     assert y.dtype == y_dt
-    y_want, s_want = ref.ssd_reference(*args)
-    torch.testing.assert_close(y.float(), y_want, rtol=tol, atol=tol)
-    torch.testing.assert_close(state, s_want, rtol=s_tol, atol=s_tol)
-
-
-@pytest.mark.gpu
-@pytest.mark.parametrize("case", SSD_CASES + PATH_SSD_CASES)
-@pytest.mark.parametrize("dtype_name", sorted(SSD_DTYPES))
-def test_cuda_ssd_scan_matches_plain_on_card(case, dtype_name):
-    _card()
-    _, t_dt, tol, s_tol = SSD_DTYPES[dtype_name]
-    args = [t.cuda() for t in _ssd_torch(ssd_problem(case), t_dt)]
-    before = ssd.LAUNCHES["ssd_scan"]
-    y, state = ops.ssd_scan(*args, chunk=case[5])
-    assert ssd.LAUNCHES["ssd_scan"] == before + 1
     y_want, s_want = ref.ssd_reference(*args)
     torch.testing.assert_close(y.float(), y_want, rtol=tol, atol=tol)
     torch.testing.assert_close(state, s_want, rtol=s_tol, atol=s_tol)

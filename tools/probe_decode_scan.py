@@ -5,16 +5,15 @@ then time them at the main path's shapes.
 
 on a machine with a card.  ``--src`` imports ``repro_torch`` from
 ``DIR/src`` instead of this checkout's (an unpacked earlier commit, so
-that two versions of the kernels are timed in one call, in turns); the
-case lists and timers are this checkout's ``chip_smoke.py``'s.
+that two versions of the kernels are timed in one call, in turns) and
+skips step 2; the case lists, checks and timers are this checkout's
+``chip_smoke.py``'s.
 
 1. builds both libraries and prints what ``-Xptxas -v`` reports for each
    kernel (registers, shared memory, spill bytes);
-2. holds ``flash_decode`` against ``ref.decode_reference`` at
-   ``chip_smoke.py``'s decode cases and edge cases in every dtype pair
-   (out, m, l within ``DECODE_TOL``; a second call bit-identical), and
-   ``ssd_scan`` against ``ref.ssd_reference`` at its SSD cases and edge
-   cases (y within ``SSD_TOL``, state within ``SSD_STATE_TOL``);
+2. runs ``chip_smoke.py``'s kernel-against-plain checks, untimed, at its
+   decode and SSD cases and edge cases (``check_decode``,
+   ``check_ssd``);
 3. times ``flash_decode`` on random inputs at the shapes, dtypes and
    kv_len of ``chip_smoke.py``'s captured rows (granite_3_2b's serve path
    at steps 0, 745 and 1489: q (8, 32, 64) on a (8, 4096, 8, 64) bf16
@@ -25,7 +24,8 @@ case lists and timers are this checkout's ``chip_smoke.py``'s.
    kernels per call from torch.profiler, each device kernel's share, and
    ``scaled_dot_product_attention`` beside the decode rows.
 
-Prints one JSON line per row (redirect the output to keep them).
+Prints chip_smoke's ``[kernels]`` line for each check and one JSON line
+for each timed row (redirect the output to keep them).
 ``chip_smoke.py`` is the full check; this is the quick one.
 """
 import argparse
@@ -66,33 +66,16 @@ def kernel_split(fn, reps):
     ``fn`` launches."""
     return {a.key[:60]: (a.self_device_time_total / 1e3 / reps,
                          a.count / reps)
-            for a in cs.device_kernels(fn, reps)}
+            for a in cs.device_kernels(fn, reps)[0] or ()}
 
 
-def decode_checks(fd, ref, rng):
-    for name, cases, pairs in (
-            ("decode_cases", cs.DECODE_CASES, cs.DECODE_PAIRS[:2]),
-            ("decode_edges", cs.DECODE_EDGE_CASES, cs.DECODE_PAIRS)):
-        for b, s, h, kvh, d, kv_lens in cases:
-            arrays = [rng.standard_normal(shape).astype(np.float32)
-                      for shape in ((b, h, d), (b, s, kvh, d), (b, s, kvh, d))]
-            kv_len = torch.tensor(kv_lens, dtype=torch.int32, device="cuda")
-            for q_dt, kv_dt in pairs:
-                q, k, v = (torch.tensor(a, device="cuda").to(dt) for a, dt in
-                           zip(arrays, (q_dt, kv_dt, kv_dt)))
-                tol = cs.DECODE_TOL[q_dt]
-                got = fd.flash_decode(q, k, v, kv_len)
-                again = fd.flash_decode(q, k, v, kv_len)
-                want = ref.decode_reference(q, k, v, kv_len)
-                errs = [float((g.float() - w.float()).abs().max())
-                        for g, w in zip(got, want)]
-                ok = all(torch.allclose(g.float(), w.float(), rtol=tol,
-                                        atol=tol) for g, w in zip(got, want))
-                same = all(torch.equal(g, a) for g, a in zip(got, again))
-                emit({"check": name, "shape": [b, s, h, kvh, d],
-                      "kv_len": list(kv_lens), "q": str(q_dt)[6:],
-                      "kv": str(kv_dt)[6:], "errs": errs, "ok": ok,
-                      "repeat_identical": same})
+def checks(fd, ssd, ref, rng):
+    for name, q, k, v, kv_len in cs.decode_case_inputs(rng):
+        ROWS.append(cs.check_decode(name, q, k, v, kv_len, fd, ref,
+                                    timed=False))
+    for name, args, chunk, y_dtype in cs.ssd_case_inputs(rng):
+        ROWS.append(cs.check_ssd(name, args, chunk, y_dtype, ssd, ref,
+                                 timed=False)[0])
 
 
 def decode_times(fd, rng):
@@ -105,7 +88,7 @@ def decode_times(fd, rng):
 
         def call():
             return fd.flash_decode(q, k, v, kv_len)
-        dev_ms, per_call = cs.device_time(call, 50)
+        dev_ms, per_call, _ = cs.device_time(call, 50)
         (bound_ms, _, _), n_keys = cs.decode_bound(q, k, kv_len)
         emit({"time": "flash_decode", "path": path, "step": step,
               "kv_keys": n_keys, "ms": cs.cuda_ms(call, 200),
@@ -117,6 +100,7 @@ def decode_times(fd, rng):
 
 
 def ssd_args(rng, b, s, h, p, n, dtype):
+    """Random SSD inputs on the card, x, B_ and C_ in ``dtype``."""
     x = rng.standard_normal((b, s, h, p)).astype(np.float32)
     dt = np.logaddexp(rng.standard_normal((b, s, h)), 0)
     a = -np.abs(rng.standard_normal((b, s, h))) * 0.1
@@ -128,27 +112,6 @@ def ssd_args(rng, b, s, h, p, n, dtype):
             torch.tensor(C_, device="cuda").to(dtype))
 
 
-def ssd_checks(ssd, ref, rng):
-    for name, cases, pairs in (
-            ("ssd_cases", cs.SSD_CASES, ((torch.float32, torch.float32),
-                                         (torch.bfloat16, torch.bfloat16))),
-            ("ssd_edges", cs.SSD_EDGE_CASES, cs.SSD_PAIRS)):
-        for b, s, h, p, n, chunk in cases:
-            for dtype, y_dtype in pairs:
-                args = ssd_args(rng, b, s, h, p, n, dtype)
-                tol = cs.SSD_TOL[dtype]
-                y, st = ssd.ssd_scan(*args, chunk=chunk, y_dtype=y_dtype)
-                wy, ws = ref.ssd_reference(*args)
-                ok = torch.allclose(y.float(), wy, rtol=tol, atol=tol) and \
-                    torch.allclose(st, ws, rtol=cs.SSD_STATE_TOL,
-                                   atol=cs.SSD_STATE_TOL)
-                emit({"check": name, "shape": [b, s, h, p, n],
-                      "chunk": chunk, "x": str(dtype)[6:],
-                      "y": str(y_dtype)[6:],
-                      "y_err": float((y.float() - wy).abs().max()),
-                      "state_err": float((st - ws).abs().max()), "ok": ok})
-
-
 def ssd_times(ssd, ref, rng):
     b, s, h, p, n = MAMBA
     args = ssd_args(rng, b, s, h, p, n, torch.bfloat16)
@@ -158,7 +121,8 @@ def ssd_times(ssd, ref, rng):
         def call():
             return ssd.ssd_scan(*args, chunk=chunk, y_dtype=torch.float32)
         row = {"time": "ssd_scan", "chunk": chunk, "ms": cs.cuda_ms(call, 5)}
-        row["device_ms"], row["kernels_per_call"] = cs.device_time(call, 5)
+        row["device_ms"], row["kernels_per_call"], _ = cs.device_time(call,
+                                                                      5)
         row["bound_ms"] = cs.ssd_bound(args[0], args[3], chunk,
                                        torch.float32)[0][0]
         row["kernels"] = kernel_split(call, 3)
@@ -192,12 +156,11 @@ def main():
             if "registers" in line or "spill" in line or "Compiling" in line:
                 print(f"[build] {name}: {line.strip()}", flush=True)
     rng = np.random.default_rng(0)
-    decode_checks(fd, ref, rng)
-    ssd_checks(ssd, ref, rng)
+    if os.path.samefile(opts.src, ROOT):
+        checks(fd, ssd, ref, rng)
     decode_times(fd, rng)
     ssd_times(ssd, ref, rng)
-    bad = [r for r in ROWS if r.get("ok") is False
-           or r.get("repeat_identical") is False]
+    bad = [r for r in ROWS if r.get("ok") is False]
     print(f"[probe] {opts.tag}: {len(ROWS)} rows, {len(bad)} failed",
           flush=True)
     return 1 if bad else 0
