@@ -45,6 +45,18 @@ version on the card:
      then the three smoke configs in float32 (TF32 off, so the SIMT
      attention variant) on card and CPU, last-position logits within
      1e-3;
+   - train: ``runtime/train.Trainer`` at full width, seed-0 float32
+     parameters and moments drawn on the card, bf16 compute, synthetic
+     data, no checkpoint, 3 steps: granite_3_2b 4 x 4096 in 2
+     microbatches, mamba2_370m 8 x 4096 (``flash_attention`` /
+     ``ssd_scan`` launched twice a layer and microbatch, forward and
+     remat recompute, every launch the tensor-core variant); finite
+     losses, ms a step, tokens/s, model FLOP utilisation, peak memory
+     and one more step traced with ``torch.profiler``; then the granite
+     and mamba2 smoke configs in float32 (TF32 off) for 8 steps on card
+     and CPU from one step-0 checkpoint (per-step losses within 1e-4),
+     and a crash at step 6 resumed from the step-4 checkpoint by a fresh
+     ``Trainer`` (final loss within rtol 1e-6 of the uninterrupted run);
 3. **kernels** every kernel input the paths produced: the max-min
    kernels in float32 and float64, plus random many-round problems (the
    kernel against its plain version: freeze set and rates per round for
@@ -65,7 +77,12 @@ version on the card:
    the first and last layer of the mamba prefill at chunks 64, 128 and
    256, SSD_CASES in float32 and bf16 and the chunk-parallel variant's
    edge cases in f32, bf16 and bf16 x with f32 y (y 1e-4 / 3e-2, state
-   1e-3).  Times through the wrapper from CUDA events; for
+   1e-3); the two autograd Functions' backwards (plain PyTorch) against
+   torch.autograd of the plain versions at captured bf16 layer inputs:
+   granite's layer at 1 x 4096, danube's windowed layer at 1 x 8192,
+   mamba's at 2 x 4096 (each gradient within the forward's tolerance
+   times its max abs; SDPA's backward timed beside the attention's).
+   Times through the wrapper from CUDA events; for
    ``flash_decode`` and ``ssd_scan`` also the device time a call and the
    device kernels a call, from torch.profiler, with the share of the
    bound taken on the device time.  The plain versions take the query
@@ -170,6 +187,27 @@ PREFILL_PROFILE = "prefill_granite"
 #: window of 32
 PREFILL_CROSS = (("granite_3_2b", 2, 64), ("h2o_danube_3_4b", 2, 64),
                  ("h2o_danube_3_4b", 2, 96), ("mamba2_370m", 2, 64))
+#: the train paths at full width, through ``runtime/train.Trainer``:
+#: (phase, arch, batch, sequence, microbatches, the kernel every mixer
+#: layer launches twice a microbatch: forward and remat recompute)
+TRAIN = (("train_granite", "granite_3_2b", 4, 4096, 2, "flash_attention"),
+         ("train_mamba", "mamba2_370m", 8, 4096, 1, "ssd_scan"))
+#: steps of each train phase; one more is traced with torch.profiler
+TRAIN_STEPS = 3
+#: the card-vs-CPU and restart check of the trainer: smoke configs in
+#: float32 (TF32 off), steps, checkpoint period, the injected crash
+TRAIN_CROSS = dict(archs=("granite_3_2b", "mamba2_370m"), steps=8,
+                   ckpt_every=4, fail_at=6, batch=4, seq=64)
+#: per-step losses, card against CPU; final loss after a restart against
+#: the uninterrupted run (tests/test_runtime.py's rtol)
+TRAIN_CROSS_TOL = 1e-4
+RESTART_RTOL = 1e-6
+#: the backward rows: the autograd Functions' backwards against autograd
+#: of the plain versions at the train paths' layers, from captured
+#: prefill inputs: (name, captured phase, layer, rows kept)
+TRAIN_BACKWARD = (("granite layer 0", "prefill_granite", 0, 1),
+                  ("danube layer 0", "prefill_danube", 0, 1),
+                  ("mamba layer 0", "prefill_mamba", 0, 2))
 #: tests/test_kernels.py's ATTN_CASES: (B, Sq, Skv, H, KVH, D, causal,
 #: window), and SSD_CASES: (B, S, H, P, N, chunk)
 ATTN_CASES = ((1, 128, 128, 4, 4, 64, True, 0),
@@ -220,6 +258,11 @@ SSD_STATE_TOL = 1e-3
 ORACLE_FACTOR = 2.0
 #: the chunks every captured SSD input is held at (the path's is 256)
 SSD_CHUNKS = (64, 128, 256)
+#: profiler ranges whose device time (every kernel launched inside) a
+#: profile summary reports: the train step's forward and AdamW, and the
+#: two Functions' backwards (the rest of the step is the backward)
+RANGES = ("train_step.forward", "train_step.adamw",
+          "FlashAttentionBackward", "SSDScanBackward")
 #: what the name of the fill kernel that opens a timing trace contains
 PAD_KERNEL = "FillFunctor"
 FAILURES: list = []
@@ -635,8 +678,11 @@ def profile_summary(prof, wall_ms, steps):
     and the top CPU ops by self time."""
     from torch.autograd import DeviceType
     avgs = prof.key_averages()
+    # a named range also leaves a device-side span, which would count its
+    # kernels a second time
     dev = sorted(((a.key, a.self_device_time_total / 1e3, a.count)
-                  for a in avgs if a.device_type != DeviceType.CPU),
+                  for a in avgs if a.device_type != DeviceType.CPU
+                  and a.key not in RANGES),
                  key=lambda r: -r[1])
     host = sorted(((a.key, a.self_cpu_time_total / 1e3, a.count)
                    for a in avgs if a.device_type == DeviceType.CPU),
@@ -644,9 +690,12 @@ def profile_summary(prof, wall_ms, steps):
     busy = sum(r[1] for r in dev)
     per_step = {name: sum(ms for key, ms, _ in dev if name in key) / steps
                 for name in KERNELS}
+    ranges = {a.key: a.device_time_total / 1e3 / steps for a in avgs
+              if a.device_type == DeviceType.CPU and a.key in RANGES}
     return {"steps": steps, "wall_ms": wall_ms, "device_busy_ms": busy,
             "device_idle_share": 1 - busy / wall_ms if busy else None,
             "kernel_device_ms_per_step": per_step,
+            "range_device_ms_per_step": ranges,
             "top_device_ms": dev[:12], "top_host_ms": host[:12]}
 
 
@@ -923,6 +972,224 @@ def run_prefill(rec, phases=PREFILL):
         torch.cuda.empty_cache()
     points = prefill_cross()
     out["prefill_cross"] = {"points": points, "launches": {
+        name: sum(r["launches"][name] for r in points) for name in counts()}}
+    return out
+
+
+# ---------------------------------------------------------------- train
+
+def ssd_ops(b, s, h, p, n, chunk):
+    """Operations of the SSD scan's products (see ``ssd_bound``)."""
+    lens = [min(chunk, s - c0) for c0 in range(0, s, chunk)]
+    return sum(b * ln * (ln + 1) * n + b * h * (ln * (ln + 1) * p
+                                               + 4 * ln * n * p)
+               for ln in lens)
+
+
+def model_flops(cfg, batch, seq):
+    """Model FLOPs of one train step: 6 x the parameters outside the
+    input embedding x tokens, plus, forward and backward (3 x the
+    forward), the attention products the mask keeps (q Kᵀ and P V: 4 D a
+    kept (query, key) pair and head) or the SSD scan's products."""
+    from repro_torch.models.blocks import count_params
+    from repro_torch.models.model import model_defs
+    from repro_torch.models.ssm import ssm_dims
+    n = count_params(model_defs(cfg)) - cfg.vocab_size * cfg.d_model
+    flops = 6 * n * batch * seq
+    for mixer, _ in cfg.pattern:
+        if mixer == "attn":
+            flops += 3 * cfg.n_blocks * 4 * cfg.hd * cfg.n_heads * batch \
+                * attn_pairs(seq, seq, True, cfg.window)
+        else:
+            _, h, p, n_state, _ = ssm_dims(cfg)
+            flops += 3 * cfg.n_blocks * ssd_ops(batch, seq, h, p, n_state,
+                                                min(256, seq))
+    return flops
+
+
+def train_phase(label, cfg, batch, seq, accum, kernel, device="cuda"):
+    """``TRAIN_STEPS`` steps of ``runtime/train.Trainer`` on ``cfg`` at
+    full width (seed-0 parameters drawn on the card, synthetic data, no
+    checkpoint), the launch counts zeroed just before and read just
+    after; then one more step under torch.profiler.  Returns the phase
+    record."""
+    import tempfile
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.models.blocks import tree_leaves
+    from repro_torch.runtime.train import Trainer, TrainerConfig
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    lines = []
+    with tempfile.TemporaryDirectory() as tmp:
+        trainer = Trainer(cfg, DataConfig(vocab_size=cfg.vocab_size,
+                                          seq_len=seq, global_batch=batch),
+                          TrainerConfig(total_steps=TRAIN_STEPS, ckpt_every=0,
+                                        accum_steps=accum, log_every=1,
+                                        ckpt_dir=tmp),
+                          log=lines.append, device=device)
+        trainer.init_state()
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        out = trainer.run(resume=False)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = counts()
+        prof = torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA])
+        with prof:
+            t0 = time.perf_counter()
+            trainer.step_fn(trainer.params, trainer.opt_state, trainer.err,
+                            trainer.pipeline.batch_at(TRAIN_STEPS))
+            torch.cuda.synchronize()
+            prof_ms = (time.perf_counter() - t0) * 1e3
+        n_params = sum(t.numel() for _, t in tree_leaves(trainer.params))
+        del trainer
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    torch.cuda.empty_cache()
+    losses = [h["loss"] for h in out["history"]]
+    dts = [h["dt"] for h in out["history"]]
+    step_s = sum(dts[1:]) / len(dts[1:])
+    flops = model_flops(cfg, batch, seq)
+    row = {"arch": cfg.name, "n_layers": cfg.n_layers,
+           "d_model": cfg.d_model, "compute_dtype": cfg.compute_dtype,
+           "remat": cfg.remat, "batch": batch, "seq": seq,
+           "accum_steps": accum, "steps": TRAIN_STEPS, "n_params": n_params,
+           "losses": losses, "step_s": dts, "wall_s": wall,
+           "ms_per_step": step_s * 1e3,
+           "tokens_per_s": batch * seq / step_s,
+           "model_flops_per_step": flops,
+           "mfu": flops / step_s / PEAK_FLOPS[torch.bfloat16],
+           "peak_gb": peak, "launches": launches,
+           "profile": profile_summary(prof, prof_ms, 1), "log": lines}
+    tr = row["profile"]
+    by_range = tr["range_device_ms_per_step"]
+    tr["backward_device_ms"] = tr["device_busy_ms"] - by_range.get(
+        "train_step.forward", 0.0) - by_range.get("train_step.adamw", 0.0)
+    log(f"[paths] {label}: {cfg.name} {batch} x {seq} tokens a step in "
+        f"{accum} microbatches, {TRAIN_STEPS} steps, losses {losses}, step "
+        f"s {dts}, {row['ms_per_step']:.1f} ms a step after the first, "
+        f"{row['tokens_per_s']:.1f} tok/s, mfu {row['mfu']:.4f} "
+        f"({flops / 1e12:.1f} model TFLOP a step at 989 TFLOP/s bf16), "
+        f"peak {peak:.1f} GB, launches {launches}; profiled step: wall "
+        f"{tr['wall_ms']:.1f} ms, device busy {tr['device_busy_ms']:.1f} "
+        f"ms, idle share {tr['device_idle_share']}, device ms by range "
+        f"{by_range} (backward, the rest: {tr['backward_device_ms']:.1f}), "
+        f"by kernel {tr['kernel_device_ms_per_step']}")
+    for key, ms, n in tr["top_device_ms"]:
+        log(f"[paths]   device {ms:10.3f} ms  {n:6d}x  {key[:90]}")
+    for key, ms, n in tr["top_host_ms"]:
+        log(f"[paths]   host   {ms:10.3f} ms  {n:6d}x  {key[:90]}")
+    if not all(np.isfinite(losses)) or len(losses) != TRAIN_STEPS:
+        fail(f"{label}: losses {losses}")
+    want = 2 * cfg.n_layers * accum * TRAIN_STEPS if device == "cuda" else 0
+    kind = {"flash_attention": "flash_attention_wgmma",
+            "ssd_scan": "ssd_scan_mma"}[kernel]
+    for name in (kernel, kind):
+        if launches[name] != want:
+            fail(f"{label}: {name} launched {launches[name]} times, not "
+                 f"{want} (2 a layer and microbatch)")
+    return row
+
+
+def train_cross(spec=TRAIN_CROSS):
+    """The smoke configs' ``Trainer`` in float32 (TF32 off) on the card
+    and on the CPU from one step-0 checkpoint: per-step losses within
+    ``TRAIN_CROSS_TOL``; then on the card a crash at ``fail_at`` and a
+    fresh ``Trainer`` resuming from the last checkpoint, whose final
+    loss must equal the uninterrupted card run's (``RESTART_RTOL``)."""
+    import shutil
+    import tempfile
+    from repro_torch.configs.base import get_config
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.runtime.train import (SimulatedFailure, Trainer,
+                                           TrainerConfig)
+    prev = torch.backends.cuda.matmul.allow_tf32, \
+        torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rows = []
+    try:
+        for arch in spec["archs"]:
+            cfg = get_config(arch, smoke=True).replace(
+                compute_dtype="float32")
+            dc = DataConfig(vocab_size=cfg.vocab_size, seq_len=spec["seq"],
+                            global_batch=spec["batch"])
+            with tempfile.TemporaryDirectory() as tmp:
+                def trainer(name, device, **kw):
+                    return Trainer(cfg, dc, TrainerConfig(
+                        total_steps=spec["steps"],
+                        ckpt_every=spec["ckpt_every"], keep=3,
+                        ckpt_dir=os.path.join(tmp, name), **kw),
+                        log=lambda *_: None, device=device)
+                start = trainer("start", "cpu")
+                start.init_state()
+                start.ckpt.save(0, start._state_tree(), meta={"loss": None})
+                start.ckpt.wait()
+                for name in ("cpu", "card", "ft"):
+                    shutil.copytree(os.path.join(tmp, "start"),
+                                    os.path.join(tmp, name))
+                cpu = trainer("cpu", "cpu").run()
+                torch.cuda.synchronize()
+                reset_counts()
+                card = trainer("card", "cuda").run()
+                torch.cuda.synchronize()
+                launches = counts()
+                crashed = False
+                try:
+                    trainer("ft", "cuda", fail_at_steps=(spec["fail_at"],)
+                            ).run()
+                except SimulatedFailure:
+                    crashed = True
+                resumed = trainer("ft", "cuda").run()
+            got = [h["loss"] for h in card["history"]]
+            want = [h["loss"] for h in cpu["history"]]
+            diff = max(abs(a - b) for a, b in zip(got, want))
+            restart = abs(resumed["final_loss"] - card["final_loss"])
+            kernel = "ssd_scan_simt" if cfg.family == "ssm" \
+                else "flash_attention_simt"      # float32: the FMA variants
+            n_launch = 2 * cfg.n_layers * spec["steps"]
+            ok = (diff <= TRAIN_CROSS_TOL and crashed
+                  and restart <= RESTART_RTOL * abs(card["final_loss"])
+                  and [h["step"] for h in resumed["history"]]
+                  == list(range(spec["ckpt_every"], spec["steps"]))
+                  and launches[kernel] == n_launch)
+            log(f"[paths] train_cross {arch}: {spec['steps']} steps of "
+                f"{spec['batch']} x {spec['seq']}, losses on the card "
+                f"{got}, max abs diff from the CPU {diff!r} (limit "
+                f"{TRAIN_CROSS_TOL}); crash at step {spec['fail_at']} "
+                f"{crashed}, resumed steps "
+                f"{[h['step'] for h in resumed['history']]}, final loss "
+                f"{resumed['final_loss']!r} vs uninterrupted "
+                f"{card['final_loss']!r} (abs diff {restart!r}, rtol "
+                f"{RESTART_RTOL}); {kernel} launched {launches[kernel]} "
+                f"(want {n_launch})")
+            if not ok:
+                fail(f"train_cross {arch}: loss diff {diff}, crashed "
+                     f"{crashed}, restart diff {restart}, launches "
+                     f"{launches}")
+            rows.append({"arch": arch, "card_losses": got,
+                         "cpu_losses": want, "max_abs_diff": diff,
+                         "restart_final_loss": resumed["final_loss"],
+                         "final_loss": card["final_loss"],
+                         "restart_abs_diff": restart, "launches": launches})
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = prev
+    return rows
+
+
+def run_train(phases=TRAIN):
+    """Every train phase at full width, each state freed before the next
+    is drawn; then the smoke-config cross and restart check."""
+    from repro_torch.configs.base import get_config
+    out = {}
+    for label, arch, batch, seq, accum, kernel in phases:
+        out[label] = train_phase(label, get_config(arch), batch, seq, accum,
+                                 kernel)
+    points = train_cross()
+    out["train_cross"] = {"points": points, "launches": {
         name: sum(r["launches"][name] for r in points) for name in counts()}}
     return out
 
@@ -1375,10 +1642,7 @@ def ssd_bound(x, B_, chunk, y_dtype):
     n_bytes = (x.numel() * x.element_size() + 2 * B_.numel()
                * B_.element_size() + 2 * b * s * h * 4 + x.numel() * es
                + b * h * n * p * 4)
-    lens = [min(chunk, s - c0) for c0 in range(0, s, chunk)]
-    ops = sum(b * ln * (ln + 1) * n + b * h * (ln * (ln + 1) * p
-                                              + 4 * ln * n * p)
-              for ln in lens)
+    ops = ssd_ops(b, s, h, p, n, chunk)
     return bound(n_bytes, ops, x.dtype), ops
 
 
@@ -1524,6 +1788,138 @@ def run_prefill_kernels(rec, paths, device="cuda"):
     return rows
 
 
+def grads_of(fn, ins, dout):
+    """``(gradients of fn(*ins)[0] for dout, backward ms)``: the graph is
+    built once, its backward timed over repeated calls (retain_graph)."""
+    ins = [t.detach().clone().requires_grad_() for t in ins]
+    out = fn(*ins)
+    out = out[0] if isinstance(out, tuple) else out
+    grads = torch.autograd.grad(out, ins, dout, retain_graph=True)
+    big = out.numel() > 1 << 22
+
+    def backward():
+        return torch.autograd.grad(out, ins, dout, retain_graph=True)
+    return grads, backward, big
+
+
+def check_backward(name, kernel, ins, grad_names, fn, plain, dout, tol,
+                   work, library=None):
+    """The autograd Function's gradients (``fn``: forward through the
+    wrapper, backward plain PyTorch) against torch.autograd of the plain
+    version (``plain``), each within ``tol`` times its max abs; the
+    Function's backward timed, and the plain version's, and ``library``'s
+    where given.  ``work = (bytes, operations, dtype)`` of the backward."""
+    got, backward, big = grads_of(fn, ins, dout)
+    want, plain_backward, _ = grads_of(plain, ins, dout)
+    errs = {g: float((a.float() - b.float()).abs().max())
+            for g, a, b in zip(grad_names, got, want)}
+    limits = {g: tol * float(b.float().abs().max())
+              for g, b in zip(grad_names, want)}
+    ok = all(errs[g] <= limits[g] for g in grad_names)
+    del got, want
+    ms = cuda_ms(backward, 3 if big else 10)
+    plain_ms = timed_once(plain_backward)[1] if kernel == "ssd_scan" \
+        else cuda_ms(plain_backward, 3 if big else 10)
+    del backward, plain_backward
+    bound_ms, bound_by, bytes_ms = bound(*work)
+    row = {"kernel": f"{kernel}_backward", "phase": name,
+           "shape": [list(t.shape) for t in ins],
+           "dtype": str(ins[0].dtype).split(".")[-1], "flops": work[1],
+           "tflops": work[1] / ms / 1e9, "bound_share": bound_ms / ms,
+           "max_abs_err": max(errs.values()), "grad_max_abs_err": errs,
+           "grad_limits": limits, "tol": f"{tol} x each gradient's max abs",
+           "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+           "bound_by": bound_by, "bytes_bound_ms": bytes_ms,
+           "library_ms": library() if library else None, "ok": ok}
+    torch.cuda.empty_cache()
+    log(f"[kernels] {json.dumps(row)}")
+    if not ok:
+        fail(f"{kernel} backward {name}: errors {errs}, limits {limits}")
+    return row
+
+
+def attention_backward_row(name, q, k, v, causal, window):
+    """``ops.flash_attention``'s backward (``ref.mha_backward``) against
+    autograd of ``ref.mha_reference`` at a captured layer, dO from a
+    seed; SDPA's backward beside it."""
+    from repro_torch.kernels import ops, ref
+    gen = torch.Generator(device=q.device).manual_seed(0)
+    dout = torch.randn(q.shape, generator=gen, device=q.device).to(q.dtype)
+    b, sq, h, d = q.shape
+    pairs = attn_pairs(sq, k.shape[1], causal, window)
+    # q, k, v, out, dO read once, dq, dk, dv written once; the five
+    # products (q Kᵀ again, dV, dP, dQ, dK) over the kept pairs
+    work = (4 * q.numel() * q.element_size()
+            + 4 * k.numel() * k.element_size(), 10 * d * b * h * pairs,
+            q.dtype)
+
+    def library():
+        qt, kt, vt = (t.detach().transpose(1, 2).requires_grad_()
+                      for t in (q, k, v))
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        if window:
+            rep = h // k.shape[2]
+            qpos = torch.arange(sq, device=q.device)[:, None]
+            kpos = torch.arange(k.shape[1], device=q.device)[None, :]
+            mask = (kpos > qpos - window) & (kpos <= qpos)
+            out = sdpa(qt, kt.repeat_interleave(rep, 1),
+                       vt.repeat_interleave(rep, 1), attn_mask=mask)
+        else:
+            out = sdpa(qt, kt, vt, is_causal=causal, enable_gqa=True)
+        dt = dout.transpose(1, 2)
+        return cuda_ms(lambda: torch.autograd.grad(
+            out, (qt, kt, vt), dt, retain_graph=True), 3)
+
+    return check_backward(
+        name, "flash_attention", (q, k, v), ("dq", "dk", "dv"),
+        lambda *t: ops.flash_attention(*t, causal=causal, window=window),
+        lambda *t: ref.mha_reference(*t, causal=causal, window=window),
+        dout, ATTN_TOL[q.dtype], work, library)
+
+
+def ssd_backward_row(name, args, chunk, y_dtype):
+    """``ops.ssd_scan``'s backward (``ref.ssd_backward``: the chunked
+    plain scan recomputed and differentiated) against autograd of the
+    exact recurrence ``ref.ssd_reference`` at a captured layer, dy from a
+    seed."""
+    from repro_torch.kernels import ops, ref
+    x, B_ = args[0], args[3]
+    gen = torch.Generator(device=x.device).manual_seed(0)
+    dy = torch.randn(x.shape, generator=gen, device=x.device).to(y_dtype)
+    b, s, h, p = x.shape
+    n = B_.shape[-1]
+    es = torch.finfo(y_dtype).bits // 8
+    # inputs and dy read once, the five gradients written once; the
+    # forward's products again and two more for each (3 x the forward)
+    n_bytes = 2 * (x.numel() * x.element_size() + 2 * B_.numel()
+                   * B_.element_size() + 2 * b * s * h * 4) \
+        + x.numel() * es
+    work = (n_bytes, 3 * ssd_ops(b, s, h, p, n, chunk), x.dtype)
+    return check_backward(
+        name, "ssd_scan", args, ("dx", "ddt", "da", "dB", "dC"),
+        lambda *t: ops.ssd_scan(*t, chunk=chunk, y_dtype=y_dtype),
+        lambda *t: ref.ssd_reference(*t), dy, SSD_TOL[x.dtype], work)
+
+
+def run_train_kernels(prefill_rec, specs=TRAIN_BACKWARD):
+    """The backward rows: each Function's backward at a train path's
+    layer, from the prefill phases' captured layer inputs in bf16 (the
+    dtype the train phases run), the batch cut to ``rows``."""
+    rows = []
+    for name, phase, layer, keep in specs:
+        for (ph, kernel, lay), (tensors, kw) in prefill_rec.inputs.items():
+            if (ph, lay) != (phase, layer):
+                continue
+            tensors = [t[:keep] for t in tensors]
+            if kernel == "flash_attention":
+                rows.append(attention_backward_row(
+                    name, *tensors, kw["causal"], kw["window"]))
+            else:
+                rows.append(ssd_backward_row(name, tensors, kw["chunk"],
+                                             kw["y_dtype"]))
+    return rows
+
+
 def kernels_line(rows, paths):
     """One entry per kernel: launches summed over the path phases, the
     worst error of any comparison, and the times of its largest
@@ -1597,8 +1993,10 @@ def main() -> int:
     paths = run_paths(rec)
     paths.update(run_serve(decode_rec))
     paths.update(run_prefill(prefill_rec))
+    paths.update(run_train())
     rows = run_kernels(rec, paths) + run_decode_kernels(decode_rec, paths) \
-        + run_prefill_kernels(prefill_rec, paths)
+        + run_prefill_kernels(prefill_rec, paths) \
+        + run_train_kernels(prefill_rec)
     line = kernels_line(rows, paths)
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
 

@@ -116,3 +116,25 @@ def flash_attention(q, k, v, *, causal=True, window=0):
     LAUNCHES["flash_attention"] += 1
     LAUNCHES[f"flash_attention_{kind}"] += 1
     return out
+
+
+class FlashAttention(torch.autograd.Function):
+    """``flash_attention`` with a gradient.  The forward is the wrapper's
+    call as it stands (the kernel on the card, ``ref.mha_reference`` on
+    the CPU), and under ``torch.no_grad()`` nothing else runs.  The
+    backward is ``ref.mha_backward`` from the saved q, k, v and output:
+    plain PyTorch over blocks of query rows, because the TPU kernel has
+    no backward to port (a kernel for it is ROADMAP queue 2 item 3)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window):
+        out = flash_attention(q, k, v, causal=causal, window=window)
+        ctx.save_for_backward(q, k, v, out)
+        ctx.causal, ctx.window = causal, window
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out = ctx.saved_tensors
+        return (*ref.mha_backward(q, k, v, out, dout, causal=ctx.causal,
+                                  window=ctx.window), None, None)

@@ -6,7 +6,10 @@ wrappers pad ragged sequences to a multiple of the Pallas block (KV for
 ``ssd_scan``); the Hopper kernels mask their ragged tiles themselves, so
 here nothing is padded, and the tile sizes and interpret mode are not
 arguments (each kernel has its own tile, and a CUDA kernel has no
-interpret mode: a CPU tensor takes the plain version).
+interpret mode: a CPU tensor takes the plain version).  ``flash_attention``
+and ``ssd_scan`` go through their autograd Functions, so a loss
+differentiates through them; under ``torch.no_grad()`` each is the
+wrapper's call alone.
 """
 from __future__ import annotations
 
@@ -20,8 +23,8 @@ from repro_torch.kernels import ssd_scan as ssd
 def flash_attention(q, k, v, *, causal=True, window=0):
     """Flash attention.  q (B, Sq, H, D); k, v (B, Skv, KVH, D) ->
     (B, Sq, H, D) in q's dtype — see ``kernels/flash_attention.py``."""
-    return fa.flash_attention(q.contiguous(), k.contiguous(),
-                              v.contiguous(), causal=causal, window=window)
+    return fa.FlashAttention.apply(q.contiguous(), k.contiguous(),
+                                   v.contiguous(), causal, window)
 
 
 def flash_decode(q, k, v, kv_len):
@@ -38,6 +41,7 @@ def ssd_scan(x, dt, a, B_, C_, *, chunk=128, y_dtype=None):
     (at least 16), as the reference caps it; ``y_dtype`` (x's by
     default) is the output's dtype."""
     chunk = min(chunk, max(x.shape[1], 16))
-    return ssd.ssd_scan(x.contiguous(), dt.float().contiguous(),
-                        a.float().contiguous(), B_.contiguous(),
-                        C_.contiguous(), chunk=chunk, y_dtype=y_dtype)
+    return ssd.SSDScan.apply(x.contiguous(), dt.float().contiguous(),
+                             a.float().contiguous(), B_.contiguous(),
+                             C_.contiguous(), chunk,
+                             x.dtype if y_dtype is None else y_dtype)

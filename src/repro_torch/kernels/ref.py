@@ -12,6 +12,13 @@ device: the wrappers in
 ``kernels/maxmin.py`` and ``kernels/ops.py`` take them for CPU tensors,
 and ``chip_smoke.py`` holds the CUDA kernels against them on the card.
 
+The gradients of the two prefill functions, which no TPU kernel has:
+``mha_backward`` (blocked, from the forward's output, as a flash
+backward computes them) and ``ssd_backward`` (autograd of
+``ssd_chunked``, the reference's plain chunked scan).  The autograd
+Functions of ``kernels/flash_attention.py`` and ``kernels/ssd_scan.py``
+run them on either device.
+
 The max-min functions take one lane — ``flow_links`` (F, H) — or a
 batch of lanes — (B, F, H), the reference's vmap axis written out.  Link
 ids index the last axis of the capacity vector, (L+1,) shared by every
@@ -23,6 +30,7 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.nn.functional as F
 
 
 def _batched(flow_links, *vecs):
@@ -240,3 +248,123 @@ def ssd_reference(x, dt, a, B_, C_):
             "bn,bh,bhp->bhnp", B_[:, t], dt[:, t], x[:, t])
         y[:, t] = torch.einsum("bn,bhnp->bhp", C_[:, t], state)
     return y, state
+
+
+def key_band(q0, n, skv, *, causal, window):
+    """The keys ``[lo, hi)`` that query rows ``q0 .. q0 + n - 1`` may see
+    under the mask: every other key's probability is exactly 0.  A band
+    with no key (rows past the last key and its window; no path has
+    them) is the whole key range, where ``mha_reference`` spreads such a
+    row evenly."""
+    hi = min(skv, q0 + n) if causal else skv
+    lo = max(0, q0 - window + 1) if window else 0
+    return (lo, hi) if lo < hi else (0, skv)
+
+
+def mha_backward(q, k, v, out, dout, *, causal, window=0):
+    """``(dq, dk, dv)`` of ``mha_reference`` at ``out`` (its result, or
+    the kernel's) for the output gradient ``dout``.
+
+    Query rows go in blocks of ``MHA_BLOCK_Q`` against the keys of their
+    band (``key_band``).  Each block recomputes its masked probabilities
+    P in f32 from q and k (the forward keeps no log-sum-exp), then
+    dV += Pᵀ dO, dP = dO Vᵀ, dS = P ∘ (dP − rowsum(dO ∘ O)) / √D,
+    dQ = dS K and dK += dSᵀ Q, each kv head summing its ``rep`` q heads.
+    Memory stays at one block's logits, where autograd through
+    ``mha_reference`` would keep B·H·S² f32 a layer (8.6 GB at granite's
+    4 x 4096).  Gradients come back in the inputs' dtypes.
+    """
+    b, sq, h, d = q.shape
+    skv, kvh = k.shape[1], k.shape[2]
+    rep = h // kvh
+    acc = torch.promote_types(q.dtype, torch.float32)
+    scale = 1.0 / math.sqrt(d)
+    kf, vf = k.to(acc), v.to(acc)
+    dk = torch.zeros(kf.shape, dtype=acc, device=q.device)
+    dv = torch.zeros(vf.shape, dtype=acc, device=q.device)
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    for q0 in range(0, sq, MHA_BLOCK_Q):
+        n = min(MHA_BLOCK_Q, sq - q0)
+        lo, hi = key_band(q0, n, skv, causal=causal, window=window)
+        kb, vb = kf[:, lo:hi], vf[:, lo:hi]
+        qg, og, dog = (t[:, q0:q0 + n].reshape(b, n, kvh, rep, d).to(acc)
+                       for t in (q, out, dout))
+        logits = torch.einsum("bqkrd,bskd->bkrqs", qg, kb) / math.sqrt(d)
+        qpos = torch.arange(q0, q0 + n, device=q.device)[:, None]
+        kpos = torch.arange(lo, hi, device=q.device)[None, :]
+        mask = torch.ones((n, hi - lo), dtype=torch.bool, device=q.device)
+        if causal:
+            mask &= kpos <= qpos
+        if window:
+            mask &= kpos > qpos - window
+        p = torch.softmax(logits.masked_fill_(~mask, NEG_INF), dim=-1)
+        del logits
+        dv[:, lo:hi] += torch.einsum("bkrqs,bqkrd->bskd", p, dog)
+        delta = (dog * og).sum(-1).permute(0, 2, 3, 1)[..., None]
+        ds = torch.einsum("bqkrd,bskd->bkrqs", dog, vb)
+        ds.sub_(delta).mul_(p).mul_(scale)
+        del p
+        dq[:, q0:q0 + n] = torch.einsum("bkrqs,bskd->bqkrd", ds, kb) \
+            .reshape(b, n, h, d).to(q.dtype)
+        dk[:, lo:hi] += torch.einsum("bkrqs,bqkrd->bskd", ds, qg)
+    return dq, dk.to(k.dtype), dv.to(v.dtype)
+
+
+def ssd_chunked(x, dt, a, B_, C_, chunk):
+    """Plain chunked SSD scan (the reference's ``models/ssm.ssd_chunked``).
+    x (B, S, H, P); dt, a (B, S, H); B_, C_ (B, S, N).  Returns y and the
+    final state (B, H, N, P), all f32; a chunk that does not divide S
+    becomes S, as in the reference.  The reference's three-operand
+    einsums are written as products of two, in the order that never
+    forms a (B, chunks, L, L, H, P) tensor."""
+    b, s, h, p = x.shape
+    n = B_.shape[-1]
+    if s % chunk != 0:
+        chunk = s
+    nc = s // chunk
+    xc = x.reshape(b, nc, chunk, h, p).float()
+    dtc = dt.reshape(b, nc, chunk, h).float()
+    ac = a.reshape(b, nc, chunk, h).float()
+    Bc = B_.reshape(b, nc, chunk, n).float()
+    Cc = C_.reshape(b, nc, chunk, n).float()
+    xdt = xc * dtc[..., None]
+    cum = torch.cumsum(ac, dim=2)                          # (b,nc,q,h)
+    diff = cum[:, :, :, None, :] - cum[:, :, None, :, :]   # (b,nc,q,k,h)
+    tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
+                                device=x.device))
+    # masked before the exp (the reference masks after it): the same L,
+    # but the masked cum_q - cum_k > 0 above the diagonal, which overflow
+    # to inf over a long chunk, no longer turn its gradient into inf * 0
+    L = torch.exp(torch.where(tri[None, None, :, :, None], diff, -math.inf))
+    scores = torch.einsum("bcqn,bckn->bcqk", Cc, Bc)
+    y_diag = torch.einsum("bcqkh,bckhp->bcqhp", scores[..., None] * L, xdt)
+    decay_states = torch.exp(cum[:, :, -1:, :] - cum)      # (b,nc,q,h)
+    chunk_states = torch.einsum("bcqn,bcqhp->bchnp", Bc,
+                                (decay_states * dtc)[..., None] * xc)
+    chunk_decay = torch.exp(cum[:, :, -1, :])              # (b,nc,h)
+    state = torch.zeros((b, h, n, p), dtype=torch.float32, device=x.device)
+    prevs = []
+    for c in range(nc):                                    # state BEFORE c
+        prevs.append(state)
+        state = state * chunk_decay[:, c, :, None, None] + chunk_states[:, c]
+    s_prevs = torch.stack(prevs, dim=1)                    # (b,nc,h,n,p)
+    y_off = torch.einsum("bcqn,bchnp->bcqhp", Cc, s_prevs) \
+        * torch.exp(cum)[..., None]
+    return (y_diag + y_off).reshape(b, s, h, p), state
+
+
+def ssd_backward(x, dt, a, B_, C_, dy, chunk):
+    """``(dx, ddt, da, dB, dC)`` of the scan's y for the gradient ``dy``:
+    ``ssd_chunked`` recomputed from the inputs under autograd, at
+    ``chunk`` (the sequence padded to a multiple of it with x = dt = a =
+    B = C = 0, which leaves every real position's y as it is), then
+    ``torch.autograd.grad``.  Never the sequential ``ssd_reference``,
+    which would take S Python steps a layer.  Gradients come back in the
+    inputs' dtypes; the final state gets none."""
+    s = x.shape[1]
+    pad = -s % chunk
+    with torch.enable_grad():
+        ins = [t.detach().requires_grad_() for t in (x, dt, a, B_, C_)]
+        y, _ = ssd_chunked(*(F.pad(t, (0, 0) * (t.dim() - 2) + (0, pad))
+                             for t in ins), chunk)
+        return torch.autograd.grad(y[:, :s], ins, dy.to(y.dtype))

@@ -10,8 +10,10 @@ chunk-parallel variant on tensor cores (three kernels: the chunks' own
 states, the carry across chunks, the outputs), f32 x the FMA variant
 (one kernel); either way one call counts one launch in
 ``LAUNCHES["ssd_scan"]`` and in its variant's count.  The kernels mask
-the ragged last chunk, so nothing is padded.  The public entry with the
-reference's name is ``kernels/ops.py:ssd_scan``.
+the ragged last chunk, so nothing is padded.  ``SSDScan`` gives y a
+gradient (plain PyTorch: the TPU kernel has no backward).  The public
+entry with the reference's name, ``kernels/ops.py:ssd_scan``, goes
+through it.
 """
 from __future__ import annotations
 
@@ -132,3 +134,27 @@ def ssd_scan(x, dt, a, B_, C_, *, chunk=128, y_dtype=None):
     LAUNCHES["ssd_scan"] += 1
     LAUNCHES[f"ssd_scan_{kind}"] += 1
     return y, state
+
+
+class SSDScan(torch.autograd.Function):
+    """``ssd_scan`` with a gradient for y.  The forward is the wrapper's
+    call as it stands (the kernels on the card, ``ref.ssd_reference`` on
+    the CPU), and under ``torch.no_grad()`` nothing else runs.  The
+    backward is ``ref.ssd_backward``: the plain chunked scan recomputed
+    from the saved inputs at the forward's chunk and differentiated by
+    autograd, because the TPU kernel has no backward to port (a kernel
+    for it is ROADMAP queue 2 item 3).  The final state, which decode
+    would carry on, gets no gradient."""
+
+    @staticmethod
+    def forward(ctx, x, dt, a, B_, C_, chunk, y_dtype):
+        y, state = ssd_scan(x, dt, a, B_, C_, chunk=chunk, y_dtype=y_dtype)
+        ctx.save_for_backward(x, dt, a, B_, C_)
+        ctx.chunk = chunk
+        ctx.mark_non_differentiable(state)
+        return y, state
+
+    @staticmethod
+    def backward(ctx, dy, _dstate):
+        return (*ref.ssd_backward(*ctx.saved_tensors, dy, ctx.chunk), None,
+                None)

@@ -1,14 +1,23 @@
-"""Step functions of the port: prefill.
+"""Step functions of the port: train and prefill.
 
-The port of the reference package's ``launch/steps.py``, prefill half.
-``make_prefill_step(cfg)`` returns ``prefill_step(params, batch)``,
-which runs ``models.model.forward_hidden`` over the whole prompt — every
-attention layer on the flash-attention kernel, every Mamba-2 layer on
-the SSD-scan kernel, when the parameters are on the card — and gives
-only the last position's logits, which is what serving needs to start
-decoding (a (B, S, V) logits buffer would be pointless).  The train and
-serve steps, the abstract input specs and the dry-run lowering belong
-to later slices (ROADMAP queue 1).
+The port of the reference package's ``launch/steps.py`` on one device.
+
+- ``make_train_step(cfg, opt_cfg, accum_steps)`` returns
+  ``train_step(params, opt_state, batch)``: the gradient of
+  ``models.model.loss_fn`` summed in float32 over ``accum_steps``
+  microbatches and divided by their number, then one AdamW step
+  (``optim/adamw.apply``), as the reference's.  Every attention layer
+  runs the flash-attention kernel forward and every Mamba-2 layer the
+  SSD-scan kernel (twice where the block is rematerialised), their
+  backwards plain PyTorch (``kernels/ref.py``).
+- ``make_prefill_step(cfg)`` returns ``prefill_step(params, batch)``,
+  which runs ``forward_hidden`` over the whole prompt under
+  ``torch.no_grad()`` and gives only the last position's logits, which
+  is what serving needs to start decoding (a (B, S, V) logits buffer
+  would be pointless).
+
+The serve step, the abstract input specs and the dry-run lowering belong
+to later slices (ROADMAP queue 1 item 8).
 """
 from __future__ import annotations
 
@@ -17,6 +26,8 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import model as mdl
+from repro_torch.models.blocks import tree_map, tree_map2
+from repro_torch.optim import adamw
 
 #: the reference's (arch x shape) cells, as data: sequence, batch and
 #: step kind of each
@@ -46,3 +57,86 @@ def make_prefill_step(cfg: ArchConfig, *, device="cuda"):
         return logits.float()
 
     return prefill_step
+
+
+def _leaf(p, g):
+    t = p.detach().requires_grad_()
+    t.grad = g
+    return t
+
+
+def grad_leaves(params, grads, n_blocks):
+    """A tree like ``params`` whose tensors are autograd leaves sharing
+    the parameters' storage, each with its ``.grad`` set to the matching
+    slice of ``grads``, so that a ``backward()`` ADDS the gradient there.
+    The stacked ``blocks`` become a list of per-layer trees whose leaves
+    are the layers' slices: autograd through ``a[i]`` of a stacked
+    parameter would give every layer a full-size (n_blocks, ...) zero
+    tensor to add."""
+    tree = {k: tree_map2(_leaf, v, grads[k]) for k, v in params.items()
+            if k != "blocks"}
+    tree["blocks"] = [tree_map2(lambda p, g: _leaf(p[i], g[i]),
+                                params["blocks"], grads["blocks"])
+                      for i in range(n_blocks)]
+    return tree
+
+
+def accumulate_grads(params, batch, cfg, grads, *, device="cuda"):
+    """``loss_fn(params, batch)``'s metrics, its gradient added into
+    ``grads`` (float32 tensors shaped like ``params``).  The forward is
+    the profiler range ``train_step.forward``; the backward (remat
+    recompute included) runs on autograd's device thread, outside any
+    range opened here."""
+    with torch.profiler.record_function("train_step.forward"):
+        total, metrics = mdl.loss_fn(grad_leaves(params, grads,
+                                                 cfg.n_blocks),
+                                     batch, cfg, device=device)
+    total.backward()
+    return metrics
+
+
+def make_train_step(cfg: ArchConfig, opt_cfg=None, accum_steps: int = 1, *,
+                    device="cuda"):
+    """``train_step(params, opt_state, batch) -> (params, opt_state,
+    metrics)``.  ``params`` is ``Model.params`` (or any tree of float32
+    tensors in its layout) on ``device`` (``cuda`` by default, which
+    needs a card), ``opt_state`` ``adamw.init(params)``; ``batch`` holds
+    ``tokens``, ``targets`` and ``loss_mask`` (B, S) arrays or tensors,
+    B a multiple of ``accum_steps``.  Microbatch i takes rows
+    ``i * B / accum_steps`` onward, as the reference's reshape does.
+    Parameters and moments are updated in place and returned (at
+    granite_3_2b's width each is 10.5 GB); metrics are ``loss``,
+    ``aux_loss``, ``perplexity`` (over the microbatches' mean loss),
+    ``grad_norm`` and ``lr``."""
+    dev = resolve_device(device)
+    mdl.check_forward_supported(cfg)
+    opt_cfg = opt_cfg or adamw.AdamWConfig()
+
+    def train_step(params, opt_state, batch):
+        b = len(batch["tokens"])
+        if b % accum_steps:
+            raise ValueError(f"batch {b} is not a multiple of "
+                             f"accum_steps {accum_steps}")
+        mb = b // accum_steps
+        grads = tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32),
+                         params)
+        if accum_steps <= 1:
+            metrics = accumulate_grads(params, batch, cfg, grads, device=dev)
+        else:
+            lsum = asum = torch.zeros((), dtype=torch.float32, device=dev)
+            for i in range(accum_steps):
+                m = accumulate_grads(
+                    params, {k: v[i * mb:(i + 1) * mb]
+                             for k, v in batch.items()}, cfg, grads,
+                    device=dev)
+                lsum, asum = lsum + m["loss"], asum + m["aux_loss"]
+            tree_map(lambda g: g.div_(accum_steps), grads)
+            loss = lsum / accum_steps
+            metrics = {"loss": loss, "aux_loss": asum / accum_steps,
+                       "perplexity": torch.exp(torch.clamp(loss, max=20.0))}
+        with torch.profiler.record_function("train_step.adamw"):
+            params, opt_state, opt_metrics = adamw.apply(opt_cfg, params,
+                                                         opt_state, grads)
+        return params, opt_state, {**metrics, **opt_metrics}
+
+    return train_step

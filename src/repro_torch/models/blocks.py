@@ -30,10 +30,13 @@ class ParamDef:
 
 def tree_leaves(tree, prefix: str = ""):
     """``(dotted name, leaf)`` pairs of a nested dict, keys sorted at every
-    level (the reference's pytree order)."""
+    level (the reference's pytree order); a list's items in order."""
     if isinstance(tree, dict):
         for key in sorted(tree):
             yield from tree_leaves(tree[key], f"{prefix}{key}.")
+    elif isinstance(tree, list):
+        for i, item in enumerate(tree):
+            yield from tree_leaves(item, f"{prefix}{i}.")
     else:
         yield prefix[:-1], tree
 
@@ -42,6 +45,14 @@ def tree_map(fn, tree):
     if isinstance(tree, dict):
         return {k: tree_map(fn, v) for k, v in tree.items()}
     return fn(tree)
+
+
+def tree_map2(fn, tree, other):
+    """``fn(leaf, other_leaf)`` over two nested dicts shaped alike (kept
+    apart from ``tree_map``, which the decode step calls per layer)."""
+    if isinstance(tree, dict):
+        return {k: tree_map2(fn, v, other[k]) for k, v in tree.items()}
+    return fn(tree, other)
 
 
 def init_params(defs, generator: torch.Generator):

@@ -1,14 +1,18 @@
-"""The LM's decode path and its forward (prefill) half.
+"""The LM: its decode path, its forward (prefill) and its loss.
 
 The port of the reference package's ``models/model.py`` on one device:
 parameter definitions for every architecture (so parameter counts agree
 with the reference), the ``Model`` module holding them, the stacked KV
-caches and ``decode_forward``; and ``forward_hidden`` / ``forward`` over
-a whole sequence.  Every attention layer of a decode step runs
+caches and ``decode_forward``; ``forward_hidden`` / ``forward`` over a
+whole sequence; and ``chunked_xent`` / ``loss_fn``, which the train step
+differentiates.  Every attention layer of a decode step runs
 ``models/attention.decode_attention`` (the flash-decode kernel on the
 card); every attention layer of a forward runs ``attention.attention``
 (the flash-attention kernel) and every Mamba-2 layer
-``models/ssm.ssm_apply`` (the SSD-scan kernel).
+``models/ssm.ssm_apply`` (the SSD-scan kernel), both differentiable
+(``kernels/ops.py``).  Decode and prefill run under ``torch.no_grad()``
+(``decode_forward``, ``forward``, ``launch/steps.make_prefill_step``);
+``forward_hidden`` and the loss keep gradients when the caller does.
 
 Parameters keep the reference's names and layouts (``wq`` is (d, h, hd),
 blocks are stacked on a leading ``n_blocks`` axis), so carrying weights
@@ -33,6 +37,7 @@ from typing import Any
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
@@ -167,28 +172,34 @@ class Model(nn.Module):
     reference's ``params["blocks"]["sub0"]["mixer"]["wq"]``, shape
     (n_blocks, d, h, hd).  Float32 weights are drawn on ``device`` from a
     ``torch.Generator`` seeded with ``seed`` (``blocks.init_params``).
-    Inference only: no parameter requires a gradient.
+
+    For inference (the default) no parameter requires a gradient.  With
+    ``trainable=True`` every one does, and ``loss_fn(model.params, ...)``
+    followed by ``backward()`` fills each one's ``.grad``.  The train
+    step (``launch/steps.make_train_step``) takes ``model.params`` either
+    way: it differentiates leaves of its own that share their storage.
     """
 
-    def __init__(self, cfg: ArchConfig, *, seed: int = 0, device="cuda"):
+    def __init__(self, cfg: ArchConfig, *, seed: int = 0, device="cuda",
+                 trainable: bool = False):
         super().__init__()
         dev = resolve_device(device)
         self.cfg = cfg
         gen = torch.Generator(device=dev).manual_seed(seed)
-        _register(self, init_params(model_defs(cfg), gen))
+        _register(self, init_params(model_defs(cfg), gen), trainable)
         #: the parameters as the reference's nested dict (same tensors)
         self.params = unflatten(dict(self.named_parameters()))
 
 
-def _register(module: nn.Module, tree: dict) -> None:
+def _register(module: nn.Module, tree: dict, trainable: bool) -> None:
     for key, val in tree.items():
         if isinstance(val, dict):
             child = nn.Module()
-            _register(child, val)
+            _register(child, val, trainable)
             module.add_module(key, child)
         else:
             module.register_parameter(
-                key, nn.Parameter(val, requires_grad=False))
+                key, nn.Parameter(val, requires_grad=trainable))
 
 
 # ================================================================ decode
@@ -366,15 +377,47 @@ def sublayer_apply(sub, x, mixer, ffn, cfg, positions, *, causal=True):
     return ffn_apply(sub.get("ffn"), x, ffn, cfg)
 
 
+def block_layers(blocks, n_blocks):
+    """One parameter tree per block: views ``a[i]`` of the stacked tree,
+    or, where ``blocks`` is already a list of per-block trees (the train
+    step's leaves, one per layer, so that each layer's gradient lands in
+    its own slice instead of a full-size (n_blocks, ...) tensor a layer),
+    that list."""
+    if isinstance(blocks, list):
+        return blocks
+    return [tree_map(lambda a: a[i], blocks) for i in range(n_blocks)]
+
+
+def _block(bp, x, cfg, positions, causal):
+    for j, (mixer, ffn) in enumerate(cfg.pattern):
+        x = sublayer_apply(bp[f"sub{j}"], x, mixer, ffn, cfg, positions,
+                           causal=causal)
+    return x
+
+
 def run_blocks(blocks, x, cfg, positions, *, causal=True):
     """The stacked blocks over a whole sequence, a Python loop in place
-    of the reference's scan (no remat: nothing keeps gradients).
-    Returns ``(x, aux)``; aux, the MoE router loss, is 0 here."""
-    for i in range(cfg.n_blocks):
-        bp = tree_map(lambda a: a[i], blocks)
-        for j, (mixer, ffn) in enumerate(cfg.pattern):
-            x = sublayer_apply(bp[f"sub{j}"], x, mixer, ffn, cfg, positions,
-                               causal=causal)
+    of the reference's scan.  Returns ``(x, aux)``; aux, the MoE router
+    loss, is 0 here.
+
+    Where gradients are kept and ``cfg.remat != "none"``, each block runs
+    under ``torch.utils.checkpoint`` (non-reentrant), the reference's
+    ``_remat``: only its input is kept, and its forward (the kernel of
+    its mixer included) runs again in the backward.  Granite's ``"dots"``
+    policy, which would keep the outputs of the block's products, is
+    taken as a whole-block checkpoint too: at 2 x 4096 tokens those bf16
+    outputs (q, k, v, the output projection, the MLP's three) hold 0.39
+    GB a layer, 15.5 GB over 40 layers beside a 42 GB train state, and
+    recomputing them costs one more forward of the block's products.
+    Neither choice changes a number.
+    """
+    remat = cfg.remat != "none" and torch.is_grad_enabled()
+    for bp in block_layers(blocks, cfg.n_blocks):
+        if remat:
+            x = checkpoint(_block, bp, x, cfg, positions, causal,
+                           use_reentrant=False, preserve_rng_state=False)
+        else:
+            x = _block(bp, x, cfg, positions, causal)
     return x, 0.0
 
 
@@ -384,11 +427,12 @@ def build_inputs(params, batch, cfg):
                         cfg, getattr(torch, cfg.compute_dtype))
 
 
-@torch.no_grad()
 def forward_hidden(params, batch, cfg, *, device="cuda"):
     """Forward up to the final norm: ``(hidden (B, S, D) in the compute
-    dtype, aux)``.  ``params`` is ``Model.params`` on ``device``;
-    ``batch["tokens"]`` (B, S) integers."""
+    dtype, aux)``.  ``params`` is ``Model.params`` on ``device`` (or the
+    train step's tree of leaves); ``batch["tokens"]`` (B, S) integers.
+    Gradients are kept unless the caller runs it under
+    ``torch.no_grad()``."""
     dev = resolve_device(device)
     check_forward_supported(cfg)
     _check_on(dev, params, "forward")
@@ -399,9 +443,68 @@ def forward_hidden(params, batch, cfg, *, device="cuda"):
     return rms_norm(x, params["final_norm"], cfg.norm_eps), aux
 
 
+@torch.no_grad()
 def forward(params, batch, cfg, *, device="cuda"):
     """Teacher-forced forward: ``(logits (B, S, V) f32, aux)``."""
     x, aux = forward_hidden(params, batch, cfg, device=device)
     cd = getattr(torch, cfg.compute_dtype)
     logits = torch.einsum("bsd,dv->bsv", x.to(cd), params["lm_head"].to(cd))
     return logits.float(), aux
+
+
+# ================================================================ loss
+
+def _xent_chunk(x, w, targets, mask):
+    """Summed masked NLL of one chunk: its logits live only here."""
+    logits = torch.einsum("bcd,dv->bcv", x.to(w.dtype), w).float()
+    gold = torch.gather(logits, -1, targets[..., None])[..., 0]
+    return ((torch.logsumexp(logits, dim=-1) - gold) * mask).sum()
+
+
+def chunked_xent(x, lm_head, targets, mask, cfg):
+    """Cross-entropy without a (B, S, V) logits tensor (the reference's
+    ``chunked_xent``): the sequence goes in chunks of ``cfg.xent_chunk``
+    tokens (all of it where that does not divide S), each chunk's logits
+    made, reduced and, where gradients are kept, made again in the
+    backward under a checkpoint, so that at most one chunk's (B, chunk,
+    V) logits exist.  The gold logit is gathered (the reference reduces
+    a one-hot product, which gives the same number).  Returns the mean
+    NLL over the mask's weight (at least 1)."""
+    cd = getattr(torch, cfg.compute_dtype)
+    s = x.shape[1]
+    chunk = min(cfg.xent_chunk, s)
+    if s % chunk != 0:
+        chunk = s
+    mask = torch.ones(targets.shape, dtype=torch.float32,
+                      device=x.device) if mask is None else mask.float()
+    targets = targets.long()
+    w = lm_head.to(cd)
+    remat = torch.is_grad_enabled()
+    nll = torch.zeros((), dtype=torch.float32, device=x.device)
+    for c0 in range(0, s, chunk):
+        part = (x[:, c0:c0 + chunk], w, targets[:, c0:c0 + chunk],
+                mask[:, c0:c0 + chunk])
+        nll = nll + (checkpoint(_xent_chunk, *part, use_reentrant=False,
+                                preserve_rng_state=False) if remat
+                     else _xent_chunk(*part))
+    return nll / torch.clamp(mask.sum(), min=1.0)
+
+
+def loss_fn(params, batch, cfg, *, device="cuda"):
+    """``(total, metrics)``: the next-token loss of ``batch`` (``tokens``,
+    ``targets``, optional ``loss_mask``, arrays or tensors) plus
+    ``router_aux_coef`` times the MoE router loss (0 until MoE ffns are
+    ported); metrics ``loss``, ``aux_loss`` and ``perplexity =
+    exp(min(loss, 20))``, detached.  ``total`` carries the graph."""
+    dev = resolve_device(device)
+    x, aux = forward_hidden(params, batch, cfg, device=dev)
+    mask = batch.get("loss_mask")
+    if mask is not None:
+        mask = torch.as_tensor(mask).to(dev)
+    loss = chunked_xent(x, params["lm_head"],
+                        torch.as_tensor(batch["targets"]).to(dev), mask, cfg)
+    aux = torch.as_tensor(aux, dtype=torch.float32, device=dev)
+    total = loss + cfg.router_aux_coef * aux
+    loss = loss.detach()
+    return total, {"loss": loss, "aux_loss": aux,
+                   "perplexity": torch.exp(torch.clamp(loss, max=20.0))}

@@ -2,12 +2,13 @@
 
 The port of the reference package's ``models/ssm.py``, full-sequence
 half: parameter definitions, the depthwise causal convolution, the plain
-chunked scan ``ssd_chunked`` (an oracle here) and ``ssm_apply``, whose
-scan is ``kernels/ops.ssd_scan``: the hand-written Hopper kernel on a
-CUDA tensor, its plain version on a CPU tensor.  B and C are one group
-(G = 1) shared by every head.  The single-token decode step and its
-caches (``ssm_decode_init``, ``ssm_decode_step``) come with SSM decode
-(ROADMAP queue 1 item 2).
+chunked scan ``ssd_chunked`` (an oracle here, kept in ``kernels/ref.py``
+beside the scan's backward, which recomputes it) and ``ssm_apply``,
+whose scan is ``kernels/ops.ssd_scan``: the hand-written Hopper kernel
+on a CUDA tensor, its plain version on a CPU tensor, differentiable on
+both.  B and C are one group (G = 1) shared by every head.  The
+single-token decode step and its caches (``ssm_decode_init``,
+``ssm_decode_step``) come with SSM decode (ROADMAP queue 1 item 2).
 """
 from __future__ import annotations
 
@@ -15,6 +16,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops
+from repro_torch.kernels.ref import ssd_chunked  # noqa: F401 (the oracle)
 from repro_torch.models.blocks import ParamDef, rms_norm, silu
 
 
@@ -54,43 +56,6 @@ def _causal_conv(x, w):
     for i in range(k):
         out = out + xp[:, i:i + x.shape[1]] * w[i]
     return out
-
-
-def ssd_chunked(x, dt, a, B_, C_, chunk):
-    """Plain chunked SSD scan (the reference's ``ssd_chunked``).
-    x (B, S, H, P); dt, a (B, S, H); B_, C_ (B, S, N).  Returns y and the
-    final state (B, H, N, P), all f32."""
-    b, s, h, p = x.shape
-    n = B_.shape[-1]
-    if s % chunk != 0:
-        chunk = s
-    nc = s // chunk
-    xc = x.reshape(b, nc, chunk, h, p).float()
-    dtc = dt.reshape(b, nc, chunk, h).float()
-    ac = a.reshape(b, nc, chunk, h).float()
-    Bc = B_.reshape(b, nc, chunk, n).float()
-    Cc = C_.reshape(b, nc, chunk, n).float()
-    xdt = xc * dtc[..., None]
-    cum = torch.cumsum(ac, dim=2)                          # (b,nc,q,h)
-    diff = cum[:, :, :, None, :] - cum[:, :, None, :, :]   # (b,nc,q,k,h)
-    tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
-                                device=x.device))
-    L = torch.where(tri[None, None, :, :, None], torch.exp(diff), 0.0)
-    scores = torch.einsum("bcqn,bckn->bcqk", Cc, Bc)
-    y_diag = torch.einsum("bcqk,bcqkh,bckhp->bcqhp", scores, L, xdt)
-    decay_states = torch.exp(cum[:, :, -1:, :] - cum)      # (b,nc,q,h)
-    chunk_states = torch.einsum("bcqn,bcqh,bcqhp->bchnp", Bc,
-                                decay_states * dtc, xc)
-    chunk_decay = torch.exp(cum[:, :, -1, :])              # (b,nc,h)
-    state = torch.zeros((b, h, n, p), dtype=torch.float32, device=x.device)
-    prevs = []
-    for c in range(nc):                                    # state BEFORE c
-        prevs.append(state)
-        state = state * chunk_decay[:, c, :, None, None] + chunk_states[:, c]
-    s_prevs = torch.stack(prevs, dim=1)                    # (b,nc,h,n,p)
-    y_off = torch.einsum("bcqn,bchnp,bcqh->bcqhp", Cc, s_prevs,
-                         torch.exp(cum))
-    return (y_diag + y_off).reshape(b, s, h, p), state
 
 
 def ssm_apply(p, x, cfg, *, chunk=256):
