@@ -39,9 +39,11 @@ def ssd_scan(x, dt, a, B_, C_, *, chunk=128, y_dtype=None):
     """Chunked SSD scan.  Returns ``(y, final_state)`` — see
     ``kernels/ssd_scan.py``.  The chunk is capped at the sequence length
     (at least 16), as the reference caps it; ``y_dtype`` (x's by
-    default) is the output's dtype."""
+    default) is the output's dtype.  dt and a go in float32 (float64 with
+    a float64 x)."""
     chunk = min(chunk, max(x.shape[1], 16))
-    return ssd.SSDScan.apply(x.contiguous(), dt.float().contiguous(),
-                             a.float().contiguous(), B_.contiguous(),
+    acc = torch.promote_types(x.dtype, torch.float32)
+    return ssd.SSDScan.apply(x.contiguous(), dt.to(acc).contiguous(),
+                             a.to(acc).contiguous(), B_.contiguous(),
                              C_.contiguous(), chunk,
                              x.dtype if y_dtype is None else y_dtype)

@@ -313,20 +313,21 @@ def mha_backward(q, k, v, out, dout, *, causal, window=0):
 def ssd_chunked(x, dt, a, B_, C_, chunk):
     """Plain chunked SSD scan (the reference's ``models/ssm.ssd_chunked``).
     x (B, S, H, P); dt, a (B, S, H); B_, C_ (B, S, N).  Returns y and the
-    final state (B, H, N, P), all f32; a chunk that does not divide S
-    becomes S, as in the reference.  The reference's three-operand
-    einsums are written as products of two, in the order that never
-    forms a (B, chunks, L, L, H, P) tensor."""
+    final state (B, H, N, P), all f32 (f64 for a float64 x); a chunk that
+    does not divide S becomes S, as in the reference.  The reference's
+    three-operand einsums are written as products of two, in the order
+    that never forms a (B, chunks, L, L, H, P) tensor."""
     b, s, h, p = x.shape
     n = B_.shape[-1]
     if s % chunk != 0:
         chunk = s
     nc = s // chunk
-    xc = x.reshape(b, nc, chunk, h, p).float()
-    dtc = dt.reshape(b, nc, chunk, h).float()
-    ac = a.reshape(b, nc, chunk, h).float()
-    Bc = B_.reshape(b, nc, chunk, n).float()
-    Cc = C_.reshape(b, nc, chunk, n).float()
+    acc = torch.promote_types(x.dtype, torch.float32)
+    xc = x.reshape(b, nc, chunk, h, p).to(acc)
+    dtc = dt.reshape(b, nc, chunk, h).to(acc)
+    ac = a.reshape(b, nc, chunk, h).to(acc)
+    Bc = B_.reshape(b, nc, chunk, n).to(acc)
+    Cc = C_.reshape(b, nc, chunk, n).to(acc)
     xdt = xc * dtc[..., None]
     cum = torch.cumsum(ac, dim=2)                          # (b,nc,q,h)
     diff = cum[:, :, :, None, :] - cum[:, :, None, :, :]   # (b,nc,q,k,h)
@@ -342,7 +343,7 @@ def ssd_chunked(x, dt, a, B_, C_, chunk):
     chunk_states = torch.einsum("bcqn,bcqhp->bchnp", Bc,
                                 (decay_states * dtc)[..., None] * xc)
     chunk_decay = torch.exp(cum[:, :, -1, :])              # (b,nc,h)
-    state = torch.zeros((b, h, n, p), dtype=torch.float32, device=x.device)
+    state = torch.zeros((b, h, n, p), dtype=acc, device=x.device)
     prevs = []
     for c in range(nc):                                    # state BEFORE c
         prevs.append(state)

@@ -26,7 +26,7 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import model as mdl
-from repro_torch.models.blocks import tree_map, tree_map2
+from repro_torch.models.blocks import tree_map
 from repro_torch.optim import adamw
 
 #: the reference's (arch x shape) cells, as data: sequence, batch and
@@ -70,13 +70,13 @@ def grad_leaves(params, grads, n_blocks):
     the parameters' storage, each with its ``.grad`` set to the matching
     slice of ``grads``, so that a ``backward()`` ADDS the gradient there.
     The stacked ``blocks`` become a list of per-layer trees whose leaves
-    are the layers' slices: autograd through ``a[i]`` of a stacked
-    parameter would give every layer a full-size (n_blocks, ...) zero
-    tensor to add."""
-    tree = {k: tree_map2(_leaf, v, grads[k]) for k, v in params.items()
+    are the layers' slices (a form ``models/model.block_layers`` takes):
+    autograd through ``a[i]`` of a stacked parameter would give every
+    layer a full-size (n_blocks, ...) zero tensor to add."""
+    tree = {k: tree_map(_leaf, v, grads[k]) for k, v in params.items()
             if k != "blocks"}
-    tree["blocks"] = [tree_map2(lambda p, g: _leaf(p[i], g[i]),
-                                params["blocks"], grads["blocks"])
+    tree["blocks"] = [tree_map(lambda p, g: _leaf(p[i], g[i]),
+                               params["blocks"], grads["blocks"])
                       for i in range(n_blocks)]
     return tree
 

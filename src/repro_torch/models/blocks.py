@@ -41,18 +41,14 @@ def tree_leaves(tree, prefix: str = ""):
         yield prefix[:-1], tree
 
 
-def tree_map(fn, tree):
+def tree_map(fn, tree, other=None):
+    """``fn(leaf)`` over a nested dict, or ``fn(leaf, other_leaf)`` with a
+    second dict ``other`` shaped alike."""
     if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
-    return fn(tree)
-
-
-def tree_map2(fn, tree, other):
-    """``fn(leaf, other_leaf)`` over two nested dicts shaped alike (kept
-    apart from ``tree_map``, which the decode step calls per layer)."""
-    if isinstance(tree, dict):
-        return {k: tree_map2(fn, v, other[k]) for k, v in tree.items()}
-    return fn(tree, other)
+        if other is None:
+            return {k: tree_map(fn, v) for k, v in tree.items()}
+        return {k: tree_map(fn, v, other[k]) for k, v in tree.items()}
+    return fn(tree) if other is None else fn(tree, other)
 
 
 def init_params(defs, generator: torch.Generator):
@@ -97,10 +93,11 @@ def count_params(defs) -> int:
 # ---------------------------------------------------------------- blocks
 
 def rms_norm(x, scale, eps):
+    """In float32 (float64 for a float64 x), back in x's dtype."""
     dt = x.dtype
-    x = x.float()
+    x = x.to(torch.promote_types(dt, torch.float32))
     x = x * torch.rsqrt(torch.mean(x * x, dim=-1, keepdim=True) + eps)
-    return (x * scale.float()).to(dt)
+    return (x * scale.to(x.dtype)).to(dt)
 
 
 def silu(x):

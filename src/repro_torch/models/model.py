@@ -173,33 +173,30 @@ class Model(nn.Module):
     (n_blocks, d, h, hd).  Float32 weights are drawn on ``device`` from a
     ``torch.Generator`` seeded with ``seed`` (``blocks.init_params``).
 
-    For inference (the default) no parameter requires a gradient.  With
-    ``trainable=True`` every one does, and ``loss_fn(model.params, ...)``
-    followed by ``backward()`` fills each one's ``.grad``.  The train
-    step (``launch/steps.make_train_step``) takes ``model.params`` either
-    way: it differentiates leaves of its own that share their storage.
+    No parameter requires a gradient: the train step
+    (``launch/steps.make_train_step``) differentiates leaves of its own
+    that share the parameters' storage.
     """
 
-    def __init__(self, cfg: ArchConfig, *, seed: int = 0, device="cuda",
-                 trainable: bool = False):
+    def __init__(self, cfg: ArchConfig, *, seed: int = 0, device="cuda"):
         super().__init__()
         dev = resolve_device(device)
         self.cfg = cfg
         gen = torch.Generator(device=dev).manual_seed(seed)
-        _register(self, init_params(model_defs(cfg), gen), trainable)
+        _register(self, init_params(model_defs(cfg), gen))
         #: the parameters as the reference's nested dict (same tensors)
         self.params = unflatten(dict(self.named_parameters()))
 
 
-def _register(module: nn.Module, tree: dict, trainable: bool) -> None:
+def _register(module: nn.Module, tree: dict) -> None:
     for key, val in tree.items():
         if isinstance(val, dict):
             child = nn.Module()
-            _register(child, val, trainable)
+            _register(child, val)
             module.add_module(key, child)
         else:
             module.register_parameter(
-                key, nn.Parameter(val, requires_grad=trainable))
+                key, nn.Parameter(val, requires_grad=False))
 
 
 # ================================================================ decode
@@ -379,10 +376,8 @@ def sublayer_apply(sub, x, mixer, ffn, cfg, positions, *, causal=True):
 
 def block_layers(blocks, n_blocks):
     """One parameter tree per block: views ``a[i]`` of the stacked tree,
-    or, where ``blocks`` is already a list of per-block trees (the train
-    step's leaves, one per layer, so that each layer's gradient lands in
-    its own slice instead of a full-size (n_blocks, ...) tensor a layer),
-    that list."""
+    or ``blocks`` itself where it is already a list of per-block trees,
+    which only the train step makes (``launch/steps.grad_leaves``)."""
     if isinstance(blocks, list):
         return blocks
     return [tree_map(lambda a: a[i], blocks) for i in range(n_blocks)]
@@ -429,8 +424,8 @@ def build_inputs(params, batch, cfg):
 
 def forward_hidden(params, batch, cfg, *, device="cuda"):
     """Forward up to the final norm: ``(hidden (B, S, D) in the compute
-    dtype, aux)``.  ``params`` is ``Model.params`` on ``device`` (or the
-    train step's tree of leaves); ``batch["tokens"]`` (B, S) integers.
+    dtype, aux)``.  ``params`` is ``Model.params`` on ``device``;
+    ``batch["tokens"]`` (B, S) integers.
     Gradients are kept unless the caller runs it under
     ``torch.no_grad()``."""
     dev = resolve_device(device)
@@ -455,8 +450,9 @@ def forward(params, batch, cfg, *, device="cuda"):
 # ================================================================ loss
 
 def _xent_chunk(x, w, targets, mask):
-    """Summed masked NLL of one chunk: its logits live only here."""
-    logits = torch.einsum("bcd,dv->bcv", x.to(w.dtype), w).float()
+    """Summed masked NLL of one chunk: its logits live only here, in the
+    mask's dtype (float32, float64 for a float64 compute dtype)."""
+    logits = torch.einsum("bcd,dv->bcv", x.to(w.dtype), w).to(mask.dtype)
     gold = torch.gather(logits, -1, targets[..., None])[..., 0]
     return ((torch.logsumexp(logits, dim=-1) - gold) * mask).sum()
 
@@ -475,12 +471,13 @@ def chunked_xent(x, lm_head, targets, mask, cfg):
     chunk = min(cfg.xent_chunk, s)
     if s % chunk != 0:
         chunk = s
-    mask = torch.ones(targets.shape, dtype=torch.float32,
-                      device=x.device) if mask is None else mask.float()
+    acc = torch.promote_types(cd, torch.float32)
+    mask = torch.ones(targets.shape, dtype=acc,
+                      device=x.device) if mask is None else mask.to(acc)
     targets = targets.long()
     w = lm_head.to(cd)
     remat = torch.is_grad_enabled()
-    nll = torch.zeros((), dtype=torch.float32, device=x.device)
+    nll = torch.zeros((), dtype=acc, device=x.device)
     for c0 in range(0, s, chunk):
         part = (x[:, c0:c0 + chunk], w, targets[:, c0:c0 + chunk],
                 mask[:, c0:c0 + chunk])

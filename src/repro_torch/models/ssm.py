@@ -63,9 +63,11 @@ def ssm_apply(p, x, cfg, *, chunk=256):
 
     The scan gets x in the compute dtype and gives y back in f32, as the
     reference's ``ssd_chunked`` does at this call site: ``D * x`` is
-    added and the cast to the compute dtype made after it.
+    added and the cast to the compute dtype made after it.  (A float64
+    compute dtype keeps all of it in float64.)
     """
     cd = getattr(torch, cfg.compute_dtype)
+    acc = torch.promote_types(cd, torch.float32)
     d_in, h, hp, n, k = ssm_dims(cfg)
     xc = x.to(cd)
     z = xc @ p["wz"].to(cd)
@@ -76,12 +78,11 @@ def ssm_apply(p, x, cfg, *, chunk=256):
     xin = silu(_causal_conv(xin, p["conv_x"].to(cd)))
     B_ = silu(_causal_conv(B_, p["conv_B"].to(cd)))
     C_ = silu(_causal_conv(C_, p["conv_C"].to(cd)))
-    dt = F.softplus(dt_raw.float() + p["dt_bias"].float())
-    a = -torch.exp(p["A_log"].float()) * dt                # (B, S, H)
+    dt = F.softplus(dt_raw.to(acc) + p["dt_bias"].to(acc))
+    a = -torch.exp(p["A_log"].to(acc)) * dt                # (B, S, H)
     xh = xin.reshape(*xin.shape[:2], h, hp)
-    y, state = ops.ssd_scan(xh, dt, a, B_, C_, chunk=chunk,
-                            y_dtype=torch.float32)
-    y = y + p["D"].float()[:, None] * xh.float()
+    y, state = ops.ssd_scan(xh, dt, a, B_, C_, chunk=chunk, y_dtype=acc)
+    y = y + p["D"].to(acc)[:, None] * xh.to(acc)
     y = y.reshape(*x.shape[:2], d_in)
     y = rms_norm(y.to(cd) * silu(z), p["gnorm"], cfg.norm_eps)
     return y @ p["wo"].to(cd), state

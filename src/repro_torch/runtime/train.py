@@ -39,7 +39,7 @@ from repro_torch.data.pipeline import DataConfig, Pipeline
 from repro_torch.device import resolve_device
 from repro_torch.launch import steps as steps_mod
 from repro_torch.models import model as mdl
-from repro_torch.models.blocks import init_params, tree_map, tree_map2
+from repro_torch.models.blocks import init_params, tree_map
 from repro_torch.optim import adamw
 
 
@@ -112,7 +112,7 @@ def compressed_grads(grads, error):
         g_hat = int8_decompress(*int8_compress(target))
         return g_hat, target - g_hat
 
-    pairs = tree_map2(one, grads, error)
+    pairs = tree_map(one, grads, error)
     return (tree_map(lambda pair: pair[0], pairs),
             tree_map(lambda pair: pair[1], pairs))
 

@@ -5,7 +5,9 @@ the two kernel Functions (``kernels/flash_attention.FlashAttention``,
 ``kernels/ssd_scan.SSDScan``), ``adamw.apply``, ``make_train_step`` at
 ``accum_steps`` 1 and 2 and an 8-step ``Trainer`` run against the
 reference's at the granite_3_2b and mamba2_370m smoke configs, in
-float32, the reference under ``jit``, within ``TOL``.  Both packages load
+float32, the reference under ``jit``, within ``TOL`` (the gradient
+leaves of ``loss_fn`` against a float64 evaluation, see
+``test_loss_and_every_gradient_match_reference``).  Both packages load
 the same weights (``params_from_reference``), and the ``Trainer`` run
 starts from the reference's step-0 state written by the reference's
 ``CheckpointManager``, which also holds the shared on-disk layout.
@@ -73,7 +75,7 @@ def _ref_params(arch):
                                   jax.random.PRNGKey(0))
 
 
-def ported(arch, trainable=False):
+def ported(arch):
     """Reference config and params (seed 0), the port's config and a
     Model loaded with those params, float32 compute."""
     cfg = ref_base.get_config(arch, smoke=True).replace(
@@ -81,7 +83,7 @@ def ported(arch, trainable=False):
     pcfg = port_base.get_config(arch, smoke=True).replace(
         compute_dtype="float32")
     params = _ref_params(arch)
-    model = port_model.Model(pcfg, device="cpu", trainable=trainable)
+    model = port_model.Model(pcfg, device="cpu")
     model.load_state_dict(params_from_reference(
         jax.tree.map(np.asarray, params)))
     return cfg, pcfg, params, model
@@ -107,50 +109,86 @@ def named(tree):
 
 # =================================================================== loss
 
-@pytest.mark.parametrize("route", ["model", "train_step_leaves"])
-@pytest.mark.parametrize("arch", TRAIN)
-def test_loss_and_every_gradient_match_reference(arch, route):
-    """``loss_fn``'s total and metrics (element-wise) and the gradient of
-    every parameter (each leaf within ``TOL`` in relative L2 norm)
-    against ``jax.value_and_grad(loss_fn)``: through a trainable
-    ``Model``'s ``.grad``s, and through the train step's per-layer
-    leaves (``steps.accumulate_grads``).
+#: how far the float32 gradient leaves of either package may lie from
+#: the float64 evaluation, in multiples of the other package's distance
+#: (element-wise maxima).  Over granite and mamba2 at batch seeds 0-4 the
+#: port's distance over the reference's ranged from 0.24 to 3.8 leaf by
+#: leaf, either package the closer one depending on the seed: both round
+#: in float32, in different orders.
+ORACLE_FACTOR = 8.0
 
-    Granite's leaves are compared by norm because its gradients are
-    ill-conditioned in float32 here: the smoke weights give logits up to
-    105, and the 0.02-scale embedding's norm multiplies the gradient of
-    the first block by ~50, so its ``embed`` gradient (up to 9.06) is
-    1.6e-3 from a float64 evaluation in the port and 4.2e-4 in the
-    reference, element-wise, though both packages' block-0 activations
-    are equally close to float64 and the attention backward, fed the
-    same inputs, is as close as XLA's (6e-8).  In norm the worst leaf
-    is 9.4e-5 (``mixer.norm``); mamba2's are below 5e-6."""
-    cfg, pcfg, params, model = ported(arch, trainable=route == "model")
-    batch = lm_batch(cfg, 2, 32)
+
+def train_step_grads(model, batch, cfg, dtype):
+    """``(metrics, {name: gradient})`` of the port's ``loss_fn`` through
+    the train step's per-layer leaves (``steps.accumulate_grads``), with
+    the parameters and the compute dtype in ``dtype``."""
+    params = port_blocks.tree_map(lambda t: t.detach().to(dtype),
+                                  model.params)
+    grads = port_blocks.tree_map(torch.zeros_like, params)
+    metrics = port_steps.accumulate_grads(
+        params, batch, cfg.replace(compute_dtype=str(dtype)[6:]), grads,
+        device="cpu")
+    return metrics, {k: g.double().numpy()
+                     for k, g in port_blocks.tree_leaves(grads)}
+
+
+def loss_and_gradients(arch, seed):
+    """At the smoke config and batch ``seed``: the reference's
+    ``(total, metrics)`` and float32 gradients (under ``jit``), the port's
+    float32 metrics and gradients, and the port's float64 gradients."""
+    cfg, pcfg, params, model = ported(arch)
+    batch = lm_batch(cfg, 2, 32, seed=seed)
     mesh = single_device_mesh()
-    (want_total, want_m), want_g = ref_jit(
+    want, want_g = ref_jit(
         jax.value_and_grad(lambda p, b: ref_model.loss_fn(p, b, cfg, mesh),
                            has_aux=True), params,
         {k: jnp.asarray(v) for k, v in batch.items()})
-    if route == "model":
-        total, metrics = port_model.loss_fn(model.params, batch, pcfg,
-                                            device="cpu")
-        total.backward()
-        grads = {name: p.grad for name, p in model.named_parameters()}
-    else:
-        gtree = port_blocks.tree_map(torch.zeros_like, model.params)
-        metrics = port_steps.accumulate_grads(model.params, batch, pcfg,
-                                              gtree, device="cpu")
-        total = metrics["loss"]
-        grads = dict(port_blocks.tree_leaves(gtree))
-    close(total, want_total)
+    metrics, grads = train_step_grads(model, batch, pcfg, torch.float32)
+    _, g64 = train_step_grads(model, batch, pcfg, torch.float64)
+    return cfg, want, named(want_g), metrics, grads, g64
+
+
+def distances(want, grads, g64):
+    """``{leaf: (d_ref, d_port, scale)}``: the largest element-wise
+    distance of the reference's and of the port's float32 gradient from
+    the float64 one, and the float64 leaf's largest magnitude."""
+    return {name: (np.abs(want[name] - g64[name]).max(),
+                   np.abs(g - g64[name]).max(), np.abs(g64[name]).max())
+            for name, g in grads.items()}
+
+
+@pytest.mark.parametrize("seed", [0, 4])
+@pytest.mark.parametrize("arch", TRAIN)
+def test_loss_and_every_gradient_match_reference(arch, seed):
+    """``loss_fn``'s total and metrics (element-wise, ``TOL``) and the
+    gradient of every parameter, through the train step's per-layer
+    leaves, against ``jax.value_and_grad(loss_fn)``.
+
+    Each gradient leaf is held element-wise to the port's float64
+    evaluation (``g64``).  The reference's float32 gradient lies within
+    ``TOL`` of it, scaled by the leaf's largest magnitude, or within
+    ``ORACLE_FACTOR`` times the port's own float32 distance: so the port
+    computes the reference's function.  The port's float32 gradient lies
+    within ``ORACLE_FACTOR`` times the reference's distance: so it rounds
+    no worse.  Granite's smoke gradients are ill-conditioned in float32
+    (attention logits up to 105; the 0.02-scale embedding's norm
+    multiplies block 0's gradient by ~50): its ``embed`` gradient lies
+    1.7e-4 of its maximum from float64 in the port and 4.6e-5 in the
+    reference at seed 0, 1.6e-4 and 1.9e-4 at seed 4, which is why
+    neither package is held to the other at ``TOL`` directly (the
+    figures come from ``python tests/test_torch_train.py``)."""
+    cfg, (want_total, want_m), want, metrics, grads, g64 = \
+        loss_and_gradients(arch, seed)
     for key in ("loss", "aux_loss", "perplexity"):
         close(metrics[key], want_m[key])
-    want = named(want_g)
+    close(metrics["loss"] + cfg.router_aux_coef * metrics["aux_loss"],
+          want_total)
     assert set(grads) == set(want)
-    for name, g in grads.items():
-        err = np.linalg.norm(_np(g) - want[name])
-        assert err <= TOL * np.linalg.norm(want[name]), (name, err)
+    for name, (d_ref, d_port, scale) in distances(want, grads, g64).items():
+        assert d_ref <= max(TOL * scale, ORACLE_FACTOR * d_port), (
+            name, d_ref, d_port, scale)
+        assert d_port <= ORACLE_FACTOR * max(
+            d_ref, np.finfo(np.float32).eps * scale), (name, d_port, d_ref)
 
 
 @pytest.mark.parametrize("s,chunk", [(64, 512), (64, 16), (60, 16)])
@@ -531,3 +569,20 @@ def test_cuda_ssd_backward_matches_plain_autograd(dtype):
     for g, w in zip(got, want):
         bound = tol * float(w.float().abs().max())
         assert float((g.float() - w.float()).abs().max()) <= bound
+
+
+if __name__ == "__main__":
+    # The float32 gradient distances from float64 that ORACLE_FACTOR and
+    # the gradient test's docstring quote: per architecture and batch
+    # seed, the port-over-reference ratio's range over the leaves and the
+    # ``embed`` leaf's two distances over its largest magnitude.
+    for arch in TRAIN:
+        for seed in range(5):
+            _, _, want, _, grads, g64 = loss_and_gradients(arch, seed)
+            dist = distances(want, grads, g64)
+            ratios = [d_port / max(d_ref, np.finfo(np.float32).eps * scale)
+                      for d_ref, d_port, scale in dist.values()]
+            d_ref, d_port, scale = dist["embed"]
+            print(f"{arch} seed {seed}: port/reference {min(ratios):.2f}"
+                  f"-{max(ratios):.2f}; embed port {d_port / scale:.2e}, "
+                  f"reference {d_ref / scale:.2e}")
