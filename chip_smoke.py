@@ -150,6 +150,28 @@ SERVE = dict(arch="granite_3_2b", smoke=False, requests=16, pool=8,
 #: the cross-device check: the smoke config in float32 on card and CPU
 CROSS = dict(arch="granite_3_2b", smoke=True, requests=6, pool=4,
              max_new=8, max_seq=64)
+#: the serve paths of the other families at full width, depth cut where
+#: the float32 weights would not fit 80 GB: (phase, arch, layers (0: the
+#: config's), requests, pool, max_new, max_seq); pool 4 recycles slots;
+#: steps 10-14 (every slot busy) traced with torch.profiler
+SERVE_FAMILIES = (
+    ("serve_danube", "h2o_danube_3_4b", 0, 8, 8, 16, 1024),
+    ("serve_mamba", "mamba2_370m", 0, 8, 4, 16, 1024),
+    ("serve_mixtral", "mixtral_8x7b", 8, 8, 8, 16, 1024),
+    ("serve_jamba", "jamba_v0_1_52b", 8, 8, 4, 16, 1024))
+SERVE_FAMILY_PROFILE = (10, 5)
+#: their card-vs-CPU check at the smoke configs, float32 with float32
+#: caches, TF32 off: (arch, requests, pool, max_new, max_seq); danube's and
+#: mixtral's positions run to 46, past their window of 32 (a 32-slot
+#: rolling buffer), mamba2's and jamba's slots recycle, whisper serves a
+#: pool (per-row positions)
+SERVE_CROSS = (("h2o_danube_3_4b", 4, 4, 16, 128),
+               ("mixtral_8x7b", 4, 4, 16, 128),
+               ("mamba2_370m", 6, 2, 8, 64),
+               ("qwen3_moe_235b_a22b", 6, 4, 8, 64),
+               ("jamba_v0_1_52b", 6, 2, 8, 64),
+               ("whisper_medium", 6, 4, 8, 64),
+               ("internvl2_26b", 6, 4, 8, 64))
 #: tests/test_kernels.py's flash-decode cases: (B, S, H, KVH, D, kv_lens)
 DECODE_CASES = ((1, 512, 4, 4, 64, (512,)), (2, 1024, 8, 2, 64, (1000, 37)),
                 (2, 512, 4, 1, 32, (1, 512)), (1, 768, 2, 2, 128, (600,)))
@@ -167,6 +189,9 @@ DECODE_EDGE_CASES = ((2, 256, 8, 2, 64, (0, 300)),
                      (1, 300, 8, 2, 120, (250,)),
                      (1, 600, 8, 2, 128, (600,)),
                      (2, 300, 8, 1, 256, (257, 33)))
+#: danube's full rolling buffer: pool 8, 32/8 heads x 120, every one of
+#: the window's 4096 slots valid (a serve past the window)
+DECODE_ROLLING = ((8, 4096, 32, 8, 120, (4096,) * 8),)
 #: (q dtype, cache dtype) pairs of the edge cases
 DECODE_PAIRS = ((torch.float32, torch.float32),
                 (torch.bfloat16, torch.bfloat16),
@@ -175,18 +200,27 @@ DECODE_PAIRS = ((torch.float32, torch.float32),
 #: kernel-vs-plain tolerance (rtol = atol) by the dtype of q and out,
 #: tests/test_kernels.py's
 DECODE_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
-#: the prefill paths at full width: (phase, arch, batch, prompt length,
-#: the kernel every mixer layer launches once a prefill)
-PREFILL = (("prefill_granite", "granite_3_2b", 4, 4096, "flash_attention"),
-           ("prefill_danube", "h2o_danube_3_4b", 1, 8192, "flash_attention"),
-           ("prefill_mamba", "mamba2_370m", 8, 4096, "ssd_scan"))
+#: the prefill paths at full width: (phase, arch, layers (0: the
+#: config's; cut where the float32 weights would not fit 80 GB), batch,
+#: prompt tokens); internvl2 adds its 256 vision positions, whisper's
+#: encoder takes 4096 / 4 = 1024 frames
+PREFILL = (("prefill_granite", "granite_3_2b", 0, 4, 4096),
+           ("prefill_danube", "h2o_danube_3_4b", 0, 1, 8192),
+           ("prefill_mamba", "mamba2_370m", 0, 8, 4096),
+           ("prefill_mixtral", "mixtral_8x7b", 8, 1, 8192),
+           ("prefill_jamba", "jamba_v0_1_52b", 8, 2, 4096),
+           ("prefill_whisper", "whisper_medium", 0, 4, 4096),
+           ("prefill_internvl2", "internvl2_26b", 24, 2, 4096))
 #: the prefill phase traced with torch.profiler (one more call)
 PREFILL_PROFILE = "prefill_granite"
 #: the card-vs-CPU prefill check at the smoke configs, float32, TF32 off:
 #: (arch, batch, prompt length); danube where the reference applies its
 #: window of 32
 PREFILL_CROSS = (("granite_3_2b", 2, 64), ("h2o_danube_3_4b", 2, 64),
-                 ("h2o_danube_3_4b", 2, 96), ("mamba2_370m", 2, 64))
+                 ("h2o_danube_3_4b", 2, 96), ("mamba2_370m", 2, 64),
+                 ("mixtral_8x7b", 2, 64), ("qwen3_moe_235b_a22b", 2, 64),
+                 ("jamba_v0_1_52b", 2, 64), ("whisper_medium", 2, 64),
+                 ("internvl2_26b", 2, 64))
 #: the train paths at full width, through ``runtime/train.Trainer``:
 #: (phase, arch, batch, sequence, microbatches, the kernel every mixer
 #: layer launches twice a microbatch: forward and remat recompute)
@@ -254,7 +288,15 @@ SSD_STATE_TOL = 1e-3
 #: path's activations are large (|q|, |k| up to ~120 from the seed-0
 #: weights, so logits of hundreds), and any float32 order of summation,
 #: the plain version's included, lands ~1e-3 from the exact result there,
-#: beyond the element-wise 2e-5 / 1e-4 set for unit-scale inputs.
+#: beyond the element-wise 2e-5 / 1e-4 set for unit-scale inputs.  A bf16
+#: attention row at captured inputs is held the same way on each output's
+#: error beyond its own bf16 rounding (half an ulp, at most 2^-8 of the
+#: exact value): at mixtral's and internvl2's layers (|k| up to 163,
+#: logits near 1000) any float32 evaluation of the logits is ~1e-4 off in
+#: p, and where |v| ~ 170 cancels to an output of 0.3 that is 0.005-0.010
+#: for the plain version and 0.021-0.026 for the kernel's tensor-core
+#: products (0.05-0.096 for SDPA's), so one element in 53 M lay 1.13 times
+#: the 2e-2 band from the plain version (PERF.md §6).
 ORACLE_FACTOR = 2.0
 #: the chunks every captured SSD input is held at (the path's is 256)
 SSD_CHUNKS = (64, 128, 256)
@@ -588,9 +630,10 @@ def sweep_cells(eng, wl, topo, cells, n_groups, group):
 
 class DecodeRecorder:
     """Wraps ``kernels/ops.flash_decode`` (the attention layers look it up
-    at call time) to keep the kernel inputs of the first and last layer
-    at chosen steps of a serve phase, and at its last step.  Each step
-    calls it once per layer, in layer order."""
+    at call time) to keep the kernel inputs of the first and last call of
+    a step at chosen steps of a serve phase, and at its last step.  Each
+    step calls it ``n_layers`` times (once per attention sublayer, twice
+    with a cross-attention), in layer order."""
 
     def __init__(self, ops):
         self.ops, self._call = ops, ops.flash_decode
@@ -598,6 +641,8 @@ class DecodeRecorder:
         ops.flash_decode = self.wrapped
 
     def arm(self, phase, n_layers, steps):
+        if n_layers == 0:           # no attention: nothing to keep
+            return
         self.phase, self.n_layers, self.steps = phase, n_layers, set(steps)
         self.calls, self.last = 0, {}
 
@@ -619,6 +664,21 @@ class DecodeRecorder:
                         t.clone() for t in (q, k, v, kv_len))
                 self.last[layer] = (step, q.clone(), k, v, kv_len.clone())
         return self._call(q, k, v, kv_len)
+
+
+def path_launches(cfg, decode):
+    """Kernel launches the path makes: a decode step one ``flash_decode``
+    per attention sublayer (two with a cross-attention); a prefill one
+    ``flash_attention`` per attention sublayer of the decoder (two with a
+    cross-attention) and of the encoder, one ``ssd_scan`` per Mamba-2
+    sublayer."""
+    kinds = [m for m, _ in cfg.pattern] * cfg.n_blocks
+    n_attn, n_mamba = kinds.count("attn"), kinds.count("mamba")
+    per_attn = 2 if cfg.enc_layers else 1
+    if decode:
+        return {"flash_decode": n_attn * per_attn}
+    return {"flash_attention": n_attn * per_attn + cfg.enc_layers,
+            "ssd_scan": n_mamba}
 
 
 def scheduled_steps(prompt_lens, max_new, pool):
@@ -700,26 +760,31 @@ def profile_summary(prof, wall_ms, steps):
 
 
 def serve_phase(label, spec, rec, device="cuda", cfg=None, model=None,
-                record=True):
+                record=True, cache_dtype=torch.bfloat16):
     """Serve ``spec`` through ``launch/serve.py``'s ``serve`` (on the
-    seed-0 model drawn on the device unless ``model`` is given), keeping
-    flash-decode inputs when ``record``; returns the phase record and
-    the sampler."""
+    seed-0 model drawn on the device unless ``model`` is given, caches in
+    ``cache_dtype``), keeping flash-decode inputs when ``record``;
+    returns the phase record and the sampler."""
     from repro_torch.configs.base import get_config
     from repro_torch.launch import serve as launch_serve
-    cfg = cfg or get_config(spec["arch"], smoke=spec["smoke"])
+    if cfg is None:
+        cfg = get_config(spec["arch"], smoke=spec["smoke"])
+        if spec.get("layers"):
+            cfg = cfg.replace(n_layers=spec["layers"])
     lens = [len(p) for p in launch_serve.make_prompts(
         spec["requests"], cfg.vocab_size, spec["max_seq"])]
     want_steps = scheduled_steps(lens, spec["max_new"], spec["pool"])
     sampler = FiniteSampler(keep=spec["smoke"],
                             profile=spec.get("profile"))
+    per_step = path_launches(cfg, decode=True)["flash_decode"]
     if record:
-        rec.arm(label, cfg.n_layers, (0, want_steps // 2))
+        rec.arm(label, per_step, (0, want_steps // 2))
     reset_counts()
     out = launch_serve.serve(cfg, requests=spec["requests"],
                              pool=spec["pool"], max_new=spec["max_new"],
                              max_seq=spec["max_seq"], device=device,
-                             sampler=sampler, model=model)
+                             sampler=sampler, model=model,
+                             cache_dtype=cache_dtype)
     launches = counts()
     if record:
         rec.disarm()
@@ -741,6 +806,8 @@ def serve_phase(label, spec, rec, device="cuda", cfg=None, model=None,
         f"(scheduled {want_steps}), wall {wall:.3f} s, "
         f"{row['ms_per_step']:.3f} ms/step, {row['tokens_per_s']:.1f} "
         f"tok/s, launches {launches}")
+    if device == "cuda":
+        row["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
     if sampler.trace:
         tr = sampler.trace
         log(f"[paths] {label} profile of {tr['steps']} steps: wall "
@@ -761,7 +828,7 @@ def serve_phase(label, spec, rec, device="cuda", cfg=None, model=None,
     if not row["logits_finite"] or not all(
             0 <= t < cfg.vocab_size for ts in tokens for t in ts):
         why.append("non-finite logits or tokens outside the vocabulary")
-    want_launches = stats.steps * cfg.n_layers if device == "cuda" else 0
+    want_launches = stats.steps * per_step if device == "cuda" else 0
     if launches["flash_decode"] != want_launches:
         why.append(f"flash_decode launched {launches['flash_decode']} "
                    f"times, not {want_launches}")
@@ -775,11 +842,23 @@ def serve_phase(label, spec, rec, device="cuda", cfg=None, model=None,
     return dict(row, tokens=tokens), sampler
 
 
-def run_serve(rec, serve=SERVE, cross=CROSS, device="cuda"):
-    """The serve path at full width, then the cross-device check."""
+def run_serve(rec, serve=SERVE, cross=CROSS, families=SERVE_FAMILIES,
+              family_cross=SERVE_CROSS, device="cuda"):
+    """The serve path at full width, then the cross-device check; then the
+    other families at full width, each model freed before the next is
+    drawn, and their cross-device checks."""
     out = {}
     row, _ = serve_phase("serve", serve, rec, device)
     out["serve"] = {k: v for k, v in row.items() if k != "tokens"}
+    for label, arch, layers, requests, pool, max_new, max_seq in families:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        row, _ = serve_phase(label, dict(
+            arch=arch, smoke=False, layers=layers, requests=requests,
+            pool=pool, max_new=max_new, max_seq=max_seq,
+            profile=SERVE_FAMILY_PROFILE), rec, device)
+        out[label] = {k: v for k, v in row.items() if k != "tokens"}
+    torch.cuda.empty_cache()
 
     prev_tf32 = torch.backends.cuda.matmul.allow_tf32, \
         torch.backends.cudnn.allow_tf32
@@ -812,7 +891,61 @@ def run_serve(rec, serve=SERVE, cross=CROSS, device="cuda"):
     out["cross"] = dict({k: v for k, v in card.items() if k != "tokens"},
                         tokens_identical=same, logits_max_abs_diff=err,
                         cpu_wall_s=cpu["wall_s"])
+    points = [serve_cross(arch, dict(arch=arch, smoke=True, requests=r,
+                                     pool=p, max_new=n, max_seq=m), rec,
+                          device)
+              for arch, r, p, n, m in family_cross]
+    out["serve_cross"] = {"points": points, "launches": {
+        name: sum(r["launches"][name] for r in points) for name in counts()}}
     return out
+
+
+def serve_cross(arch, spec, rec, device="cuda"):
+    """One smoke config served in float32 (TF32 off) on the card and on
+    the CPU with the same weights: identical greedy tokens, per-step
+    logits within 1e-3; for a windowed model, positions past the window.
+    The caches are float32 too: a bf16 cache element that rounds the
+    other way on one device persists in the SSM state and can tip a MoE
+    router near a tie (the float32 card and CPU runs of qwen3 smoke with
+    bf16 caches kept their tokens but one step's logits moved 0.049), so
+    with bf16 caches the comparison would measure the caches' rounding,
+    not the card.  The bf16 caches are the full-width phases' own."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models.model import Model
+    cfg = get_config(arch, smoke=True).replace(compute_dtype="float32")
+    cpu_model = Model(cfg, seed=0, device="cpu")
+    card_model = Model(cfg, seed=0, device=device)
+    card_model.load_state_dict(cpu_model.state_dict())
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        card, card_s = serve_phase(f"serve_cross {arch}", spec, rec, device,
+                                   cfg, card_model, record=False,
+                                   cache_dtype=torch.float32)
+        cpu, cpu_s = serve_phase(f"serve_cross {arch} cpu", spec, rec,
+                                 "cpu", cfg, cpu_model, record=False,
+                                 cache_dtype=torch.float32)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    same = card["tokens"] == cpu["tokens"]
+    err = max(float((a - b).abs().max())
+              for a, b in zip(card_s.logits, cpu_s.logits)) \
+        if len(card_s.logits) == len(cpu_s.logits) else float("inf")
+    last_pos = max(card["prompt_lens"]) + spec["max_new"] - 1
+    past = bool(cfg.window) and last_pos >= cfg.window
+    log(f"[paths] serve_cross {arch}: tokens identical on card and CPU: "
+        f"{same}; per-step logits max abs diff {err!r} (limit 1e-3) over "
+        f"{len(card_s.logits)} steps; last position {last_pos}"
+        + (f", past the window {cfg.window}" if past else ""))
+    if not same or not err <= 1e-3:
+        fail(f"serve_cross {arch}: tokens identical {same}, logits diff "
+             f"{err}")
+    if cfg.window and not past:
+        fail(f"serve_cross {arch}: positions end at {last_pos}, inside the "
+             f"window {cfg.window}")
+    return {"arch": arch, "steps": card["steps"], "launches":
+            card["launches"], "tokens_identical": same,
+            "logits_max_abs_diff": err, "last_position": last_pos}
 
 
 # ---------------------------------------------------------------- prefill
@@ -820,8 +953,9 @@ def run_serve(rec, serve=SERVE, cross=CROSS, device="cuda"):
 class PrefillRecorder:
     """Wraps ``kernels/ops.flash_attention`` and ``ops.ssd_scan`` (the
     model's layers look them up at call time) to keep the inputs of the
-    first and the last mixer layer of an armed prefill: each layer calls
-    its kernel once."""
+    first and the last call of each kernel in an armed prefill, keyed by
+    (phase, kernel, call index): ``calls`` says how many times the
+    prefill calls each (``path_launches``)."""
 
     def __init__(self, ops):
         self.ops, self.inputs, self.phase = ops, {}, None
@@ -829,15 +963,17 @@ class PrefillRecorder:
         ops.flash_attention = self.attention
         ops.ssd_scan = self.scan
 
-    def arm(self, phase, n_layers):
-        self.phase, self.n_layers, self.calls = phase, n_layers, 0
+    def arm(self, phase, calls):
+        self.phase, self.n_calls = phase, calls
+        self.calls = dict.fromkeys(calls, 0)
 
     def _keep(self, kernel, tensors, kw):
         if self.phase:
-            if self.calls in (0, self.n_layers - 1):
-                self.inputs[(self.phase, kernel, self.calls)] = (
+            i = self.calls[kernel]
+            if i in (0, self.n_calls[kernel] - 1):
+                self.inputs[(self.phase, kernel, i)] = (
                     tuple(t.clone() for t in tensors), dict(kw))
-            self.calls += 1
+            self.calls[kernel] += 1
 
     def attention(self, q, k, v, **kw):
         self._keep("flash_attention", (q, k, v), kw)
@@ -848,33 +984,54 @@ class PrefillRecorder:
         return self._ssd(x, dt, a, B_, C_, **kw)
 
 
-def prefill_phase(label, cfg, batch, seq, kernel, rec, profile=False,
+def prefill_batch(cfg, batch, seq, device):
+    """``batch`` prompts of ``seq`` tokens from ``default_rng(0)``, with
+    the VLM's vision prefix (``vision_prefix`` patch embeddings) and the
+    encoder-decoder's frames (``max(seq // audio_stride, 8)``), bf16 unit
+    normals, as the reference's ``batch_structs`` shapes them."""
+    rng = np.random.default_rng(0)
+    out = {"tokens": torch.tensor(rng.integers(0, cfg.vocab_size,
+                                               (batch, seq)), device=device)}
+    gen = torch.Generator(device=device).manual_seed(0)
+
+    def embed(n):
+        return torch.randn((batch, n, cfg.d_model), generator=gen,
+                           device=device).bfloat16()
+    if cfg.vision_prefix:
+        out["vision_embed"] = embed(cfg.vision_prefix)
+    if cfg.enc_layers:
+        out["frames"] = embed(max(seq // max(cfg.audio_stride, 1), 8))
+    return out
+
+
+def prefill_phase(label, cfg, batch, seq, rec, profile=False,
                   device="cuda"):
-    """Prefill ``batch`` prompts of ``seq`` tokens through
-    ``launch/steps.make_prefill_step`` on the seed-0 model of ``cfg``
-    drawn on the device, with the launch counts zeroed just before and
-    read just after; a second call under ``torch.profiler`` when
-    ``profile``.  Returns the phase record."""
+    """Prefill ``batch`` prompts of ``seq`` tokens (``prefill_batch``)
+    through ``launch/steps.make_prefill_step`` on the seed-0 model of
+    ``cfg`` drawn on the device, with the launch counts zeroed just
+    before and read just after; a second call under ``torch.profiler``
+    when ``profile``.  Returns the phase record."""
     from repro_torch.launch.steps import make_prefill_step
     from repro_torch.models.model import Model
     model = Model(cfg, seed=0, device=device)
     step = make_prefill_step(cfg, device=device)
-    tokens = torch.tensor(np.random.default_rng(0).integers(
-        0, cfg.vocab_size, (batch, seq)), device=device)
-    rec.arm(label, cfg.n_layers)
+    inputs = prefill_batch(cfg, batch, seq, device)
+    want_launches = path_launches(cfg, decode=False)
+    rec.arm(label, want_launches)
     torch.cuda.synchronize()
     reset_counts()
     t0 = time.perf_counter()
-    logits = step(model.params, {"tokens": tokens})
+    logits = step(model.params, inputs)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = counts()
     rec.phase = None
     finite = bool(torch.isfinite(logits).all())
     row = {"arch": cfg.name, "n_layers": cfg.n_layers,
-           "d_model": cfg.d_model, "compute_dtype": cfg.compute_dtype,
-           "batch": batch, "prompt_len": seq, "wall_s": wall,
-           "prompt_tokens_per_s": batch * seq / wall,
+           "enc_layers": cfg.enc_layers, "d_model": cfg.d_model,
+           "compute_dtype": cfg.compute_dtype, "batch": batch,
+           "prompt_len": seq, "vision_prefix": cfg.vision_prefix,
+           "wall_s": wall, "prompt_tokens_per_s": batch * seq / wall,
            "logits_shape": list(logits.shape), "logits_finite": finite,
            "launches": launches,
            "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
@@ -885,7 +1042,7 @@ def prefill_phase(label, cfg, batch, seq, kernel, rec, profile=False,
             torch.profiler.ProfilerActivity.CUDA])
         with prof:
             t0 = time.perf_counter()
-            step(model.params, {"tokens": tokens})
+            step(model.params, inputs)
             torch.cuda.synchronize()
             prof_ms = (time.perf_counter() - t0) * 1e3
         row["profile"] = profile_summary(prof, prof_ms, 1)
@@ -904,16 +1061,16 @@ def prefill_phase(label, cfg, batch, seq, kernel, rec, profile=False,
             log(f"[paths]   host   {ms:10.3f} ms  {n:6d}x  {key[:90]}")
     if not finite or list(logits.shape) != [batch, 1, cfg.vocab_size]:
         fail(f"{label}: logits {list(logits.shape)}, finite {finite}")
-    want = cfg.n_layers if device == "cuda" else 0
-    if launches[kernel] != want:
-        fail(f"{label}: {kernel} launched {launches[kernel]} times, not "
-             f"{want}")
-    if cfg.compute_dtype == "bfloat16":
-        kind = {"flash_attention": "flash_attention_wgmma",
-                "ssd_scan": "ssd_scan_mma"}[kernel]
-        if launches[kind] != want:
-            fail(f"{label}: {kind} launched {launches[kind]} times, not "
-                 f"{want}")
+    kinds = {"flash_attention": "flash_attention_wgmma",
+             "ssd_scan": "ssd_scan_mma"}
+    for kernel, n in want_launches.items():
+        want = n if device == "cuda" else 0
+        names = [kernel] + ([kinds[kernel]]
+                            if cfg.compute_dtype == "bfloat16" else [])
+        for name in names:
+            if launches[name] != want:
+                fail(f"{label}: {name} launched {launches[name]} times, "
+                     f"not {want}")
     return row
 
 
@@ -933,22 +1090,22 @@ def prefill_cross(points=PREFILL_CROSS):
             cpu = Model(cfg, seed=0, device="cpu")
             card = Model(cfg, seed=0, device="cuda")
             card.load_state_dict(cpu.state_dict())
-            tok = torch.tensor(np.random.default_rng(0).integers(
-                0, cfg.vocab_size, (batch, seq)))
+            inputs = prefill_batch(cfg, batch, seq, "cpu")
             reset_counts()
             got = make_prefill_step(cfg, device="cuda")(
-                card.params, {"tokens": tok.cuda()})
+                card.params, {k: v.cuda() for k, v in inputs.items()})
             torch.cuda.synchronize()
             launches = counts()
-            want = make_prefill_step(cfg, device="cpu")(
-                cpu.params, {"tokens": tok})
+            want = make_prefill_step(cfg, device="cpu")(cpu.params, inputs)
             err = float((got.cpu() - want).abs().max())
-            kernel = "ssd_scan" if cfg.family == "ssm" \
-                else "flash_attention_simt"  # float32: the SIMT variant
-            ok = err <= 1e-3 and launches[kernel] == cfg.n_layers
+            # float32: the SIMT / FMA variants
+            want_launches = {f"{k}_simt": n for k, n in
+                             path_launches(cfg, decode=False).items()}
+            ok = err <= 1e-3 and all(launches[k] == n
+                                     for k, n in want_launches.items())
             log(f"[paths] prefill_cross {arch} {batch} x {seq}: logits max "
-                f"abs diff card vs CPU {err!r} (limit 1e-3), {kernel} "
-                f"launched {launches[kernel]}")
+                f"abs diff card vs CPU {err!r} (limit 1e-3), launches "
+                f"{launches} (want {want_launches})")
             if not ok:
                 fail(f"prefill_cross {arch} s={seq}: diff {err}, launches "
                      f"{launches}")
@@ -960,14 +1117,17 @@ def prefill_cross(points=PREFILL_CROSS):
 
 
 def run_prefill(rec, phases=PREFILL):
-    """Every prefill phase at full width, each model freed before the
-    next is drawn; then the smoke-config cross check."""
+    """Every prefill phase at full width (depth cut where given), each
+    model freed before the next is drawn; then the smoke-config cross
+    check."""
     from repro_torch.configs.base import get_config
     out = {}
-    for label, arch, batch, seq, kernel in phases:
+    for label, arch, layers, batch, seq in phases:
+        cfg = get_config(arch)
+        if layers:
+            cfg = cfg.replace(n_layers=layers)
         torch.cuda.reset_peak_memory_stats()
-        out[label] = prefill_phase(label, get_config(arch), batch, seq,
-                                   kernel, rec,
+        out[label] = prefill_phase(label, cfg, batch, seq, rec,
                                    profile=label == PREFILL_PROFILE)
         torch.cuda.empty_cache()
     points = prefill_cross()
@@ -1507,10 +1667,12 @@ def check_decode(name, q, k, v, kv_len, fd, ref, launches=0, timed=True):
 def decode_case_inputs(rng):
     """``(name, q, k, v, kv_len)`` on the card: tests/test_kernels.py's
     decode cases in float32 and bf16, then the edge cases in every dtype
-    pair, drawn from ``rng``."""
+    pair, then danube's full rolling buffer in bf16, drawn from
+    ``rng``."""
     for name, cases, pairs in (
             ("decode_cases", DECODE_CASES, DECODE_PAIRS[:2]),
-            ("decode_edges", DECODE_EDGE_CASES, DECODE_PAIRS)):
+            ("decode_edges", DECODE_EDGE_CASES, DECODE_PAIRS),
+            ("danube_rolling", DECODE_ROLLING, DECODE_PAIRS[1:2])):
         for b, s, h, kvh, d, kv_lens in cases:
             arrays = [rng.standard_normal(shape).astype(np.float32)
                       for shape in ((b, h, d), (b, s, kvh, d), (b, s, kvh, d))]
@@ -1523,8 +1685,8 @@ def decode_case_inputs(rng):
 
 def run_decode_kernels(rec, paths):
     """Every captured flash-decode input of the serve paths, then
-    tests/test_kernels.py's decode cases in float32 and bf16, then the
-    edge cases in every dtype pair."""
+    tests/test_kernels.py's decode cases in float32 and bf16, the edge
+    cases in every dtype pair and danube's full rolling buffer."""
     from repro_torch.kernels import flash_decode as fd
     from repro_torch.kernels import ref
     rows = []
@@ -1586,24 +1748,37 @@ def oracle_errors(got, want, exact):
             float((want.double() - exact).abs().max()))
 
 
+def beyond_rounding(got, want, exact):
+    """(kernel, plain) max distance from the float64 result beyond the
+    bf16 rounding of each output (2^-8 of its exact value)."""
+    half_ulp = 2.0 ** -8 * exact.abs()
+    return tuple(float(((x.double() - exact).abs() - half_ulp).max())
+                 for x in (got, want))
+
+
 def check_attention(name, q, k, v, causal, window, fa, ref, launches=0,
                     oracle=False):
-    """Kernel vs plain flash attention; times.  With ``oracle`` both are
-    also measured against the plain version in float64, which decides a
-    float32 row (ORACLE_FACTOR) and is recorded beside a bf16 one, which
-    the 2e-2 kernel-vs-plain check decides."""
+    """Kernel vs plain flash attention; times.  With ``oracle`` (the
+    captured full-width inputs) both are also measured against the plain
+    version in float64, which decides the row (ORACLE_FACTOR): on the
+    whole error in float32, on the error beyond each output's rounding in
+    bf16; the element-wise kernel-vs-plain check decides the unit-scale
+    cases and is recorded beside the oracle's."""
     tol = ATTN_TOL[q.dtype]
     got = fa.flash_attention(q, k, v, causal=causal, window=window)
     want = ref.mha_reference(q, k, v, causal=causal, window=window)
     err = float((got.float() - want.float()).abs().max())
     within = torch.allclose(got.float(), want.float(), rtol=tol, atol=tol)
-    ok, errs = within, None
+    ok, errs, beyond = within, None, None
     if oracle:
         exact = ref.mha_reference(q.double(), k.double(), v.double(),
                                   causal=causal, window=window)
         errs = oracle_errors(got, want, exact)
         if q.dtype == torch.float32:
             ok = errs[0] <= ORACLE_FACTOR * errs[1] + tol
+        else:
+            beyond = beyond_rounding(got, want, exact)
+            ok = beyond[0] <= ORACLE_FACTOR * beyond[1] + tol
         del exact
     del got, want
     big = q.numel() > 1 << 22
@@ -1621,13 +1796,15 @@ def check_attention(name, q, k, v, causal, window, fa, ref, launches=0,
            "window": window, "flops": ops, "tflops": ops / ms / 1e9,
            "bound_share": bound_ms / ms, "max_abs_err": err, "tol": tol,
            "within_tol_of_plain": within, "f64_err_kernel_plain": errs,
+           "f64_err_beyond_rounding": beyond,
            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
            "bound_by": bound_by, "bytes_bound_ms": bytes_ms,
            "library_ms": lib, "phase_launches": launches, "ok": ok}
     log(f"[kernels] {json.dumps(row)}")
     if not ok:
         fail(f"flash_attention {name} {row['shape']} {row['dtype']}: err "
-             f"{err}, tol {tol}, float64 errors (kernel, plain) {errs}")
+             f"{err}, tol {tol}, float64 errors (kernel, plain) {errs}, "
+             f"beyond bf16 rounding {beyond}")
     return row
 
 

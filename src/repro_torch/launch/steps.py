@@ -43,9 +43,10 @@ def make_prefill_step(cfg: ArchConfig, *, device="cuda"):
     """``prefill_step(params, batch) -> (B, 1, V) f32`` logits of the
     last prompt position.  ``params`` is ``Model.params`` on ``device``
     (``cuda`` by default, which needs a card); ``batch["tokens"]`` is a
-    (B, S) integer array or tensor."""
+    (B, S) integer array or tensor, with ``vision_embed`` (B,
+    vision_prefix, D) for a VLM and ``frames`` (B, F, D) for an
+    encoder-decoder (``models/model.forward_hidden``)."""
     dev = resolve_device(device)
-    mdl.check_forward_supported(cfg)
 
     @torch.no_grad()
     def prefill_step(params, batch):
@@ -104,12 +105,14 @@ def make_train_step(cfg: ArchConfig, opt_cfg=None, accum_steps: int = 1, *,
     ``tokens``, ``targets`` and ``loss_mask`` (B, S) arrays or tensors,
     B a multiple of ``accum_steps``.  Microbatch i takes rows
     ``i * B / accum_steps`` onward, as the reference's reshape does.
+    MoE, encoder and VLM configurations raise
+    (``models/model.check_train_supported``).
     Parameters and moments are updated in place and returned (at
     granite_3_2b's width each is 10.5 GB); metrics are ``loss``,
     ``aux_loss``, ``perplexity`` (over the microbatches' mean loss),
     ``grad_norm`` and ``lr``."""
     dev = resolve_device(device)
-    mdl.check_forward_supported(cfg)
+    mdl.check_train_supported(cfg)
     opt_cfg = opt_cfg or adamw.AdamWConfig()
 
     def train_step(params, opt_state, batch):

@@ -10,10 +10,13 @@ The port of the reference package's ``models/attention.py``:
   of the reference's ``dense_attention``, ``chunked_attention`` and
   ``swa_attention`` alike, so those two are not ported;
 - ``decode_attention``  — single-query attention against a partially
-  filled cache.  It runs ``kernels/ops.flash_decode`` the same way.
+  filled cache.  It runs ``kernels/ops.flash_decode`` the same way;
+- ``cross_attention``   — bidirectional attention of the decoder over the
+  encoder memory: ``flash_decode`` over the whole memory for one query,
+  ``flash_attention(causal=False)`` for more.
 
-The sequence-parallel ``q_offset`` branch of ``attention`` and
-``cross_attention`` come with the encoder-decoder (ROADMAP queue 1).
+The sequence-parallel ``q_offset`` branch of ``attention`` belongs to the
+multi-device layer (ROADMAP queue 1 item 8).
 
 Shapes: q (B, Sq, H, hd); k, v (B, Skv, KVH, hd); H = KVH * rep (GQA).
 """
@@ -67,16 +70,30 @@ def decode_attention(q, k, v, *, kv_len=None, window=0):
 
     q: (B, 1, H, hd); k, v: (B, S_cache, KVH, hd).
     kv_len: (B,) integers — number of valid cache entries (<= S_cache);
-    None attends the whole cache.
+    None attends the whole cache.  ``window``: the model's sliding window.
+    The port's windowed caches hold at most ``window`` slots (a rolling
+    buffer whose valid slots are the prefix ``kv_len``), where the window
+    excludes nothing; a longer cache, whose window would cut the middle
+    of a linear cache, raises.
     """
-    if window:
-        raise NotImplementedError(
-            "sliding-window decode: the flash_decode kernel has no window "
-            "(ROADMAP queue 1 item 2; the reference's single-shard window "
-            "mask is queue 3's rolling-buffer fault)")
+    if window and k.shape[1] > window:
+        raise ValueError(f"decode_attention: a {k.shape[1]}-slot cache is "
+                         f"longer than the window {window}; windowed "
+                         f"caches are rolling buffers of at most the "
+                         f"window")
     b = q.shape[0]
     if kv_len is None:
         kv_len = torch.full((b,), k.shape[1], dtype=torch.int32,
                             device=q.device)
-    out, _, _ = ops.flash_decode(q[:, 0].contiguous(), k, v, kv_len)
+    out, _, _ = ops.flash_decode(q[:, 0].contiguous(), k.contiguous(),
+                                 v.contiguous(), kv_len)
     return out[:, None]
+
+
+def cross_attention(q, mem_k, mem_v):
+    """Bidirectional cross-attention (decoder -> encoder memory): q (B,
+    Sq, H, hd) over every position of mem_k, mem_v (B, S_mem, KVH, hd),
+    in q's dtype."""
+    if q.shape[1] == 1:
+        return decode_attention(q, mem_k, mem_v)
+    return ops.flash_attention(q, mem_k, mem_v, causal=False)

@@ -1,4 +1,5 @@
-"""Parameter machinery and elementwise blocks (norms, MLP, RoPE).
+"""Parameter machinery and elementwise blocks (norms, MLP, RoPE,
+sinusoidal positions).
 
 The port of the reference package's ``models/blocks.py``.  Parameters are
 described by ``ParamDef(shape, axes)`` trees (nested dicts);
@@ -147,3 +148,22 @@ def rope(x, positions, theta):
     if hd > 2 * half:
         rot = torch.cat([rot, x[..., 2 * half:]], dim=-1)
     return rot.to(x.dtype)
+
+
+def sinusoidal_at(positions, d_model):
+    """Sinusoidal absolute position encoding at arbitrary positions:
+    (...,) integers -> (..., d_model) float32, sines at the even and
+    cosines at the odd features."""
+    pos = positions.float()[..., None]
+    div = torch.exp(torch.arange(0, d_model, 2, dtype=torch.float32,
+                                 device=positions.device)
+                    * (-math.log(10000.0) / d_model))
+    pe = torch.zeros(positions.shape + (d_model,), dtype=torch.float32,
+                     device=positions.device)
+    pe[..., 0::2] = torch.sin(pos * div)
+    pe[..., 1::2] = torch.cos(pos * div[: (d_model + 1) // 2])
+    return pe
+
+
+def sinusoidal_positions(seq_len, d_model, *, device="cpu"):
+    return sinusoidal_at(torch.arange(seq_len, device=device), d_model)

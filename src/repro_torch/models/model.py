@@ -2,17 +2,22 @@
 
 The port of the reference package's ``models/model.py`` on one device:
 parameter definitions for every architecture (so parameter counts agree
-with the reference), the ``Model`` module holding them, the stacked KV
+with the reference), the ``Model`` module holding them, the stacked decode
 caches and ``decode_forward``; ``forward_hidden`` / ``forward`` over a
 whole sequence; and ``chunked_xent`` / ``loss_fn``, which the train step
-differentiates.  Every attention layer of a decode step runs
+differentiates.  Every attention of a decode step (self-attention over
+the KV cache, cross-attention over the encoder memory) runs
 ``models/attention.decode_attention`` (the flash-decode kernel on the
-card); every attention layer of a forward runs ``attention.attention``
-(the flash-attention kernel) and every Mamba-2 layer
-``models/ssm.ssm_apply`` (the SSD-scan kernel), both differentiable
-(``kernels/ops.py``).  Decode and prefill run under ``torch.no_grad()``
-(``decode_forward``, ``forward``, ``launch/steps.make_prefill_step``);
-``forward_hidden`` and the loss keep gradients when the caller does.
+card); every attention of a forward (causal, windowed, the encoder's
+bidirectional one and the decoder's cross-attention) runs
+``attention.attention`` (the flash-attention kernel) and every Mamba-2
+layer ``models/ssm.ssm_apply`` (the SSD-scan kernel), both
+differentiable (``kernels/ops.py``).  The Mamba-2 decode step and the MoE
+ffn are plain PyTorch (``models/ssm.ssm_decode_step``, ``models/moe.py``),
+as the reference's are jnp.  Decode and prefill run under
+``torch.no_grad()`` (``decode_forward``, ``forward``,
+``launch/steps.make_prefill_step``); ``forward_hidden`` and the loss keep
+gradients when the caller does.
 
 Parameters keep the reference's names and layouts (``wq`` is (d, h, hd),
 blocks are stacked on a leading ``n_blocks`` axis), so carrying weights
@@ -21,14 +26,18 @@ matrix products the reference leaves to XLA are ``torch.einsum`` here,
 with the parameters cast to the compute dtype inside every product, as
 the reference casts them.
 
-``Model`` holds every configuration.  Decode runs ``attn`` mixers with
-``mlp`` ffns, full attention (``window == 0``), no encoder and no vision
-prefix; the forward runs ``attn`` (full or windowed) and ``mamba``
-mixers with an ``mlp`` or no ffn, no encoder and no vision prefix.
-Other configurations raise ``NotImplementedError`` naming the ROADMAP
-item that ports them (``check_decode_supported``,
-``check_forward_supported``).  The multi-device split-KV branches
-(``softmax_combine``) are not ported: the port serves on one card.
+``Model`` holds every configuration, and every configuration decodes and
+runs its forward.  A sliding-window model's cache is a rolling buffer of
+``window`` slots (``cache_len``): position p writes slot p mod window, and
+its valid slots are always the prefix ``[0, min(p + 1, window))``, so the
+kernel attends that prefix (the reference's sharded-branch mask; its
+single-shard mask is a fault, ROADMAP queue 3).  A request's position in
+the encoder-decoder's sinusoidal encoding is its own row's (the reference
+broadcasts one position to the batch: queue 3).  Training raises for
+MoE, encoder and vision-prefix configurations
+(``check_train_supported``: ROADMAP queue 1 item 7).  The multi-device
+split-KV branches (``softmax_combine``) are not ported: the port serves on
+one card.
 """
 from __future__ import annotations
 
@@ -42,10 +51,13 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.blocks import (ParamDef, init_params, mlp_defs,
-                                       rms_norm, rope, stack_defs, swiglu,
-                                       tree_leaves, tree_map, unflatten)
+                                       rms_norm, rope, sinusoidal_at,
+                                       sinusoidal_positions, stack_defs,
+                                       swiglu, tree_leaves, tree_map,
+                                       unflatten)
 
 # ================================================================ defs
 
@@ -72,18 +84,6 @@ def _attn_defs(cfg: ArchConfig, cross: bool = False):
     return defs
 
 
-def _moe_defs(cfg: ArchConfig):
-    """The reference's ``moe.moe_defs`` (definitions only: the MoE ffn
-    is a later slice)."""
-    e, d, f = cfg.n_experts, cfg.d_model, cfg.moe_d_ff
-    return {
-        "router": ParamDef((d, e), (None, None), scale=0.02),
-        "we_i": ParamDef((e, d, f), ("experts", "embed", "mlp")),
-        "we_g": ParamDef((e, d, f), ("experts", "embed", "mlp")),
-        "we_o": ParamDef((e, f, d), ("experts", "mlp", "embed")),
-    }
-
-
 def _ffn_defs(cfg: ArchConfig, kind):
     d = cfg.d_model
     if kind is None:
@@ -92,7 +92,7 @@ def _ffn_defs(cfg: ArchConfig, kind):
     if kind == "mlp":
         return {**norm, **mlp_defs(d, cfg.d_ff)}
     if kind == "moe":
-        return {**norm, **_moe_defs(cfg)}
+        return {**norm, **moe_mod.moe_defs(cfg)}
     raise ValueError(kind)
 
 
@@ -129,30 +129,11 @@ def model_defs(cfg: ArchConfig):
     return defs
 
 
-def check_decode_supported(cfg: ArchConfig) -> None:
-    """Raise for what the port's decode path does not run yet."""
-    why = []
-    if any(m != "attn" for m, _ in cfg.pattern):
-        why.append("SSM mixers")
-    if any(f != "mlp" for _, f in cfg.pattern):
-        why.append("MoE or absent ffns")
-    if cfg.enc_layers > 0:
-        why.append("an encoder")
-    if cfg.vision_prefix > 0:
-        why.append("a vision prefix")
-    if cfg.window > 0:
-        why.append("a sliding window")
-    if why:
-        raise NotImplementedError(
-            f"{cfg.name}: the port's decode path runs dense full-attention "
-            f"models; {', '.join(why)} come with a later slice (ROADMAP "
-            f"queue 1 item 2)")
-
-
-def check_forward_supported(cfg: ArchConfig) -> None:
-    """Raise for what the port's forward (prefill) path does not run
-    yet: attention (full or windowed) and Mamba-2 mixers with an MLP or
-    no ffn run; MoE ffns, encoders and vision prefixes do not."""
+def check_train_supported(cfg: ArchConfig) -> None:
+    """Raise for what the port's train step does not run yet: it trains
+    attention and Mamba-2 models with an MLP or no ffn; MoE ffns (the
+    router's aux loss and the capacity drops under autograd), encoders
+    and vision prefixes (their training inputs) come later."""
     why = []
     if any(f == "moe" for _, f in cfg.pattern):
         why.append("MoE ffns")
@@ -162,8 +143,8 @@ def check_forward_supported(cfg: ArchConfig) -> None:
         why.append("a vision prefix")
     if why:
         raise NotImplementedError(
-            f"{cfg.name}: the port's forward path does not run "
-            f"{', '.join(why)} yet (ROADMAP queue 1 item 2)")
+            f"{cfg.name}: the port does not train {', '.join(why)} yet "
+            f"(ROADMAP queue 1 item 7)")
 
 
 class Model(nn.Module):
@@ -201,11 +182,13 @@ def _register(module: nn.Module, tree: dict) -> None:
 
 # ================================================================ decode
 
-def _project_qkv(p, x, cfg, cd):
-    q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(cd))
-    k = torch.einsum("bsd,dhk->bshk", x, p["wk"].to(cd))
-    v = torch.einsum("bsd,dhk->bshk", x, p["wv"].to(cd))
-    if cfg.qkv_bias:
+def _project_qkv(p, x, cfg, cd, prefix=""):
+    """q, k, v of ``x`` through ``wq``/``wk``/``wv`` (``xwq``... with
+    prefix "x", the cross-attention's, which have no bias)."""
+    q = torch.einsum("bsd,dhk->bshk", x, p[prefix + "wq"].to(cd))
+    k = torch.einsum("bsd,dhk->bshk", x, p[prefix + "wk"].to(cd))
+    v = torch.einsum("bsd,dhk->bshk", x, p[prefix + "wv"].to(cd))
+    if cfg.qkv_bias and prefix == "":
         q = q + p["bq"].to(cd)
         k = k + p["bk"].to(cd)
         v = v + p["bv"].to(cd)
@@ -216,18 +199,36 @@ def cache_len(cfg, seq_len):
     return min(seq_len, cfg.window) if cfg.window else seq_len
 
 
-def init_caches(cfg, batch, seq_len, *, device="cuda"):
-    """Per-layer decode caches stacked over n_blocks, zero-filled:
-    ``{"layers": {"sub<i>": {"k": (n_blocks, B, S, KVH, hd), "v": ...}}}``
-    in bf16 whatever the compute dtype (the reference's default)."""
-    check_decode_supported(cfg)
+def init_caches(cfg, batch, seq_len, *, dtype=torch.bfloat16, device="cuda"):
+    """Per-layer decode caches stacked over n_blocks, zero-filled, the
+    reference's tree: ``{"layers": {"sub<i>": ...}}`` with ``k``, ``v``
+    (n_blocks, B, cache_len, KVH, hd) for an attention sublayer and
+    ``conv`` (n_blocks, B, K - 1, d_in + 2N), ``state`` (n_blocks, B, H,
+    N, P) float32 for a Mamba-2 one; plus ``memory`` (B, max(seq_len //
+    audio_stride, 8), d_model) for an encoder-decoder (the encoder's
+    output, zero until a caller fills it).  Every leaf but the state is
+    in ``dtype``, bf16 by default as in the reference."""
     dev = resolve_device(device)
-    shape = (cfg.n_blocks, batch, cache_len(cfg, seq_len), cfg.n_kv_heads,
-             cfg.hd)
-    return {"layers": {
-        f"sub{i}": {name: torch.zeros(shape, dtype=torch.bfloat16, device=dev)
-                    for name in ("k", "v")}
-        for i in range(len(cfg.pattern))}}
+
+    def zeros(shape, leaf_dtype=dtype):
+        return torch.zeros(shape, dtype=leaf_dtype, device=dev)
+    sub = {}
+    for i, (mixer, _) in enumerate(cfg.pattern):
+        if mixer == "attn":
+            shape = (cfg.n_blocks, batch, cache_len(cfg, seq_len),
+                     cfg.n_kv_heads, cfg.hd)
+            sub[f"sub{i}"] = {"k": zeros(shape), "v": zeros(shape)}
+        else:
+            d_in, h, p, n, k = ssm_mod.ssm_dims(cfg)
+            sub[f"sub{i}"] = {
+                "conv": zeros((cfg.n_blocks, batch, k - 1, d_in + 2 * n)),
+                "state": zeros((cfg.n_blocks, batch, h, n, p),
+                               torch.float32)}
+    caches = {"layers": sub}
+    if cfg.enc_layers > 0:
+        enc_len = max(seq_len // max(cfg.audio_stride, 1), 8)
+        caches["memory"] = zeros((batch, enc_len, cfg.d_model))
+    return caches
 
 
 def cache_insert(kc, vc, k_new, v_new, pos):
@@ -247,12 +248,28 @@ def cache_insert(kc, vc, k_new, v_new, pos):
 
 def decode_attn_core(q, kc, vc, kv_len, cfg):
     """Single-shard decode attention: q (B, 1, H, hd) against the first
-    ``kv_len[b]`` slots of row b of the cache."""
+    ``kv_len[b]`` slots of row b of the cache (for a rolling buffer, the
+    valid prefix ``min(pos + 1, window)``)."""
     return attn.decode_attention(q, kc, vc, kv_len=kv_len, window=cfg.window)
 
 
-def attn_decode_apply(p, x, cache, slot, positions, kv_len, cfg):
-    """The attention sublayer of one decode step; updates ``cache``."""
+def _cross(p, x, memory, cfg, cd, core):
+    """The cross-attention of an encoder-decoder's sublayer: q from x
+    through ``xnorm``/``xwq``, k and v from the encoder memory, ``core``
+    the attention itself."""
+    hx = rms_norm(x, p["xnorm"], cfg.norm_eps).to(cd)
+    qx = torch.einsum("bsd,dhk->bshk", hx, p["xwq"].to(cd))
+    mem = memory.to(cd)
+    kx = torch.einsum("bsd,dhk->bshk", mem, p["xwk"].to(cd))
+    vx = torch.einsum("bsd,dhk->bshk", mem, p["xwv"].to(cd))
+    ox = core(qx, kx, vx)
+    return x + torch.einsum("bshk,hkd->bsd", ox.to(cd), p["xwo"].to(cd))
+
+
+def attn_decode_apply(p, x, cache, slot, positions, kv_len, cfg,
+                      memory=None):
+    """The attention sublayer of one decode step (self-attention, then
+    cross-attention over ``memory`` when given); updates ``cache``."""
     cd = getattr(torch, cfg.compute_dtype)
     h = rms_norm(x, p["norm"], cfg.norm_eps).to(cd)
     q, k, v = _project_qkv(p, h, cfg, cd)
@@ -261,29 +278,50 @@ def attn_decode_apply(p, x, cache, slot, positions, kv_len, cfg):
         k = rope(k, positions, cfg.rope_theta)
     kc, vc = cache_insert(cache["k"], cache["v"], k, v, slot)
     o = decode_attn_core(q, kc, vc, kv_len, cfg)
-    return x + torch.einsum("bshk,hkd->bsd", o.to(cd), p["wo"].to(cd))
+    x = x + torch.einsum("bshk,hkd->bsd", o.to(cd), p["wo"].to(cd))
+    if memory is not None:
+        x = _cross(p, x, memory, cfg, cd, attn.cross_attention)
+    return x
 
 
-def ffn_apply(p, x, kind, cfg):
-    """The ffn sublayer: an MLP, or nothing (``kind`` None)."""
+def ffn_apply(p, x, kind, cfg, decode=False):
+    """The ffn sublayer: an MLP, a MoE (``models/moe.py``; its decode
+    path when ``decode``) or nothing (``kind`` None).  Returns ``(x,
+    aux)``, aux the MoE router loss (0.0 otherwise)."""
     if kind is None:
-        return x
+        return x, 0.0
     cd = getattr(torch, cfg.compute_dtype)
     h = rms_norm(x, p["norm"], cfg.norm_eps).to(cd)
-    return x + swiglu(h, p["wi"], p["wg"], p["wo"], cd)
+    if kind == "mlp":
+        return x + swiglu(h, p["wi"], p["wg"], p["wo"], cd), 0.0
+    y, aux = moe_mod.moe_apply(p, h, cfg, decode=decode)
+    return x + y, aux
 
 
-def run_blocks_decode(blocks, caches, x, slot, positions, kv_len, cfg):
+def _mixer_params(p):
+    return {k: v for k, v in p.items() if k != "norm"}
+
+
+def run_blocks_decode(blocks, caches, x, slot, positions, kv_len, cfg,
+                      memory=None):
     """One decode step through the stacked blocks, a Python loop in place
     of the reference's scan; the caches are updated in place."""
-    for i in range(cfg.n_blocks):
-        bp = tree_map(lambda a: a[i], blocks)
-        for j, (_, ffn) in enumerate(cfg.pattern):
+    for i, bp in enumerate(block_layers(blocks)):
+        for j, (mixer, ffn) in enumerate(cfg.pattern):
             sub = bp[f"sub{j}"]
-            cache = tree_map(lambda a: a[i], caches["layers"][f"sub{j}"])
-            x = attn_decode_apply(sub["mixer"], x, cache, slot, positions,
-                                  kv_len, cfg)
-            x = ffn_apply(sub["ffn"], x, ffn, cfg)
+            layer = caches["layers"][f"sub{j}"]
+            cache = {name: t[i] for name, t in layer.items()}
+            if mixer == "attn":
+                x = attn_decode_apply(sub["mixer"], x, cache, slot,
+                                      positions, kv_len, cfg, memory)
+            else:
+                hm = rms_norm(x, sub["mixer"]["norm"], cfg.norm_eps)
+                y, new = ssm_mod.ssm_decode_step(_mixer_params(sub["mixer"]),
+                                                 hm, cache, cfg)
+                for name, t in new.items():
+                    cache[name].copy_(t)
+                x = x + y
+            x, _ = ffn_apply(sub.get("ffn"), x, ffn, cfg, decode=True)
     return x
 
 
@@ -298,6 +336,17 @@ def _check_on(dev, tree, what):
             raise ValueError(f"{what} on {dev}: {name} is on {t.device}")
 
 
+def _kv_slots(cfg, caches):
+    """Slots of the KV caches, and whether they are a rolling buffer (a
+    windowed model's cache of ``window`` slots); (None, False) without
+    attention."""
+    for layer in caches["layers"].values():
+        if "k" in layer:
+            n = layer["k"].shape[2]
+            return n, bool(cfg.window) and n >= cfg.window
+    return None, False
+
+
 @torch.no_grad()
 def decode_forward(params, caches, tokens, step, cfg, *, device="cuda"):
     """Single-token serve forward: (B, 1) tokens -> (B, 1, V) f32 logits.
@@ -306,33 +355,40 @@ def decode_forward(params, caches, tokens, step, cfg, *, device="cuda"):
     ``init_caches`` and is updated IN PLACE (returned as well, as the
     reference returns its new caches).  ``step`` is the host-side
     position: an int for every row, or a (B,) array of per-row positions
-    (continuous batching); each must lie in the cache.  Everything runs
-    on ``device``, where the parameters and caches must be.
+    (continuous batching).  A position must lie in a linear KV cache; a
+    rolling buffer (sliding window) and a model without attention take
+    any position.  Everything runs on ``device``, where the parameters
+    and caches must be.
     """
     dev = resolve_device(device)
-    check_decode_supported(cfg)
     _check_on(dev, {"params": params, "caches": caches}, "decode_forward")
     cd = getattr(torch, cfg.compute_dtype)
     steps = np.asarray(step.cpu() if torch.is_tensor(step) else step)
     b = tokens.shape[0]
-    n_slots = caches["layers"]["sub0"]["k"].shape[2]
     if steps.ndim not in (0, 1) or (steps.ndim == 1 and steps.shape != (b,)):
         raise ValueError(f"step must be a scalar or ({b},), got "
                          f"{steps.shape}")
-    if not ((steps >= 0) & (steps < n_slots)).all():
+    n_slots, rolling = _kv_slots(cfg, caches)
+    if (steps < 0).any() or (n_slots is not None and not rolling
+                             and (steps >= n_slots).any()):
         raise IndexError(f"decode positions {steps} outside the "
                          f"{n_slots}-slot cache")
     if steps.ndim == 1:
-        slot = torch.tensor(steps, dtype=torch.long, device=dev)
-        positions = slot[:, None]
+        positions = torch.tensor(steps, dtype=torch.long, device=dev)[:, None]
+        slot = positions[:, 0] % n_slots if n_slots else None
     else:
-        slot = int(steps)
-        positions = torch.full((b, 1), slot, dtype=torch.long, device=dev)
-    kv_len = (positions[:, 0] + 1).to(torch.int32)
+        positions = torch.full((b, 1), int(steps), dtype=torch.long,
+                               device=dev)
+        slot = int(steps) % n_slots if n_slots else None
+    kv_len = (torch.clamp(positions[:, 0] + 1, max=n_slots).to(torch.int32)
+              if n_slots else None)
     tokens = torch.as_tensor(tokens).to(dev)
     x = embed_tokens(params, tokens, cfg, cd)
+    memory = caches.get("memory")
+    if not cfg.use_rope and cfg.enc_layers > 0:
+        x = x + sinusoidal_at(positions, cfg.d_model).to(cd)
     x = run_blocks_decode(params["blocks"], caches, x, slot, positions,
-                          kv_len, cfg)
+                          kv_len, cfg, memory)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = torch.einsum("bsd,dv->bsv", x.to(cd), params["lm_head"].to(cd))
     return logits.float(), caches
@@ -347,9 +403,10 @@ def attn_core(q, k, v, cfg, *, causal, window):
     return attn.attention(q, k, v, causal=causal, window=window)
 
 
-def attn_apply(p, x, cfg, positions, *, causal=True, window=0):
-    """The self-attention sublayer over a whole sequence (cross
-    attention comes with the encoder-decoder)."""
+def attn_apply(p, x, cfg, positions, *, causal=True, window=0,
+               memory=None):
+    """The self-attention sublayer over a whole sequence, then the
+    cross-attention over ``memory`` (bidirectional) when given."""
     cd = getattr(torch, cfg.compute_dtype)
     h = rms_norm(x, p["norm"], cfg.norm_eps).to(cd)
     q, k, v = _project_qkv(p, h, cfg, cd)
@@ -357,43 +414,53 @@ def attn_apply(p, x, cfg, positions, *, causal=True, window=0):
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
     o = attn_core(q, k, v, cfg, causal=causal, window=window)
-    return x + torch.einsum("bshk,hkd->bsd", o.to(cd), p["wo"].to(cd))
+    x = x + torch.einsum("bshk,hkd->bsd", o.to(cd), p["wo"].to(cd))
+    if memory is not None:
+        x = _cross(p, x, memory, cfg, cd,
+                   lambda qx, kx, vx: attn_core(qx, kx, vx, cfg,
+                                                causal=False, window=0))
+    return x
 
 
-def sublayer_apply(sub, x, mixer, ffn, cfg, positions, *, causal=True):
-    """One (mixer, ffn) sublayer: attention or Mamba-2, then an MLP or
-    nothing."""
+def sublayer_apply(sub, x, mixer, ffn, cfg, positions, *, causal=True,
+                   memory=None):
+    """One (mixer, ffn) sublayer: attention or Mamba-2, then an MLP, a
+    MoE or nothing.  Returns ``(x, aux)``."""
     if mixer == "attn":
         x = attn_apply(sub["mixer"], x, cfg, positions, causal=causal,
-                       window=cfg.window)
+                       window=cfg.window, memory=memory)
     else:
         hm = rms_norm(x, sub["mixer"]["norm"], cfg.norm_eps)
-        y, _ = ssm_mod.ssm_apply(
-            {k: v for k, v in sub["mixer"].items() if k != "norm"}, hm, cfg)
+        y, _ = ssm_mod.ssm_apply(_mixer_params(sub["mixer"]), hm, cfg)
         x = x + y
     return ffn_apply(sub.get("ffn"), x, ffn, cfg)
 
 
-def block_layers(blocks, n_blocks):
+def block_layers(blocks):
     """One parameter tree per block: views ``a[i]`` of the stacked tree,
     or ``blocks`` itself where it is already a list of per-block trees,
     which only the train step makes (``launch/steps.grad_leaves``)."""
     if isinstance(blocks, list):
         return blocks
-    return [tree_map(lambda a: a[i], blocks) for i in range(n_blocks)]
+    n = next(tree_leaves(blocks))[1].shape[0]
+    return [tree_map(lambda a: a[i], blocks) for i in range(n)]
 
 
-def _block(bp, x, cfg, positions, causal):
-    for j, (mixer, ffn) in enumerate(cfg.pattern):
-        x = sublayer_apply(bp[f"sub{j}"], x, mixer, ffn, cfg, positions,
-                           causal=causal)
-    return x
+def _block(bp, x, cfg, positions, causal, pattern, memory):
+    aux = 0.0
+    for j, (mixer, ffn) in enumerate(pattern):
+        x, a = sublayer_apply(bp[f"sub{j}"], x, mixer, ffn, cfg, positions,
+                              causal=causal, memory=memory)
+        aux = aux + a
+    return x, aux
 
 
-def run_blocks(blocks, x, cfg, positions, *, causal=True):
-    """The stacked blocks over a whole sequence, a Python loop in place
-    of the reference's scan.  Returns ``(x, aux)``; aux, the MoE router
-    loss, is 0 here.
+def run_blocks(blocks, x, cfg, positions, *, pattern=None, causal=True,
+               memory=None):
+    """The stacked blocks over a whole sequence (``pattern`` the
+    sublayers of a block, ``cfg.pattern`` by default), a Python loop in
+    place of the reference's scan.  Returns ``(x, aux)``, aux the router
+    loss summed over the MoE sublayers (0.0 without).
 
     Where gradients are kept and ``cfg.remat != "none"``, each block runs
     under ``torch.utils.checkpoint`` (non-reentrant), the reference's
@@ -406,36 +473,73 @@ def run_blocks(blocks, x, cfg, positions, *, causal=True):
     recomputing them costs one more forward of the block's products.
     Neither choice changes a number.
     """
+    pattern = cfg.pattern if pattern is None else pattern
     remat = cfg.remat != "none" and torch.is_grad_enabled()
-    for bp in block_layers(blocks, cfg.n_blocks):
+    aux = 0.0
+    for bp in block_layers(blocks):
+        args = (bp, x, cfg, positions, causal, pattern, memory)
         if remat:
-            x = checkpoint(_block, bp, x, cfg, positions, causal,
-                           use_reentrant=False, preserve_rng_state=False)
+            x, a = checkpoint(_block, *args, use_reentrant=False,
+                              preserve_rng_state=False)
         else:
-            x = _block(bp, x, cfg, positions, causal)
-    return x, 0.0
+            x, a = _block(*args)
+        aux = aux + a
+    return x, aux
 
 
 def build_inputs(params, batch, cfg):
-    """The decoder input sequence from ``batch["tokens"]`` (B, S)."""
-    return embed_tokens(params, batch["tokens"],
-                        cfg, getattr(torch, cfg.compute_dtype))
+    """The decoder input sequence: the embedded ``batch["tokens"]`` (B,
+    S), after the vision prefix ``batch["vision_embed"] @ vis_proj`` (B,
+    P, D) where the model has one, plus sinusoidal positions for an
+    encoder-decoder."""
+    cd = getattr(torch, cfg.compute_dtype)
+    x = embed_tokens(params, batch["tokens"], cfg, cd)
+    if cfg.vision_prefix > 0:
+        vis = batch["vision_embed"].to(cd) @ params["vis_proj"].to(cd)
+        x = torch.cat([vis, x], dim=1)
+    if not cfg.use_rope and cfg.enc_layers > 0:
+        x = x + sinusoidal_positions(x.shape[1], cfg.d_model,
+                                     device=x.device).to(cd)[None]
+    return x
+
+
+def encode(params, batch, cfg):
+    """The encoder of an encoder-decoder over ``batch["frames"]`` (B, F,
+    D), the precomputed frame embeddings of the audio stub:
+    bidirectional attention blocks, then ``enc_norm``."""
+    cd = getattr(torch, cfg.compute_dtype)
+    x = batch["frames"].to(cd) @ params["enc_in"].to(cd)
+    x = x + sinusoidal_positions(x.shape[1], cfg.d_model,
+                                 device=x.device).to(cd)[None]
+    pos = torch.arange(x.shape[1], device=x.device).expand(x.shape[:2])
+    x, _ = run_blocks(params["enc_blocks"], x, cfg, pos,
+                      pattern=(("attn", "mlp"),), causal=False)
+    return rms_norm(x, params["enc_norm"], cfg.norm_eps)
+
+
+#: the batch entries the forward reads
+BATCH_INPUTS = ("tokens", "vision_embed", "frames")
 
 
 def forward_hidden(params, batch, cfg, *, device="cuda"):
     """Forward up to the final norm: ``(hidden (B, S, D) in the compute
-    dtype, aux)``.  ``params`` is ``Model.params`` on ``device``;
-    ``batch["tokens"]`` (B, S) integers.
+    dtype, aux)``, the vision prefix's positions cut off.  ``params`` is
+    ``Model.params`` on ``device``; ``batch["tokens"]`` (B, S) integers,
+    with ``vision_embed`` (B, vision_prefix, D) for a VLM and ``frames``
+    (B, F, D) for an encoder-decoder, arrays or tensors.
     Gradients are kept unless the caller runs it under
     ``torch.no_grad()``."""
     dev = resolve_device(device)
-    check_forward_supported(cfg)
     _check_on(dev, params, "forward")
-    tokens = torch.as_tensor(batch["tokens"]).to(dev)
-    x = build_inputs(params, {"tokens": tokens}, cfg)
+    batch = {k: torch.as_tensor(v).to(dev) for k, v in batch.items()
+             if k in BATCH_INPUTS}
+    x = build_inputs(params, batch, cfg)
+    memory = encode(params, batch, cfg) if cfg.enc_layers > 0 else None
     pos = torch.arange(x.shape[1], device=dev).expand(x.shape[:2])
-    x, aux = run_blocks(params["blocks"], x, cfg, pos, causal=True)
-    return rms_norm(x, params["final_norm"], cfg.norm_eps), aux
+    x, aux = run_blocks(params["blocks"], x, cfg, pos, causal=True,
+                        memory=memory)
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return x[:, cfg.vision_prefix:], aux
 
 
 @torch.no_grad()
@@ -490,10 +594,11 @@ def chunked_xent(x, lm_head, targets, mask, cfg):
 def loss_fn(params, batch, cfg, *, device="cuda"):
     """``(total, metrics)``: the next-token loss of ``batch`` (``tokens``,
     ``targets``, optional ``loss_mask``, arrays or tensors) plus
-    ``router_aux_coef`` times the MoE router loss (0 until MoE ffns are
-    ported); metrics ``loss``, ``aux_loss`` and ``perplexity =
+    ``router_aux_coef`` times the MoE router loss (0: the configurations
+    it trains have no MoE, ``check_train_supported``); metrics ``loss``, ``aux_loss`` and ``perplexity =
     exp(min(loss, 20))``, detached.  ``total`` carries the graph."""
     dev = resolve_device(device)
+    check_train_supported(cfg)
     x, aux = forward_hidden(params, batch, cfg, device=dev)
     mask = batch.get("loss_mask")
     if mask is not None:

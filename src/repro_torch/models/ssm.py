@@ -7,8 +7,9 @@ beside the scan's backward, which recomputes it) and ``ssm_apply``,
 whose scan is ``kernels/ops.ssd_scan``: the hand-written Hopper kernel
 on a CUDA tensor, its plain version on a CPU tensor, differentiable on
 both.  B and C are one group (G = 1) shared by every head.  The
-single-token decode step and its caches (``ssm_decode_init``,
-``ssm_decode_step``) come with SSM decode (ROADMAP queue 1 item 2).
+single-token decode step (``ssm_decode_init``, ``ssm_decode_step``) is
+plain PyTorch, as the reference's is jnp: a (B, H, N, P) state update a
+token, which no kernel of the reference computes.
 """
 from __future__ import annotations
 
@@ -86,3 +87,51 @@ def ssm_apply(p, x, cfg, *, chunk=256):
     y = y.reshape(*x.shape[:2], d_in)
     y = rms_norm(y.to(cd) * silu(z), p["gnorm"], cfg.norm_eps)
     return y @ p["wo"].to(cd), state
+
+
+def ssm_decode_init(cfg, batch, dtype=torch.float32, *, device="cpu"):
+    """Zero caches of one Mamba-2 layer: the last K - 1 conv inputs
+    ``conv`` (B, K - 1, d_in + 2N) in ``dtype`` and the state ``state``
+    (B, H, N, P) in float32."""
+    d_in, h, p, n, k = ssm_dims(cfg)
+    return {"conv": torch.zeros((batch, k - 1, d_in + 2 * n), dtype=dtype,
+                                device=device),
+            "state": torch.zeros((batch, h, n, p), dtype=torch.float32,
+                                 device=device)}
+
+
+def ssm_decode_step(p, x, cache, cfg):
+    """Single-token step.  x (B, 1, D) -> (y (B, 1, D), new cache), the
+    reference's arithmetic op by op: the conv window and its product in
+    the compute dtype (the product summed over the K taps in float32 and
+    rounded once, as a dot), dt, the decay and the state in float32.
+    The new cache is returned as new tensors; the caller writes it back.
+    """
+    cd = getattr(torch, cfg.compute_dtype)
+    acc = torch.promote_types(cd, torch.float32)
+    d_in, h, hp, n, k = ssm_dims(cfg)
+    xt = x[:, 0].to(cd)                                   # (B, D)
+    z = xt @ p["wz"].to(cd)
+    xbc = torch.cat([xt @ p["wx"].to(cd), xt @ p["wB"].to(cd),
+                     xt @ p["wC"].to(cd)], dim=-1)       # (B, d_in + 2N)
+    dt_raw = xt @ p["wdt"].to(cd)
+    conv_w = torch.cat([p["conv_x"], p["conv_B"], p["conv_C"]],
+                       dim=1).to(cd)                     # (K, d_in + 2N)
+    window = torch.cat([cache["conv"].to(cd), xbc[:, None]], dim=1)
+    conv_out = silu(torch.einsum("bkc,kc->bc", window.to(acc),
+                                 conv_w.to(acc)).to(cd))
+    xin = conv_out[:, :d_in]
+    B_ = conv_out[:, d_in:d_in + n].to(acc)
+    C_ = conv_out[:, d_in + n:].to(acc)
+    dt = F.softplus(dt_raw.to(acc) + p["dt_bias"].to(acc))   # (B, H)
+    a = -torch.exp(p["A_log"].to(acc)) * dt
+    xh = xin.reshape(-1, h, hp).to(acc)
+    state = cache["state"] * torch.exp(a)[..., None, None] + torch.einsum(
+        "bn,bh,bhp->bhnp", B_, dt, xh)
+    y = torch.einsum("bn,bhnp->bhp", C_, state)
+    y = y + p["D"].to(acc)[:, None] * xh
+    y = rms_norm(y.reshape(-1, d_in).to(cd) * silu(z), p["gnorm"],
+                 cfg.norm_eps)
+    out = (y @ p["wo"].to(cd))[:, None]
+    return out, {"conv": window[:, 1:].to(cache["conv"].dtype),
+                 "state": state}

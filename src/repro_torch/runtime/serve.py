@@ -8,7 +8,10 @@ independently (EOS, ``max_new_tokens`` or the end of the cache) and are
 immediately recycled for queued requests — iteration-level (continuous)
 batching.  Admission, prefill, completion and recycling follow the
 reference line for line; the reference's jitted step with donated caches
-becomes ``decode_forward`` updating the caches in place.
+becomes ``decode_forward`` updating the caches in place.  One departure:
+admission zeroes the slot's Mamba-2 conv and state rows, which the
+reference leaves holding the previous request's state (ROADMAP queue 3);
+KV rows need nothing, since ``kv_len`` masks them.
 """
 from __future__ import annotations
 
@@ -44,22 +47,25 @@ class ServerStats:
 
 class Server:
     """Continuous-batching server of ``model`` (a ``models.model.Model``)
-    on ``device``.  The KV caches (``init_caches``: bf16,
-    (n_blocks, pool, max_seq, KVH, hd) per attention sublayer) live on the
-    device and every step updates them in place.  ``sampler`` maps the
+    on ``device``.  The caches (``init_caches``: bf16 KV rows of
+    ``cache_len(cfg, max_seq)`` slots per attention sublayer, conv and
+    state rows per Mamba-2 sublayer, the encoder memory of an
+    encoder-decoder) live on the device and every step updates them in
+    place; ``cache_dtype`` (bf16, the reference's) is their dtype.  ``sampler`` maps the
     (pool, vocab) f32 logits of a step to next tokens (greedy argmax by
     default)."""
 
     def __init__(self, cfg: ArchConfig, model, *, pool: int = 4,
                  max_seq: int = 256, sampler: Optional[Callable] = None,
-                 device="cuda"):
+                 cache_dtype=torch.bfloat16, device="cuda"):
         self.device = resolve_device(device)
         self.cfg = cfg
         self.model = model
         self.pool = pool
         self.max_seq = max_seq
         self.sampler = sampler or (lambda logits: torch.argmax(logits, -1))
-        self.caches = mdl.init_caches(cfg, pool, max_seq, device=self.device)
+        self.caches = mdl.init_caches(cfg, pool, max_seq, dtype=cache_dtype,
+                                      device=self.device)
         self.pos = np.zeros(pool, np.int32)          # next cache slot/row
         self.active: list[Optional[Request]] = [None] * pool
         self.queue: deque[Request] = deque()
@@ -83,6 +89,10 @@ class Server:
                 r = self.queue.popleft()
                 self.active[slot] = r
                 self.pos[slot] = 0
+                for layer in self.caches["layers"].values():
+                    for name in ("conv", "state"):
+                        if name in layer:
+                            layer[name][:, slot].zero_()
                 self._pending[slot] = list(r.prompt)
                 self.stats.admitted += 1
 

@@ -141,7 +141,7 @@ class Trainer:
                  tcfg: TrainerConfig, opt_cfg: adamw.AdamWConfig | None = None,
                  log: Callable[[str], None] = print, *, device="cuda"):
         self.device = resolve_device(device)
-        mdl.check_forward_supported(cfg)
+        mdl.check_train_supported(cfg)
         if tcfg.grad_compression not in ("none", "int8_ef"):
             raise ValueError(f"grad_compression {tcfg.grad_compression!r}")
         self.cfg = cfg

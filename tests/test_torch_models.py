@@ -3,13 +3,15 @@
 Configs are held equal field by field, parameter counts equal for all
 ten architectures, the elementwise blocks and attention within float32
 rounding, and ``decode_forward`` over eight continuous-batching steps
-(per-row positions) at the granite and llama smoke configs, both
-packages loading the same weights (``params_from_reference``).
+(per-row positions) at the smoke configs of every family that decodes
+with per-row positions (dense, sliding-window, MoE, Mamba-2, hybrid,
+VLM), both packages loading the same weights
+(``params_from_reference``).  The encoder-decoder, the Mamba-2 step and
+the cache trees are in ``tests/test_torch_decode.py``.
 """
 from __future__ import annotations
 
 import dataclasses
-import functools
 
 import jax
 import jax.numpy as jnp
@@ -23,38 +25,19 @@ from repro.models import attention as ref_attn
 from repro.models import blocks as ref_blocks
 from repro.models import model as ref_model
 from repro_torch.configs import base as port_base
-from repro_torch.convert import params_from_reference
 from repro_torch.models import attention as port_attn
 from repro_torch.models import blocks as port_blocks
+from repro_torch.launch import steps as port_steps
 from repro_torch.models import model as port_model
 
+from _torch_parity import op_by_op, ported
+from _torch_parity import to_np as _np
+
 DENSE = ("granite_3_2b", "llama3_2_3b")
-
-
-def _np(x):
-    return np.asarray(jnp.asarray(x).astype(jnp.float32)) \
-        if not isinstance(x, torch.Tensor) else x.float().numpy()
-
-
-@functools.lru_cache(maxsize=None)
-def _ref_params(arch):
-    cfg = ref_base.get_config(arch, smoke=True)
-    return ref_blocks.init_params(ref_model.model_defs(cfg),
-                                  jax.random.PRNGKey(0))
-
-
-def ported(arch, compute_dtype="bfloat16"):
-    """Reference config, params (seed 0) and the port's Model loaded with
-    them, at the smoke config in ``compute_dtype``."""
-    cfg = ref_base.get_config(arch, smoke=True).replace(
-        compute_dtype=compute_dtype)
-    pcfg = port_base.get_config(arch, smoke=True).replace(
-        compute_dtype=compute_dtype)
-    params = _ref_params(arch)
-    model = port_model.Model(pcfg, device="cpu")
-    model.load_state_dict(params_from_reference(
-        jax.tree.map(np.asarray, params)))
-    return cfg, pcfg, params, model
+#: every architecture whose reference decodes with per-row positions
+#: (whisper's reference takes one position for the batch: queue 3)
+DECODE = DENSE + ("h2o_danube_3_4b", "mamba2_370m", "mixtral_8x7b",
+                  "qwen3_moe_235b_a22b", "jamba_v0_1_52b", "internvl2_26b")
 
 
 # ================================================================ configs
@@ -112,19 +95,21 @@ def test_init_params_scheme():
     assert torch.equal(out["a"], again["a"])
 
 
-@pytest.mark.parametrize("arch", ["mixtral_8x7b", "mamba2_370m",
-                                  "whisper_medium", "internvl2_26b",
-                                  "h2o_danube_3_4b"])
+@pytest.mark.parametrize("arch", ["whisper_medium", "internvl2_26b"])
 def test_later_slices_raise(arch):
-    """``Model`` holds every configuration; decode raises for what it does
-    not run yet (SSM, MoE, windows, encoders, vision prefixes)."""
+    """``Model`` holds every configuration, and every one decodes; the
+    train step and the loss raise for what they do not run yet (encoders
+    and vision prefixes here, MoE in ``tests/test_torch_moe.py``), naming
+    ROADMAP queue 1 item 7."""
     cfg = port_base.get_config(arch, smoke=True)
     model = port_model.Model(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port_model.init_caches(cfg, 1, 8, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port_model.decode_forward(model.params, {"layers": {}},
-                                  torch.tensor([[1]]), 0, cfg, device="cpu")
+    caches = port_model.init_caches(cfg, 1, 8, device="cpu")
+    logits, _ = port_model.decode_forward(model.params, caches,
+                                          torch.tensor([[1]]), 0, cfg,
+                                          device="cpu")
+    assert logits.shape == (1, 1, cfg.vocab_size)
+    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
+        port_steps.make_train_step(cfg, device="cpu")
 
 
 # ================================================================ blocks
@@ -209,7 +194,16 @@ def test_dense_and_decode_attention_match_reference():
                 *map(jnp.asarray, (qd, k, v)),
                 kv_len=None if kl is None else jnp.asarray(kl))),
             rtol=2e-5, atol=2e-5)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # a window no shorter than the cache excludes nothing (the port's
+    # rolling buffers); a cache longer than the window is not the port's
+    np.testing.assert_allclose(
+        port_attn.decode_attention(*map(torch.tensor, (qd, k, v)),
+                                   kv_len=torch.tensor(kv_len),
+                                   window=6).numpy(),
+        np.asarray(ref_attn.decode_attention(
+            *map(jnp.asarray, (qd, k, v)), kv_len=jnp.asarray(kv_len),
+            window=6)), rtol=2e-5, atol=2e-5)
+    with pytest.raises(ValueError, match="window"):
         port_attn.decode_attention(*map(torch.tensor, (qd, k, v)),
                                    kv_len=torch.tensor(kv_len), window=4)
 
@@ -222,17 +216,41 @@ def test_dense_and_decode_attention_match_reference():
 DECODE_TOL = {"float32": 1e-3, "bfloat16": 3e-2}
 
 
-@pytest.mark.parametrize("arch", DENSE)
+def assert_caches_close(pc, rc, tol):
+    """Every cache leaf of the port against the reference's.  bf16 leaves
+    (k, v, conv): every element within ``tol`` or, where a value rounded
+    the other way into bf16, within one bf16 ulp (2^-7 relative at most),
+    such flips under 1%.  The float32 SSM state within ``tol`` times its
+    largest magnitude (at least 1): a conv input that rounded the other
+    way into the bf16 conv cache, or a k/v flip upstream, reaches every
+    element of a state through dt B x (jamba's float32 state: 4.3e-3 off
+    at magnitudes to 25)."""
+    for sub, layer in rc["layers"].items():
+        for name, want in layer.items():
+            got = pc["layers"][sub][name]
+            assert tuple(got.shape) == tuple(want.shape), (sub, name)
+            g, w = _np(got), _np(want)
+            if name == "state":
+                assert got.dtype == torch.float32
+                assert np.abs(g - w).max() <= tol * max(1.0, np.abs(w).max())
+                continue
+            assert got.dtype == torch.bfloat16
+            close = np.abs(g - w) <= tol + tol * np.abs(w)
+            flips = np.abs(g - w) <= 2.0 ** -7 * np.abs(w)
+            assert (close | flips).all(), (sub, name)
+            assert (~close).mean() < 1e-2, (sub, name)
+
+
+@pytest.mark.parametrize("arch", DECODE)
 @pytest.mark.parametrize("compute_dtype", sorted(DECODE_TOL))
 def test_decode_forward_matches_reference(arch, compute_dtype):
     """Eight decode steps with per-row positions from both packages.
 
-    The bf16 reference runs op by op (``jax.disable_jit``): under ``jit``
-    XLA may keep excess precision inside a fusion and skip a bf16
+    The bf16 reference runs op by op (``_torch_parity.op_by_op``): under
+    ``jit`` XLA may keep excess precision inside a fusion and skip a bf16
     rounding its code asks for, so its bf16 results depend on how XLA
-    fuses.  Caches: every element within the logits' tolerance or, where
-    a k/v value rounded the other way into the bf16 cache, within one
-    bf16 ulp (2^-7 relative at most).
+    fuses.  Caches: ``assert_caches_close``.  Positions stay inside
+    danube's window of 32 (past it, see ``tests/test_torch_decode.py``).
     """
     tol = DECODE_TOL[compute_dtype]
     cfg, pcfg, params, model = ported(arch, compute_dtype)
@@ -250,7 +268,7 @@ def test_decode_forward_matches_reference(arch, compute_dtype):
         ref_step = jax.jit(ref_step)
     for _ in range(8):
         tok = rng.integers(0, cfg.vocab_size, (b, 1)).astype(np.int32)
-        with mesh, jax.disable_jit(compute_dtype != "float32"):
+        with mesh, op_by_op(compute_dtype):
             want, rc = ref_step(params, rc, jnp.asarray(tok),
                                 jnp.asarray(pos))
         got, pc = port_model.decode_forward(
@@ -261,14 +279,7 @@ def test_decode_forward_matches_reference(arch, compute_dtype):
         np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=tol,
                                    atol=tol)
         pos = pos + 1
-    for name in ("k", "v"):
-        g = _np(pc["layers"]["sub0"][name])
-        w = _np(rc["layers"]["sub0"][name])
-        assert pc["layers"]["sub0"][name].dtype == torch.bfloat16
-        close = np.abs(g - w) <= tol + tol * np.abs(w)
-        flips = np.abs(g - w) <= 2.0 ** -7 * np.abs(w)
-        assert (close | flips).all()
-        assert (~close).mean() < 1e-2
+    assert_caches_close(pc, rc, tol)
 
 
 def test_decode_forward_scalar_step_and_range():
@@ -298,3 +309,35 @@ def test_decode_forward_needs_a_card_by_default():
                                   torch.tensor([[1]]), 0, pcfg)
     with pytest.raises(RuntimeError, match="cuda"):
         port_model.Model(pcfg)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", DECODE[2:] + ("whisper_medium",))
+def test_cuda_decode_matches_cpu_on_card(arch):
+    """Eight decode steps of each newly served family on the card
+    (flash_decode's SIMT variant for a float32 q on the bf16 cache)
+    against the CPU's plain path, float32 with TF32 off, within 1e-3."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    _, pcfg, _, model = ported(arch, "float32")
+    card = port_model.Model(pcfg, device="cuda")
+    card.load_state_dict(model.state_dict())
+    b, s = 3, 32
+    caches = {dev: port_model.init_caches(pcfg, b, s, device=dev)
+              for dev in ("cpu", "cuda")}
+    rng = np.random.default_rng(0)
+    pos = np.array([0, 3, 7], np.int32)
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for _ in range(8):
+            tok = torch.tensor(rng.integers(0, pcfg.vocab_size, (b, 1)))
+            got, _ = port_model.decode_forward(card.params, caches["cuda"],
+                                               tok.cuda(), pos, pcfg)
+            want, _ = port_model.decode_forward(model.params, caches["cpu"],
+                                                tok, pos, pcfg, device="cpu")
+            torch.testing.assert_close(got.cpu(), want, rtol=1e-3,
+                                       atol=1e-3)
+            pos = pos + 1
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev

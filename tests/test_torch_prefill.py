@@ -3,11 +3,19 @@
 ``attention`` against the reference's train/prefill dispatch,
 ``ssm_apply`` against the reference's Mamba-2 block, and
 ``launch/steps.make_prefill_step`` / ``models.model.forward`` against
-the reference's at the granite_3_2b, h2o_danube_3_4b and mamba2_370m
-smoke configs, both packages loading the same weights
-(``params_from_reference``).  Float32 runs the reference under ``jit``
-(1e-4); bf16 runs it op by op (``jax.disable_jit``, 3e-2), because under
-``jit`` XLA may skip a bf16 rounding its code asks for (ROADMAP queue 3).
+the reference's at the smoke configs of every family: dense, windowed,
+Mamba-2, MoE, the hybrid, the encoder-decoder (frames through the
+encoder, cross-attention) and the VLM (a vision prefix), both packages
+loading the same weights (``params_from_reference``) and the same
+numpy-seeded batch (``_torch_parity.batch_arrays``).  Float32 runs the
+reference under ``jit`` (1e-4); bf16 runs it op by op
+(``_torch_parity.run_ref``, 3e-2), because under ``jit`` XLA may skip a
+bf16 rounding its code asks for (ROADMAP queue 3), and the model-level
+bf16 prefill keeps the reference's dense-branch P in float32
+(``_torch_parity.p_in_f32``), as its other branches and the port keep it
+(queue 3: rounded, whisper's encoder memory and qwen3's routing move by
+0.19 and 0.12).  The hybrid's bf16 prefill is compared sublayer by
+sublayer from the reference's inputs (``test_hybrid_prefill``).
 
 The reference's ``attention`` drops the sliding window when
 ``s > 2 * kv_chunk`` and ``s`` is not a multiple of the window: it then
@@ -46,50 +54,22 @@ from repro_torch.models import blocks as port_blocks
 from repro_torch.models import model as port_model
 from repro_torch.models import ssm as port_ssm
 
+from _torch_parity import (batch_arrays, op_by_op, p_in_f32, port_batch,
+                           ported, ref_batch, ref_params, run_ref)
+from _torch_parity import to_np as _np
+
 SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "src")
-PREFILL = ("granite_3_2b", "h2o_danube_3_4b", "mamba2_370m")
+PREFILL = ("granite_3_2b", "h2o_danube_3_4b", "mamba2_370m",
+           "mixtral_8x7b", "qwen3_moe_235b_a22b", "jamba_v0_1_52b",
+           "whisper_medium", "internvl2_26b")
 #: (compute dtype, tolerance): f32 under jit, bf16 op by op
 TOL = {"float32": 1e-4, "bfloat16": 3e-2}
-
-
-def _np(x):
-    return np.asarray(jnp.asarray(x).astype(jnp.float32)) \
-        if not isinstance(x, torch.Tensor) else x.float().numpy()
-
-
-@functools.lru_cache(maxsize=None)
-def _ref_params(arch):
-    cfg = ref_base.get_config(arch, smoke=True)
-    return ref_blocks.init_params(ref_model.model_defs(cfg),
-                                  jax.random.PRNGKey(0))
-
-
-def ported(arch, compute_dtype):
-    """Reference config and params (seed 0), the port's config and its
-    Model loaded with those params, at the smoke config."""
-    cfg = ref_base.get_config(arch, smoke=True).replace(
-        compute_dtype=compute_dtype)
-    pcfg = port_base.get_config(arch, smoke=True).replace(
-        compute_dtype=compute_dtype)
-    params = _ref_params(arch)
-    model = port_model.Model(pcfg, device="cpu")
-    model.load_state_dict(params_from_reference(
-        jax.tree.map(np.asarray, params)))
-    return cfg, pcfg, params, model
 
 
 def tokens(cfg, b, s, seed=0):
     return np.random.default_rng(seed).integers(
         0, cfg.vocab_size, (b, s)).astype(np.int32)
-
-
-def run_ref(fn, compute_dtype, *args):
-    """The reference's ``fn`` under jit (f32) or op by op (bf16)."""
-    with single_device_mesh(), jax.disable_jit(compute_dtype != "float32"):
-        if compute_dtype == "float32":
-            fn = jax.jit(fn)
-        return fn(*args)
 
 
 # ============================================================== attention
@@ -194,10 +174,14 @@ def test_ssm_pieces_match_reference():
 
 # ================================================================ prefill
 
-#: (arch, batch, prompt length): danube at 64 and 96, where the
-#: reference applies its window of 32
+#: (arch, batch, positions): danube at 64 and 96, mixtral at 64, where
+#: the reference applies their window of 32; internvl2's 64 positions are
+#: 8 of vision prefix and 56 tokens, whisper's encoder takes 16 frames;
+#: jamba in ``test_hybrid_prefill_matches_reference``
 PREFILL_POINTS = [("granite_3_2b", 2, 64), ("h2o_danube_3_4b", 2, 64),
-                  ("h2o_danube_3_4b", 2, 96), ("mamba2_370m", 2, 64)]
+                  ("h2o_danube_3_4b", 2, 96), ("mamba2_370m", 2, 64),
+                  ("mixtral_8x7b", 2, 64), ("qwen3_moe_235b_a22b", 2, 64),
+                  ("whisper_medium", 2, 64), ("internvl2_26b", 2, 64)]
 
 
 @pytest.mark.parametrize("point", PREFILL_POINTS)
@@ -206,11 +190,12 @@ def test_prefill_step_matches_reference(point, compute_dtype):
     arch, b, s = point
     tol = TOL[compute_dtype]
     cfg, pcfg, params, model = ported(arch, compute_dtype)
-    tok = tokens(cfg, b, s)
-    want = run_ref(ref_steps.make_prefill_step(cfg, single_device_mesh()),
-                   compute_dtype, params, {"tokens": jnp.asarray(tok)})
+    batch = batch_arrays(cfg, b, s)
+    with p_in_f32():
+        want = run_ref(ref_steps.make_prefill_step(cfg, single_device_mesh()),
+                       compute_dtype, params, ref_batch(batch))
     got = port_steps.make_prefill_step(pcfg, device="cpu")(
-        model.params, {"tokens": torch.tensor(tok)})
+        model.params, port_batch(batch))
     assert got.shape == (b, 1, cfg.vocab_size) and got.dtype == torch.float32
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=tol,
                                atol=tol)
@@ -218,22 +203,63 @@ def test_prefill_step_matches_reference(point, compute_dtype):
 
 @pytest.mark.parametrize("arch", PREFILL)
 def test_forward_matches_reference(arch):
-    """Every position's logits, float32, and the aux loss (0 without
-    MoE).  2e-4: the largest of 2 x 64 x V logits, whose float32 sums
+    """Every position's logits, float32, and the aux loss (the router
+    loss summed over the MoE sublayers, within 1e-6; 0 without MoE).
+    2e-4: the largest of 2 x 64 x V logits, whose float32 sums
     (projections, softmax, norms) run in other orders in the two
     packages; the last position alone meets 1e-4 above."""
     cfg, pcfg, params, model = ported(arch, "float32")
-    tok = tokens(cfg, 2, 64, seed=1)
+    batch = batch_arrays(cfg, 2, 64, seed=1)
     want, want_aux = run_ref(
-        lambda p, t: ref_model.forward(p, {"tokens": t}, cfg,
-                                       single_device_mesh()),
-        "float32", params, jnp.asarray(tok))
-    got, aux = port_model.forward(model.params, {"tokens": torch.tensor(tok)},
-                                  pcfg, device="cpu")
-    assert got.shape == (2, 64, cfg.vocab_size)
+        lambda p, bb: ref_model.forward(p, bb, cfg, single_device_mesh()),
+        "float32", params, ref_batch(batch))
+    got, aux = port_model.forward(model.params, port_batch(batch), pcfg,
+                                  device="cpu")
+    assert got.shape == (2, 64 - cfg.vision_prefix, cfg.vocab_size)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-4,
                                atol=2e-4)
-    assert aux == float(want_aux) == 0.0
+    if any(f == "moe" for _, f in cfg.pattern):
+        assert float(aux) == pytest.approx(float(want_aux), rel=1e-6)
+    else:
+        assert aux == float(want_aux) == 0.0
+
+
+@pytest.mark.parametrize("compute_dtype", sorted(TOL))
+def test_hybrid_prefill_matches_reference(compute_dtype):
+    """jamba smoke (one period: 7 Mamba-2 layers and one attention layer,
+    MoE at the odd ones), 2 x 64.  Float32: the prefill step's logits.
+    bf16: each sublayer from the reference's input to it, because the
+    whole stack compounds a few bf16 flips (the scan's float32 sums run
+    in other orders) into a MoE router's near tie, and one flipped expert
+    moves a row by 2.7 (at magnitude 46) from sublayer 3 on."""
+    tol = TOL[compute_dtype]
+    cfg, pcfg, params, model = ported("jamba_v0_1_52b", compute_dtype)
+    mesh = single_device_mesh()
+    batch = batch_arrays(cfg, 2, 64)
+    if compute_dtype == "float32":
+        want = run_ref(ref_steps.make_prefill_step(cfg, mesh), "float32",
+                       params, ref_batch(batch))
+        got = port_steps.make_prefill_step(pcfg, device="cpu")(
+            model.params, port_batch(batch))
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=tol,
+                                   atol=tol)
+        return
+    pos = np.broadcast_to(np.arange(64), (2, 64))
+    bp = jax.tree.map(lambda a: a[0], params["blocks"])
+    bpp = port_model.block_layers(model.params["blocks"])[0]
+    with mesh, op_by_op(compute_dtype), p_in_f32():
+        x = ref_model.build_inputs(params, ref_batch(batch), cfg, mesh)
+    for i, (mixer, ffn) in enumerate(cfg.pattern):
+        with mesh, op_by_op(compute_dtype), p_in_f32():
+            want, want_aux = ref_model.sublayer_apply(
+                bp[f"sub{i}"], x, mixer, ffn, cfg, mesh, jnp.asarray(pos))
+        with torch.no_grad():
+            got, aux = port_model.sublayer_apply(
+                bpp[f"sub{i}"], torch.tensor(_np(x)).bfloat16(), mixer, ffn,
+                pcfg, torch.tensor(pos))
+        np.testing.assert_allclose(_np(got), _np(want), rtol=tol, atol=tol)
+        assert float(aux) == pytest.approx(float(want_aux), rel=1e-5)
+        x = want
 
 
 def test_danube_prefill_where_the_reference_drops_the_window(monkeypatch):
@@ -264,7 +290,7 @@ def test_model_holds_every_config_and_convert_carries_it(arch):
     """``Model`` takes every smoke config, and ``params_from_reference``
     carries the reference's tree across: every name, shape and value."""
     cfg = ref_base.get_config(arch, smoke=True)
-    tree = jax.tree.map(np.asarray, _ref_params(arch))
+    tree = jax.tree.map(np.asarray, ref_params(arch))
     model = port_model.Model(port_base.get_config(arch, smoke=True),
                              device="cpu")
     state = params_from_reference(tree)
@@ -275,18 +301,21 @@ def test_model_holds_every_config_and_convert_carries_it(arch):
         assert np.array_equal(model.state_dict()[name].numpy(), leaf)
 
 
-@pytest.mark.parametrize("arch", ["mixtral_8x7b", "qwen3_moe_235b_a22b",
-                                  "jamba_v0_1_52b", "whisper_medium",
-                                  "internvl2_26b"])
+@pytest.mark.parametrize("arch", ["whisper_medium", "internvl2_26b"])
 def test_forward_raises_for_moe_encoders_and_vision(arch):
+    """The encoder's and the vision prefix's forward runs; their loss
+    (training) raises, naming ROADMAP queue 1 item 7 (MoE's in
+    ``tests/test_torch_moe.py``)."""
     pcfg = port_base.get_config(arch, smoke=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port_steps.make_prefill_step(pcfg, device="cpu")
     model = port_model.Model(pcfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port_model.forward_hidden(model.params,
-                                  {"tokens": torch.zeros((1, 8), dtype=int)},
-                                  pcfg, device="cpu")
+    batch = port_batch(batch_arrays(pcfg, 1, 16))
+    x, aux = port_model.forward_hidden(model.params, batch, pcfg,
+                                       device="cpu")
+    assert x.shape == (1, 16 - pcfg.vision_prefix, pcfg.d_model)
+    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
+        port_model.loss_fn(model.params, {**batch,
+                                          "targets": batch["tokens"]},
+                           pcfg, device="cpu")
 
 
 def test_shape_table_is_the_reference_data():
@@ -314,11 +343,17 @@ import torch
 from repro_torch.configs.base import get_config
 from repro_torch.launch.steps import make_prefill_step
 from repro_torch.models.model import Model
-for arch in ("granite_3_2b", "h2o_danube_3_4b", "mamba2_370m"):
+for arch in ("granite_3_2b", "h2o_danube_3_4b", "mamba2_370m", "jamba_v0_1_52b",
+             "whisper_medium", "internvl2_26b"):
     cfg = get_config(arch, smoke=True)
     model = Model(cfg, seed=0, device="cpu")
-    tok = torch.randint(0, cfg.vocab_size, (2, 40), generator=torch.Generator().manual_seed(0))
-    out = make_prefill_step(cfg, device="cpu")(model.params, {"tokens": tok})
+    gen = torch.Generator().manual_seed(0)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, 40), generator=gen)}
+    if cfg.vision_prefix:
+        batch["vision_embed"] = torch.randn(2, cfg.vision_prefix, cfg.d_model, generator=gen)
+    if cfg.enc_layers:
+        batch["frames"] = torch.randn(2, 10, cfg.d_model, generator=gen)
+    out = make_prefill_step(cfg, device="cpu")(model.params, batch)
     assert out.shape == (2, 1, cfg.vocab_size) and bool(torch.isfinite(out).all())
 assert not any(m.startswith(("jax.", "repro.")) for m in sys.modules)
 print("ok")
@@ -344,14 +379,14 @@ def test_cuda_prefill_matches_cpu_on_card(point):
     _, pcfg, _, model = ported(arch, "float32")
     card = port_model.Model(pcfg, device="cuda")
     card.load_state_dict(model.state_dict())
-    tok = torch.tensor(tokens(pcfg, b, s))
+    batch = port_batch(batch_arrays(pcfg, b, s))
     prev = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
     try:
-        got = port_steps.make_prefill_step(pcfg)(card.params,
-                                                 {"tokens": tok})
+        got = port_steps.make_prefill_step(pcfg)(
+            card.params, {k: v.cuda() for k, v in batch.items()})
     finally:
         torch.backends.cuda.matmul.allow_tf32 = prev
     want = port_steps.make_prefill_step(pcfg, device="cpu")(
-        model.params, {"tokens": tok})
+        model.params, batch)
     torch.testing.assert_close(got.cpu(), want, rtol=1e-3, atol=1e-3)

@@ -3,15 +3,19 @@
 ``repro_torch.runtime.serve.Server(device="cpu")`` and
 ``repro.runtime.serve.Server`` on a one-device mesh serve the same
 requests with the same weights, replaying the three scenarios of
-``tests/test_runtime.py``'s ``TestServer``.  Under float32 compute the
-generated tokens and the ``ServerStats`` are identical.  Then the port's
-rules: its serving entry points run on the card unless asked for the
-CPU, and the serve path runs with ``jax`` and ``repro`` absent.
+``tests/test_runtime.py``'s ``TestServer``, then every family on fresh
+slots.  Under float32 compute the generated tokens and the
+``ServerStats`` are identical.  Where the port departs from a reference
+fault (ROADMAP queue 3) it is held to the request served alone: a
+recycled slot of a Mamba-2 model (the reference keeps the previous
+request's SSM state) and whisper over a pool (the reference takes one
+position for the batch).  Then the port's rules: its serving entry
+points run on the card unless asked for the CPU, and the serve path runs
+with ``jax`` and ``repro`` absent.
 """
 from __future__ import annotations
 
 import dataclasses
-import functools
 import os
 import subprocess
 import sys
@@ -23,8 +27,6 @@ import torch
 
 from repro.configs.base import get_config as ref_get_config
 from repro.launch.mesh import single_device_mesh
-from repro.models import model as ref_model
-from repro.models.blocks import init_params as ref_init_params
 from repro.runtime.serve import Server as RefServer
 from repro_torch.configs.base import get_config
 from repro_torch.convert import params_from_reference
@@ -32,25 +34,19 @@ from repro_torch.launch import serve as launch_serve
 from repro_torch.models import model as port_model
 from repro_torch.runtime.serve import Server
 
+from _torch_parity import ref_params
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SRC = os.path.join(REPO, "src")
 
 
-@functools.lru_cache(maxsize=None)
-def _ref_params(arch):
-    return ref_init_params(
-        ref_model.model_defs(ref_get_config(arch, smoke=True)),
-        jax.random.PRNGKey(0))
-
-
 def servers(arch, pool, max_seq=64):
     """The reference's and the port's server on the same float32-compute
-    smoke model (n_layers 2, as test_runtime.py's)."""
-    cfg = ref_get_config(arch, smoke=True).replace(n_layers=2,
-                                                   compute_dtype="float32")
-    pcfg = get_config(arch, smoke=True).replace(n_layers=2,
-                                                compute_dtype="float32")
-    params = _ref_params(arch)
+    smoke model (the smoke depth: 2 layers, as test_runtime.py's; one
+    period of 8 for jamba)."""
+    cfg = ref_get_config(arch, smoke=True).replace(compute_dtype="float32")
+    pcfg = get_config(arch, smoke=True).replace(compute_dtype="float32")
+    params = ref_params(arch)
     model = port_model.Model(pcfg, device="cpu")
     model.load_state_dict(params_from_reference(
         jax.tree.map(np.asarray, params)))
@@ -141,6 +137,73 @@ def test_server_eos_and_custom_sampler():
     stats = port.run_until_drained()
     assert r.out_tokens == [7] and stats.completed == 1
     assert seen == [(2, port.cfg.vocab_size)] * 2
+
+
+# ====================================================== every family
+
+#: the families the port serves beyond dense attention; whisper's
+#: reference serves one row at a time (queue 3), so it takes pool 1 here
+FAMILIES = ("h2o_danube_3_4b", "mamba2_370m", "mixtral_8x7b",
+            "qwen3_moe_235b_a22b", "jamba_v0_1_52b", "internvl2_26b",
+            "whisper_medium")
+PROMPTS = ([1, 2, 3], [5, 6, 7, 8, 9], [4, 2])
+
+
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_fresh_slots_serve_like_the_reference(arch):
+    """Requests on fresh slots (no slot recycled), positions inside
+    danube's window: the same tokens and stats as the reference's."""
+    prompts = PROMPTS[:1] if arch == "whisper_medium" else PROMPTS
+    ref, port = servers(arch, pool=len(prompts))
+    out = []
+    for srv in (ref, port):
+        reqs = [srv.submit(p, max_new_tokens=6) for p in prompts]
+        stats = srv.run_until_drained()
+        out.append(([r.out_tokens for r in reqs], dataclasses.asdict(stats)))
+    assert out[1] == out[0]
+    assert all(len(t) == 6 for t in out[1][0])
+
+
+def alone(port, prompt, max_new):
+    """``prompt`` served alone on a fresh pool-1 server of port's model."""
+    srv = Server(port.cfg, port.model, pool=1, max_seq=port.max_seq,
+                 device="cpu")
+    r = srv.submit(prompt, max_new_tokens=max_new)
+    srv.run_until_drained()
+    return r.out_tokens
+
+
+@pytest.mark.parametrize("arch", ["mamba2_370m", "jamba_v0_1_52b"])
+def test_recycled_ssm_slots_serve_each_request_alone(arch):
+    """Pool 1: the second request takes the first's slot.  The port zeroes
+    the slot's conv and state rows on admission, so it serves the second
+    request as if alone; the reference's carry the first request's state
+    (ROADMAP queue 3)."""
+    ref, port = servers(arch, pool=1)
+    first, second = [1, 2, 3], [7, 8, 9, 10]
+    out = {}
+    for name, srv in (("ref", ref), ("port", port)):
+        srv.submit(first, max_new_tokens=4)
+        r = srv.submit(second, max_new_tokens=4)
+        srv.run_until_drained()
+        out[name] = r.out_tokens
+    assert out["port"] == alone(port, second, 4)
+    assert out["ref"] != out["port"]
+
+
+def test_whisper_serves_a_pool_with_per_row_positions():
+    """Whisper at pool 2: each row's sinusoidal position is its own, so
+    every request gets the tokens it gets alone; the reference's server
+    raises at pool 2 (its one broadcast position, queue 3)."""
+    ref, port = servers("whisper_medium", pool=2)
+    reqs = [port.submit(p, max_new_tokens=5) for p in PROMPTS]
+    port.run_until_drained()
+    for r, p in zip(reqs, PROMPTS):
+        assert r.out_tokens == alone(port, p, 5)
+    ref.submit(PROMPTS[0], max_new_tokens=2)
+    ref.submit(PROMPTS[1], max_new_tokens=2)
+    with pytest.raises(ValueError, match="broadcast"):
+        ref.step()
 
 
 # ================================================================ rules

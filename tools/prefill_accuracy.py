@@ -39,9 +39,9 @@ from repro_torch.kernels import build, ops, ref  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import ssd_scan as ssd  # noqa: E402
 
-PHASES = (("granite", "granite_3_2b", 1, 4096, "flash_attention"),
-          ("danube", "h2o_danube_3_4b", 1, 8192, "flash_attention"),
-          ("mamba", "mamba2_370m", 2, 4096, "ssd_scan"))
+PHASES = (("granite", "granite_3_2b", 1, 4096),
+          ("danube", "h2o_danube_3_4b", 1, 8192),
+          ("mamba", "mamba2_370m", 2, 4096))
 
 
 def dist(a, exact):
@@ -115,8 +115,8 @@ def main():
         sys.exit("prefill_accuracy: needs a CUDA card")
     build.build(("flash_attention", "ssd_scan"))
     rec = cs.PrefillRecorder(ops)
-    for label, arch, b, s, kernel in PHASES:
-        cs.prefill_phase(label, get_config(arch), b, s, kernel, rec)
+    for label, arch, b, s in PHASES:
+        cs.prefill_phase(label, get_config(arch), b, s, rec)
         torch.cuda.empty_cache()
     for (phase, kernel, layer), (t, kw) in sorted(rec.inputs.items()):
         if kernel == "flash_attention":
