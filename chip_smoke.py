@@ -95,6 +95,7 @@ non-zero without that line.  Details go to ``chiprun_out/chip_smoke.json``.
 """
 from __future__ import annotations
 
+import functools
 import json
 import os
 import subprocess
@@ -289,14 +290,9 @@ SSD_STATE_TOL = 1e-3
 #: weights, so logits of hundreds), and any float32 order of summation,
 #: the plain version's included, lands ~1e-3 from the exact result there,
 #: beyond the element-wise 2e-5 / 1e-4 set for unit-scale inputs.  A bf16
-#: attention row at captured inputs is held the same way on each output's
-#: error beyond its own bf16 rounding (half an ulp, at most 2^-8 of the
-#: exact value): at mixtral's and internvl2's layers (|k| up to 163,
-#: logits near 1000) any float32 evaluation of the logits is ~1e-4 off in
-#: p, and where |v| ~ 170 cancels to an output of 0.3 that is 0.005-0.010
-#: for the plain version and 0.021-0.026 for the kernel's tensor-core
-#: products (0.05-0.096 for SDPA's), so one element in 53 M lay 1.13 times
-#: the 2e-2 band from the plain version (PERF.md §6).
+#: row is decided by the element-wise 2e-2 band from the plain version at
+#: every input; at captured inputs its distance from float64 beyond each
+#: output's own bf16 rounding is recorded beside it.
 ORACLE_FACTOR = 2.0
 #: the chunks every captured SSD input is held at (the path's is 256)
 SSD_CHUNKS = (64, 128, 256)
@@ -760,11 +756,11 @@ def profile_summary(prof, wall_ms, steps):
 
 
 def serve_phase(label, spec, rec, device="cuda", cfg=None, model=None,
-                record=True, cache_dtype=torch.bfloat16):
+                record=True):
     """Serve ``spec`` through ``launch/serve.py``'s ``serve`` (on the
-    seed-0 model drawn on the device unless ``model`` is given, caches in
-    ``cache_dtype``), keeping flash-decode inputs when ``record``;
-    returns the phase record and the sampler."""
+    seed-0 model drawn on the device unless ``model`` is given), keeping
+    flash-decode inputs when ``record``; returns the phase record and the
+    sampler."""
     from repro_torch.configs.base import get_config
     from repro_torch.launch import serve as launch_serve
     if cfg is None:
@@ -783,8 +779,7 @@ def serve_phase(label, spec, rec, device="cuda", cfg=None, model=None,
     out = launch_serve.serve(cfg, requests=spec["requests"],
                              pool=spec["pool"], max_new=spec["max_new"],
                              max_seq=spec["max_seq"], device=device,
-                             sampler=sampler, model=model,
-                             cache_dtype=cache_dtype)
+                             sampler=sampler, model=model)
     launches = counts()
     if record:
         rec.disarm()
@@ -909,24 +904,27 @@ def serve_cross(arch, spec, rec, device="cuda"):
     router near a tie (the float32 card and CPU runs of qwen3 smoke with
     bf16 caches kept their tokens but one step's logits moved 0.049), so
     with bf16 caches the comparison would measure the caches' rounding,
-    not the card.  The bf16 caches are the full-width phases' own."""
+    not the card.  The bf16 caches are the full-width phases' own; the
+    ``Server`` takes float32 ones here from ``init_caches(dtype=)``,
+    which it looks up at call time."""
     from repro_torch.configs.base import get_config
-    from repro_torch.models.model import Model
+    from repro_torch.models import model as mdl
     cfg = get_config(arch, smoke=True).replace(compute_dtype="float32")
-    cpu_model = Model(cfg, seed=0, device="cpu")
-    card_model = Model(cfg, seed=0, device=device)
+    cpu_model = mdl.Model(cfg, seed=0, device="cpu")
+    card_model = mdl.Model(cfg, seed=0, device=device)
     card_model.load_state_dict(cpu_model.state_dict())
     prev = torch.backends.cuda.matmul.allow_tf32
+    init_caches = mdl.init_caches
     torch.backends.cuda.matmul.allow_tf32 = False
+    mdl.init_caches = functools.partial(init_caches, dtype=torch.float32)
     try:
         card, card_s = serve_phase(f"serve_cross {arch}", spec, rec, device,
-                                   cfg, card_model, record=False,
-                                   cache_dtype=torch.float32)
+                                   cfg, card_model, record=False)
         cpu, cpu_s = serve_phase(f"serve_cross {arch} cpu", spec, rec,
-                                 "cpu", cfg, cpu_model, record=False,
-                                 cache_dtype=torch.float32)
+                                 "cpu", cfg, cpu_model, record=False)
     finally:
         torch.backends.cuda.matmul.allow_tf32 = prev
+        mdl.init_caches = init_caches
     same = card["tokens"] == cpu["tokens"]
     err = max(float((a - b).abs().max())
               for a, b in zip(card_s.logits, cpu_s.logits)) \
@@ -1760,10 +1758,9 @@ def check_attention(name, q, k, v, causal, window, fa, ref, launches=0,
                     oracle=False):
     """Kernel vs plain flash attention; times.  With ``oracle`` (the
     captured full-width inputs) both are also measured against the plain
-    version in float64, which decides the row (ORACLE_FACTOR): on the
-    whole error in float32, on the error beyond each output's rounding in
-    bf16; the element-wise kernel-vs-plain check decides the unit-scale
-    cases and is recorded beside the oracle's."""
+    version in float64, which decides a float32 row (ORACLE_FACTOR); a
+    bf16 row is decided by the element-wise 2e-2 check, with each
+    output's distance from float64 beyond its bf16 rounding recorded."""
     tol = ATTN_TOL[q.dtype]
     got = fa.flash_attention(q, k, v, causal=causal, window=window)
     want = ref.mha_reference(q, k, v, causal=causal, window=window)
@@ -1778,7 +1775,6 @@ def check_attention(name, q, k, v, causal, window, fa, ref, launches=0,
             ok = errs[0] <= ORACLE_FACTOR * errs[1] + tol
         else:
             beyond = beyond_rounding(got, want, exact)
-            ok = beyond[0] <= ORACLE_FACTOR * beyond[1] + tol
         del exact
     del got, want
     big = q.numel() > 1 << 22

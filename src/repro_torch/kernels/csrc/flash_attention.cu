@@ -554,7 +554,8 @@ flash_attention_wgmma(const __grid_constant__ CUtensorMap tm_q,
     float o[32 * NP];
 #pragma unroll
     for (int i = 0; i < 32 * NP; ++i) o[i] = 0.f;
-    float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
+    // each row's running max scaled by scale log2 e (ms, rounded) and sum
+    float ms0 = -INFINITY, ms1 = -INFINITY, l0 = 0.f, l1 = 0.f;
 
     mbar_wait(bar_q, 0);
     for (int t = t_begin, i = 0; t < t_end; ++t, ++i) {
@@ -592,7 +593,7 @@ flash_attention_wgmma(const __grid_constant__ CUtensorMap tm_q,
       }
 
       // online softmax: the 4 threads of a quad hold one row's 128 keys
-      float mx0 = m0, mx1 = m1;
+      float mx0 = -INFINITY, mx1 = -INFINITY;
 #pragma unroll
       for (int j = 0; j < 16; ++j) {
         mx0 = fmaxf(mx0, fmaxf(sc[4 * j], sc[4 * j + 1]));
@@ -603,19 +604,27 @@ flash_attention_wgmma(const __grid_constant__ CUtensorMap tm_q,
         mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, x));
         mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, x));
       }
-      // a row with no valid key yet keeps m = -inf: its p are exp2(-inf) = 0
-      const float ms0 = mx0 == -INFINITY ? 0.f : mx0 * scale_log2;
-      const float ms1 = mx1 == -INFINITY ? 0.f : mx1 * scale_log2;
-      const float corr0 = ex2(m0 * scale_log2 - ms0), corr1 = ex2(m1 * scale_log2 - ms1);
-      m0 = mx0;
-      m1 = mx1;
+      // The running max is kept scaled, one rounded product a tile
+      // (__fmul_rn is never fused; rounding is monotonic, so it is the
+      // scaled max of every tile so far), and the rescale is exactly
+      // 2^(ms_old - ms_new), 1 while the max holds.  Rescaling by
+      // ex2(m_old c - ms_new) instead, compiled as one FMA, kept m_old c's
+      // rounding (up to half an ulp of ms: 4e-5 of p where m c ~ 2000) and
+      // weighed the earlier tiles by it once more every tile.  A row with
+      // no valid key yet keeps -inf and shifts by 0: its p are exp2(-inf) = 0.
+      const float ns0 = fmaxf(ms0, __fmul_rn(mx0, scale_log2));
+      const float ns1 = fmaxf(ms1, __fmul_rn(mx1, scale_log2));
+      const float sh0 = ns0 == -INFINITY ? 0.f : ns0, sh1 = ns1 == -INFINITY ? 0.f : ns1;
+      const float corr0 = ex2(ms0 - sh0), corr1 = ex2(ms1 - sh1);
+      ms0 = ns0;
+      ms1 = ns1;
       float sum0 = 0.f, sum1 = 0.f;
 #pragma unroll
       for (int j = 0; j < 16; ++j) {
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
-          sc[4 * j + e] = ex2(fmaf(sc[4 * j + e], scale_log2, -ms0));
-          sc[4 * j + 2 + e] = ex2(fmaf(sc[4 * j + 2 + e], scale_log2, -ms1));
+          sc[4 * j + e] = ex2(fmaf(sc[4 * j + e], scale_log2, -sh0));
+          sc[4 * j + 2 + e] = ex2(fmaf(sc[4 * j + 2 + e], scale_log2, -sh1));
           sum0 += sc[4 * j + e];
           sum1 += sc[4 * j + 2 + e];
         }

@@ -36,15 +36,14 @@ def make_prompts(n: int, vocab_size: int, max_seq: int, seed: int = 0):
 
 
 def serve(cfg, *, requests: int, pool: int, max_new: int, max_seq: int,
-          device="cuda", sampler=None, model=None,
-          cache_dtype=torch.bfloat16) -> dict:
+          device="cuda", sampler=None, model=None) -> dict:
     """Serve ``requests`` prompts to completion on ``model`` (a seed-0
-    ``Model`` drawn on the device when None) with caches in
-    ``cache_dtype``; the wall clock ends after the device has finished."""
+    ``Model`` drawn on the device when None); the wall clock ends after
+    the device has finished."""
     dev = resolve_device(device)
     model = Model(cfg, seed=0, device=dev) if model is None else model
     srv = Server(cfg, model, pool=pool, max_seq=max_seq, sampler=sampler,
-                 cache_dtype=cache_dtype, device=dev)
+                 device=dev)
     reqs = [srv.submit(p, max_new_tokens=max_new)
             for p in make_prompts(requests, cfg.vocab_size, max_seq)]
     if dev.type == "cuda":

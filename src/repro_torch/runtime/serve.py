@@ -51,21 +51,19 @@ class Server:
     ``cache_len(cfg, max_seq)`` slots per attention sublayer, conv and
     state rows per Mamba-2 sublayer, the encoder memory of an
     encoder-decoder) live on the device and every step updates them in
-    place; ``cache_dtype`` (bf16, the reference's) is their dtype.  ``sampler`` maps the
-    (pool, vocab) f32 logits of a step to next tokens (greedy argmax by
-    default)."""
+    place.  ``sampler`` maps the (pool, vocab) f32 logits of a step to
+    next tokens (greedy argmax by default)."""
 
     def __init__(self, cfg: ArchConfig, model, *, pool: int = 4,
                  max_seq: int = 256, sampler: Optional[Callable] = None,
-                 cache_dtype=torch.bfloat16, device="cuda"):
+                 device="cuda"):
         self.device = resolve_device(device)
         self.cfg = cfg
         self.model = model
         self.pool = pool
         self.max_seq = max_seq
         self.sampler = sampler or (lambda logits: torch.argmax(logits, -1))
-        self.caches = mdl.init_caches(cfg, pool, max_seq, dtype=cache_dtype,
-                                      device=self.device)
+        self.caches = mdl.init_caches(cfg, pool, max_seq, device=self.device)
         self.pos = np.zeros(pool, np.int32)          # next cache slot/row
         self.active: list[Optional[Request]] = [None] * pool
         self.queue: deque[Request] = deque()

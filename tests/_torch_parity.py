@@ -1,8 +1,9 @@
 """Shared pieces of the port's parity tests against the reference package.
 
 ``ref_params`` draws the reference's seed-0 smoke parameters and
-``ported`` loads them into the port's ``Model``; ``batch_arrays`` draws a prefill batch (tokens and, where the
-model has them, the vision prefix and the encoder frames) from numpy;
+``ported`` loads them into the port's ``Model``; ``batch_arrays`` draws
+a prefill batch (tokens and, where the model has them, the vision prefix
+and the encoder frames) from numpy;
 ``run_ref`` runs a reference function under ``jit`` in float32 and op by
 op in bf16 (``jax.disable_jit``: under ``jit`` XLA may skip a bf16
 rounding its code asks for, ROADMAP queue 3).
@@ -27,7 +28,6 @@ import torch
 
 from repro.configs import base as ref_base
 from repro.launch.mesh import single_device_mesh
-from repro.models import attention as ref_attn
 from repro.models import blocks as ref_blocks
 from repro.models import model as ref_model
 from repro.models import moe as ref_moe
@@ -121,32 +121,3 @@ def run_ref(fn, compute_dtype, *args):
         if compute_dtype == "float32":
             fn = jax.jit(fn)
         return fn(*args)
-
-
-def _dense_attention_f32_p(q, k, v, *, causal=True, window=0, q_offset=0):
-    """The reference's ``dense_attention`` with P kept in float32."""
-    b, sq, h, d = q.shape
-    skv, n_kv = k.shape[1], k.shape[2]
-    qg = q.reshape(b, sq, n_kv, h // n_kv, d).astype(jnp.float32)
-    logits = jnp.einsum("bqkrd,bskd->bkrqs", qg,
-                        k.astype(jnp.float32)) / jnp.sqrt(d)
-    qpos = jnp.arange(sq)[:, None] + q_offset
-    kpos = jnp.arange(skv)[None, :]
-    mask = jnp.ones((sq, skv), bool)
-    if causal:
-        mask &= kpos <= qpos
-    if window:
-        mask &= kpos > qpos - window
-    w = jax.nn.softmax(jnp.where(mask, logits, ref_attn.NEG_INF), axis=-1)
-    out = jnp.einsum("bkrqs,bskd->bqkrd", w, v.astype(jnp.float32))
-    return out.reshape(b, sq, h, d).astype(q.dtype)
-
-
-@contextlib.contextmanager
-def p_in_f32():
-    saved = ref_attn.dense_attention
-    ref_attn.dense_attention = _dense_attention_f32_p
-    try:
-        yield
-    finally:
-        ref_attn.dense_attention = saved

@@ -874,6 +874,41 @@ def test_cuda_flash_attention_matches_plain_on_card(case, dtype_name):
                                atol=tol)
 
 
+def large_logit_problem(seed=11):
+    """bf16 q (1, 128, 4, 128), k and v (1, 8192, 2, 128) whose scaled
+    logits all lie near 2085 (3008 in log2 units) within a few units of
+    each other, the first key holding the max: q = 8 and k = 23 + 0.125
+    n (n in {-1, 0, 1}) make every product an integer, so q k^T is exact
+    in any order.  v is +64 on the first half of the keys and -64 on the
+    second, so an output moves by 64 times any drift between the weights
+    of early and late key tiles."""
+    rng = np.random.default_rng(seed)
+    q = np.full((1, 128, 4, 128), 8.0, np.float32)
+    n = rng.integers(-1, 2, size=(1, 8192, 2, 128)).astype(np.float32)
+    n[:, 0] = 0.0
+    n[:, 0, :, :40] = 1.0                # key 0: 8 units above the rest
+    half = np.where(np.arange(8192) < 4096, 64.0, -64.0)[None, :, None, None]
+    v = half + rng.standard_normal((1, 8192, 2, 128))
+    return [torch.tensor(x, dtype=torch.float32).bfloat16()
+            for x in (q, 23.0 + 0.125 * n, v)]
+
+
+@pytest.mark.gpu
+def test_cuda_flash_attention_rescale_is_exact_at_large_logits():
+    """The wgmma kernel's online-softmax rescale between key tiles must be
+    exactly 2^(ms_old - ms_new) of the scaled maxima it subtracted: one
+    that keeps m_old c's float32 rounding (up to half an ulp of 3008)
+    weighs the earlier tiles by it once more each of the 64 tiles, which
+    moves these outputs about 3x the 2e-2 band."""
+    _card()
+    q, k, v = (t.cuda() for t in large_logit_problem())
+    got = ops.flash_attention(q, k, v, causal=False)
+    want = ref.mha_reference(q, k, v, causal=False)
+    tol = ATTN_DTYPES["bfloat16"][2]
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                               atol=tol)
+
+
 # ================================================================ ssd scan
 
 #: tests/test_kernels.py's SSD_CASES, then mamba2_370m's head shape

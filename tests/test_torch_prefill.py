@@ -10,12 +10,14 @@ loading the same weights (``params_from_reference``) and the same
 numpy-seeded batch (``_torch_parity.batch_arrays``).  Float32 runs the
 reference under ``jit`` (1e-4); bf16 runs it op by op
 (``_torch_parity.run_ref``, 3e-2), because under ``jit`` XLA may skip a
-bf16 rounding its code asks for (ROADMAP queue 3), and the model-level
-bf16 prefill keeps the reference's dense-branch P in float32
-(``_torch_parity.p_in_f32``), as its other branches and the port keep it
-(queue 3: rounded, whisper's encoder memory and qwen3's routing move by
-0.19 and 0.12).  The hybrid's bf16 prefill is compared sublayer by
-sublayer from the reference's inputs (``test_hybrid_prefill``).
+bf16 rounding its code asks for (ROADMAP queue 3).  The reference's
+``dense_attention`` (s <= 2 * kv_chunk) rounds P to bf16 before P V, where
+its chunked and sliding-window branches and the port keep P in float32
+(queue 3): qwen3, whisper (decoder and encoder) and jamba are held at
+lengths that take the chunked branch, since rounded P moves qwen3's
+routing and whisper's encoder memory past 3e-2.  The hybrid's bf16
+prefill is compared sublayer by sublayer from the reference's inputs
+(``test_hybrid_prefill``).
 
 The reference's ``attention`` drops the sliding window when
 ``s > 2 * kv_chunk`` and ``s`` is not a multiple of the window: it then
@@ -54,8 +56,8 @@ from repro_torch.models import blocks as port_blocks
 from repro_torch.models import model as port_model
 from repro_torch.models import ssm as port_ssm
 
-from _torch_parity import (batch_arrays, op_by_op, p_in_f32, port_batch,
-                           ported, ref_batch, ref_params, run_ref)
+from _torch_parity import (batch_arrays, op_by_op, port_batch, ported,
+                           ref_batch, ref_params, run_ref)
 from _torch_parity import to_np as _np
 
 SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
@@ -176,12 +178,13 @@ def test_ssm_pieces_match_reference():
 
 #: (arch, batch, positions): danube at 64 and 96, mixtral at 64, where
 #: the reference applies their window of 32; internvl2's 64 positions are
-#: 8 of vision prefix and 56 tokens, whisper's encoder takes 16 frames;
-#: jamba in ``test_hybrid_prefill_matches_reference``
+#: 8 of vision prefix and 56 tokens; qwen3 at 96 and whisper at 272 (68
+#: encoder frames) take the reference's chunked branch (module
+#: docstring); jamba in ``test_hybrid_prefill_matches_reference``
 PREFILL_POINTS = [("granite_3_2b", 2, 64), ("h2o_danube_3_4b", 2, 64),
                   ("h2o_danube_3_4b", 2, 96), ("mamba2_370m", 2, 64),
-                  ("mixtral_8x7b", 2, 64), ("qwen3_moe_235b_a22b", 2, 64),
-                  ("whisper_medium", 2, 64), ("internvl2_26b", 2, 64)]
+                  ("mixtral_8x7b", 2, 64), ("qwen3_moe_235b_a22b", 2, 96),
+                  ("whisper_medium", 2, 272), ("internvl2_26b", 2, 64)]
 
 
 @pytest.mark.parametrize("point", PREFILL_POINTS)
@@ -191,9 +194,8 @@ def test_prefill_step_matches_reference(point, compute_dtype):
     tol = TOL[compute_dtype]
     cfg, pcfg, params, model = ported(arch, compute_dtype)
     batch = batch_arrays(cfg, b, s)
-    with p_in_f32():
-        want = run_ref(ref_steps.make_prefill_step(cfg, single_device_mesh()),
-                       compute_dtype, params, ref_batch(batch))
+    want = run_ref(ref_steps.make_prefill_step(cfg, single_device_mesh()),
+                   compute_dtype, params, ref_batch(batch))
     got = port_steps.make_prefill_step(pcfg, device="cpu")(
         model.params, port_batch(batch))
     assert got.shape == (b, 1, cfg.vocab_size) and got.dtype == torch.float32
@@ -227,15 +229,16 @@ def test_forward_matches_reference(arch):
 @pytest.mark.parametrize("compute_dtype", sorted(TOL))
 def test_hybrid_prefill_matches_reference(compute_dtype):
     """jamba smoke (one period: 7 Mamba-2 layers and one attention layer,
-    MoE at the odd ones), 2 x 64.  Float32: the prefill step's logits.
+    MoE at the odd ones), 2 x 96.  Float32: the prefill step's logits.
     bf16: each sublayer from the reference's input to it, because the
     whole stack compounds a few bf16 flips (the scan's float32 sums run
     in other orders) into a MoE router's near tie, and one flipped expert
-    moves a row by 2.7 (at magnitude 46) from sublayer 3 on."""
+    moves a row by 2.7 (at magnitude 46) from sublayer 3 on.  96
+    positions: the reference's chunked attention branch (P in float32)."""
     tol = TOL[compute_dtype]
     cfg, pcfg, params, model = ported("jamba_v0_1_52b", compute_dtype)
     mesh = single_device_mesh()
-    batch = batch_arrays(cfg, 2, 64)
+    batch = batch_arrays(cfg, 2, 96)
     if compute_dtype == "float32":
         want = run_ref(ref_steps.make_prefill_step(cfg, mesh), "float32",
                        params, ref_batch(batch))
@@ -244,13 +247,13 @@ def test_hybrid_prefill_matches_reference(compute_dtype):
         np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=tol,
                                    atol=tol)
         return
-    pos = np.broadcast_to(np.arange(64), (2, 64))
+    pos = np.broadcast_to(np.arange(96), (2, 96))
     bp = jax.tree.map(lambda a: a[0], params["blocks"])
     bpp = port_model.block_layers(model.params["blocks"])[0]
-    with mesh, op_by_op(compute_dtype), p_in_f32():
+    with mesh, op_by_op(compute_dtype):
         x = ref_model.build_inputs(params, ref_batch(batch), cfg, mesh)
     for i, (mixer, ffn) in enumerate(cfg.pattern):
-        with mesh, op_by_op(compute_dtype), p_in_f32():
+        with mesh, op_by_op(compute_dtype):
             want, want_aux = ref_model.sublayer_apply(
                 bp[f"sub{i}"], x, mixer, ffn, cfg, mesh, jnp.asarray(pos))
         with torch.no_grad():

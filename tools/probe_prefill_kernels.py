@@ -1,6 +1,7 @@
 """Build and check the port's prefill kernels on the card, then time them.
 
     python3 tools/probe_prefill_kernels.py        # on a machine with a card
+    python3 tools/probe_prefill_kernels.py --times [--src DIR] [--tag NAME]
 
 A short first call for the flash-attention and SSD-scan kernels of
 ``src/repro_torch/kernels/csrc/``:
@@ -21,6 +22,13 @@ A short first call for the flash-attention and SSD-scan kernels of
    bf16 inputs, the SIMT variant on float32 inputs of the same shape, and
    ``scaled_dot_product_attention``.
 
+``--times`` does only the build's register and spill report and the
+wgmma variant's times at the bf16 prefill path's shapes (``SHAPES``),
+five rounds of 50 calls each; ``--src DIR`` imports ``repro_torch``
+from ``DIR/src`` instead of this checkout's (an unpacked earlier commit),
+so two versions can be timed in turns in one call, ``--tag`` names the
+version in the output.
+
 ``chip_smoke.py`` is the full check; this is the quick one.
 """
 import glob
@@ -31,8 +39,10 @@ import subprocess
 import sys
 import time
 
-sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__))), "src"))
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SRC = ROOT if "--src" not in sys.argv else \
+    os.path.abspath(sys.argv[sys.argv.index("--src") + 1])
+sys.path.insert(0, os.path.join(SRC, "src"))
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
@@ -51,6 +61,12 @@ ATTN = [(1, 128, 128, 4, 4, 64, True, 0), (2, 256, 256, 8, 2, 64, True, 0),
         (1, 300, 300, 24, 8, 128, True, 0), (1, 333, 333, 32, 8, 120, True, 40),
         (2, 200, 260, 8, 2, 64, False, 0), (1, 77, 300, 4, 1, 128, True, 0),
         (3, 160, 160, 4, 1, 64, True, 0), (1, 64, 64, 64, 1, 32, True, 0)]
+#: (label, q shape, k/v shape, window): the bf16 prefill path's attention
+#: layers (all causal)
+SHAPES = (("granite", (4, 4096, 32, 64), (4, 4096, 8, 64), 0),
+          ("danube", (1, 8192, 32, 120), (1, 8192, 8, 120), 4096),
+          ("mixtral", (1, 8192, 32, 128), (1, 8192, 8, 128), 4096),
+          ("internvl2", (2, 4352, 48, 128), (2, 4352, 8, 128), 0))
 SSD = [(1, 256, 2, 64, 64, 128), (2, 128, 4, 32, 64, 64),
        (1, 384, 2, 64, 128, 128), (1, 100, 2, 16, 32, 64),
        (2, 700, 3, 64, 128, 256)]
@@ -152,9 +168,33 @@ def tile_probe(lib, d, rng):
     return ok
 
 
+def time_versions(tag):
+    """``--times``: registers and spills, then the wgmma variant's ms."""
+    build.build(("flash_attention",))
+    for kernel, regs, stores, loads in ptxas(
+            build.BUILD_LOG.get("flash_attention", ())):  # () if built before
+        print(f"[{tag}] ptxas {kernel}: {regs} registers, spill stores "
+              f"{stores} B, spill loads {loads} B")
+    bf = dict(device="cuda", dtype=torch.bfloat16)
+    torch.manual_seed(0)
+    for label, shape_q, shape_kv, window in SHAPES:
+        q = torch.randn(*shape_q, **bf)
+        k = torch.randn(*shape_kv, **bf)
+        v = torch.randn_like(k)
+        got = [ms(lambda: fa.flash_attention(q, k, v, causal=True,
+                                             window=window), 50)
+               for _ in range(5)]
+        print(f"[{tag}] {label} wgmma ms {got}", flush=True)
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("probe_prefill_kernels: needs a CUDA card")
+    if "--times" in sys.argv:
+        tag = sys.argv[sys.argv.index("--tag") + 1] \
+            if "--tag" in sys.argv else "tree"
+        print(f"[{tag}] repro_torch from {fa.__file__}")
+        return time_versions(tag)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip())
@@ -195,9 +235,7 @@ def main():
                   torch.allclose(got.float(), want.float(), rtol=tol,
                                  atol=tol))
     bf = dict(device="cuda", dtype=torch.bfloat16)
-    for label, shape_q, shape_kv, window in (
-            ("granite", (4, 4096, 32, 64), (4, 4096, 8, 64), 0),
-            ("danube", (1, 8192, 32, 120), (1, 8192, 8, 120), 4096)):
+    for label, shape_q, shape_kv, window in SHAPES[:2]:
         q = torch.randn(*shape_q, **bf)
         k = torch.randn(*shape_kv, **bf)
         v = torch.randn_like(k)
