@@ -57,6 +57,28 @@ version on the card:
      and CPU from one step-0 checkpoint (per-step losses within 1e-4),
      and a crash at step 6 resumed from the step-4 checkpoint by a fresh
      ``Trainer`` (final loss within rtol 1e-6 of the uninterrupted run);
+   - the packet-vs-flow gates: the packet engine on the host (its wall,
+     events/s and the host CPU logged) and the flow engine on the card,
+     each flow side one phase:
+     packet_frozen: ``benchmarks/ref_faults_zero.json``'s three scenarios
+     (seed 7, 256 KiB), the packet records exactly the file's, the flow
+     records within rtol 1e-3 of its flow-np ones;
+     packet_fig15: fig15's single gleam points (1 MiB, 8 chunks, window
+     512, seed 11) at 512 hosts, loss 1e-4, and 64 hosts, loss 1e-3: JCT,
+     events and drops exactly ``BENCH_packetsim.json``'s ``single`` rows,
+     the flow JCT and the divergence logged;
+     packet_vs_flow: ``tests/test_engines.py``'s JCT points (testbed, the
+     two-pod fat tree, the four transports within 10%, allreduce 20%) and
+     ``tools/check_faults.py``'s recovery latency per fault class (15%),
+     no QP error; one ``run_many(workers=4)`` batch forked after CUDA is
+     up, its records and ``last_run_stats`` equal to the serial batch's;
+     fleet: ``tools/check_fleet.py``'s spec and fabric: tenant p99 within
+     10%, monotone quantiles, the QP census and MFT occupancy equal, a
+     staging hit rate above 0, the flow report on the packet engine's
+     fabric equal to a fresh fabric's;
+     apps: ``tools/check_apps.py``'s archs and mesh: train-step time per
+     transport and the serving generator's achieved QPS within 10%,
+     ``param_count == count_params(model_defs)``;
 3. **kernels** every kernel input the paths produced: the max-min
    kernels in float32 and float64, plus random many-round problems (the
    kernel against its plain version: freeze set and rates per round for
@@ -141,6 +163,37 @@ FIG15 = dict(n_pods=16, leaves_per_pod=16, hosts_per_leaf=16, aggs_per_pod=16)
 #: fat_tree kwargs, groups, members per group
 MATRIX = (dict(n_pods=16, leaves_per_pod=16, hosts_per_leaf=16,
                aggs_per_pod=4), 8, 32)
+#: the packet-vs-flow gates.  packet_frozen: ``tools/freeze_fault_refs.py``'s
+#: zero-fault scenarios and their frozen records
+FROZEN_REFS = "benchmarks/ref_faults_zero.json"
+FROZEN_NBYTES, FROZEN_SEED = 1 << 18, 7
+#: packet_fig15: the (group, loss) points of BENCH_packetsim.json's
+#: ``single`` rows (gleam, 1 MiB, 8 chunks, window 512, seed 11)
+FIG15_PACKET = ((512, 1e-4), (64, 1e-3))
+#: tolerances of the gates: tests/test_engines.py (JCT, allreduce),
+#: tools/check_faults.py (recovery), tools/check_fleet.py (tenant p99),
+#: tools/check_apps.py (step time, achieved QPS)
+GATE_TOL = {"jct": 0.10, "allreduce": 0.20, "recovery": 0.15,
+            "fleet": 0.10, "apps": 0.10}
+#: check_faults.py's fault instant and message
+FAULT_AT, FAULT_NBYTES = 3e-6, 1 << 17
+#: where the gates' flow side runs; a CPU rehearsal sets it to "cpu"
+FLOW_DEVICE = "cuda"
+#: the forked run_many batch (after CUDA is up) held to the serial one
+FORK_WORKERS, FORK_SCENARIOS = 4, 8
+#: check_fleet.py's spec and fabric (100 Gb/s)
+FLEET_SPEC = dict(n_tenants=4, groups_per_tenant=2, group_size=6,
+                  nbytes=2 << 20, bg_unicasts=8, bg_incasts=2, bg_fan_in=4,
+                  bg_nbytes=1 << 20, seed=0)
+FLEET_FABRIC = dict(n_pods=2, leaves_per_pod=4, hosts_per_leaf=4,
+                    aggs_per_pod=4)
+#: check_apps.py's archs (smoke), mesh, transports and serving point
+APPS_ARCHS = ("llama3_2_3b", "mixtral_8x7b")
+APPS_MESH = dict(data=2, model=2)
+APPS_TRANSPORTS = ("gleam", "multiunicast")
+APPS_SERVE = dict(n_replicas=4, tp=2, prompt_len=64, decode_len=16,
+                  kv_replicas=2)
+APPS_ARRIVALS = dict(rate=2e4, n=24, seed=0)
 #: rounds held one by one against the plain round (the whole filling is
 #: compared however many rounds it takes)
 ROUNDS_CHECKED = 256
@@ -1352,6 +1405,404 @@ def run_train(phases=TRAIN):
     return out
 
 
+# ------------------------------------------------------ packet-vs-flow gates
+
+def gate(label, got, want, tol, what="JCT"):
+    """One packet-vs-flow comparison: the flow side (card) within ``tol``
+    of the packet engine (host)."""
+    div = abs(got - want) / abs(want)
+    ok = div <= tol
+    log(f"[packet]   {label}: packet {want!r} flow {got!r} div "
+        f"{100 * div:.2f}% (limit {100 * tol:g}%)"
+        f"{'' if ok else '  MISMATCH'}")
+    if not ok:
+        fail(f"{label}: flow {what} {got} vs packet {want}, "
+             f"div {div:.4f} > {tol}")
+    return {"label": label, "packet": want, "flow": got, "div": div,
+            "tol": tol}
+
+
+def frozen_scenarios(wl):
+    """``tools/freeze_fault_refs.py``'s three zero-fault scenarios."""
+    members = [f"h{i}" for i in range(8)]
+    return [("static-g8", wl.GroupOp("bcast", members, FROZEN_NBYTES)),
+            ("churn-g6", wl.GroupOp(
+                "bcast", members[:6], FROZEN_NBYTES,
+                events=(wl.MemberEvent("join", "h7", 4e-5),
+                        wl.MemberEvent("leave", "h3", 8e-5)))),
+            ("ring-g6", wl.GroupOp("bcast", members[:6], FROZEN_NBYTES,
+                                   transport="ring"))]
+
+
+def frozen_rows(eng, wl):
+    """Records of the scenarios, one run_many, in the frozen file's form
+    (every float as its repr)."""
+    scen = frozen_scenarios(wl)
+    recs = []
+    eng.run_many([lambda e, op=op: recs.append(e.stage(op))
+                  for _, op in scen], timeout=60.0)
+    return {name: {"t_submit": repr(float(r.t_submit)),
+                   "t_sender_cqe": repr(float(r.t_sender_cqe)),
+                   "t_deliver": [[m, repr(float(t))]
+                                 for m, t in sorted(r.t_deliver.items())],
+                   "jct": repr(float(r.jct(len(op.surviving_receivers()))))}
+            for (name, op), r in zip(scen, recs)}
+
+
+def packet_frozen(rec, fts, mods):
+    fattree, wl, make_engine = mods
+    with open(os.path.join(REPO, FROZEN_REFS)) as fh:
+        ref = json.load(fh)
+    if (ref["nbytes"], ref["seed"]) != (FROZEN_NBYTES, FROZEN_SEED):
+        fail(f"packet_frozen: {FROZEN_REFS} holds nbytes {ref['nbytes']} "
+             f"seed {ref['seed']}")
+    t0 = time.perf_counter()
+    got = frozen_rows(make_engine("packet", fattree.testbed(n_hosts=10),
+                                  seed=FROZEN_SEED), wl)
+    packet_wall = time.perf_counter() - t0
+    for name, want in ref["engines"]["packet"].items():
+        ok = got.get(name) == want
+        log(f"[packet]   {name}: packet records "
+            f"{'equal' if ok else 'DIFFER from'} {FROZEN_REFS}")
+        if not ok:
+            fail(f"packet_frozen {name}: {got.get(name)} != {want}")
+    with Phase("packet_frozen", rec, fts, lossy=False) as ph:
+        flow = frozen_rows(make_engine("flow", fattree.testbed(n_hosts=10),
+                                       device=FLOW_DEVICE), wl)
+    err = 0.0
+    for name, want in ref["engines"]["flow-np"].items():
+        g = flow[name]
+        pairs = [(g[k], want[k]) for k in ("t_submit", "t_sender_cqe",
+                                           "jct")]
+        if [m for m, _ in g["t_deliver"]] != [m for m, _ in
+                                               want["t_deliver"]]:
+            fail(f"packet_frozen {name}: flow receivers "
+                 f"{g['t_deliver']} vs {want['t_deliver']}")
+        pairs += [(a[1], b[1]) for a, b in zip(g["t_deliver"],
+                                              want["t_deliver"])]
+        for a, b in pairs:
+            a, b = float(a), float(b)
+            err = max(err, abs(a - b) / abs(b) if b else abs(a))
+            if not close(a, b, 1e-3):
+                fail(f"packet_frozen {name}: flow {a} vs flow-np {b}")
+    log(f"[packet] packet_frozen: packet {packet_wall:.3f} s, flow records "
+        f"max rel err {err:.3g} vs the frozen flow-np (limit 1e-3)")
+    return dict(ph.stats, packet_wall_s=packet_wall, flow_max_rel_err=err)
+
+
+def fig15_point(mods, engine, group, loss, **kw):
+    """fig15's single point: gleam on the ``group``-host testbed."""
+    fattree, wl, make_engine = mods
+    topo = fattree.testbed(n_hosts=group, bw=200 * fattree.GBPS)
+    eng = make_engine(engine, topo, loss_rate=loss, seed=11,
+                      group_kw={"window": 512}, relay_kw={"window": 512},
+                      **kw)
+    r = eng.stage(wl.GroupOp("bcast", [f"h{i}" for i in range(group)],
+                             FIG15_NBYTES, transport="gleam", chunks=8))
+    return eng, r
+
+
+def packet_fig15(rec, fts, mods):
+    with open(os.path.join(REPO, "BENCH_packetsim.json")) as fh:
+        single = [p["passes"][0] for p in json.load(fh)["single"]]
+    rows = []
+    for group, loss in FIG15_PACKET:
+        want = [p for p in single if (p["group"], p["loss"]) == (group,
+                                                                 loss)]
+        eng, r = fig15_point(mods, "packet", group, loss)
+        t0 = time.perf_counter()
+        eng.run(timeout=240.0)
+        wall = time.perf_counter() - t0
+        sim = eng.net.sim
+        got = {"jct_ms": r.jct(group - 1) * 1e3, "events": sim.events,
+               "dropped": sim.dropped}
+        ok = bool(want) and all(got[k] == want[0][k] for k in got)
+        log(f"[packet]   fig15 g{group} loss {loss:g}: packet {got} in "
+            f"{wall:.3f} s ({sim.events / wall:.0f} events/s); "
+            f"BENCH_packetsim.json {want[0] if want else None}"
+            f"{'' if ok else '  MISMATCH'}")
+        if not ok:
+            fail(f"packet_fig15 g{group} loss {loss}: {got} vs {want}")
+        rows.append(dict(got, group=group, loss=loss, packet_wall_s=wall,
+                         events_per_s=sim.events / wall))
+    with Phase("packet_fig15", rec, fts, lossy=True) as ph:
+        for row in rows:
+            eng, r = fig15_point(mods, "flow", row["group"], row["loss"],
+                                 device=FLOW_DEVICE)
+            eng.run()
+            row["flow_jct_ms"] = r.jct(row["group"] - 1) * 1e3
+    for row in rows:
+        row["div"] = abs(row["flow_jct_ms"] - row["jct_ms"]) / row["jct_ms"]
+        log(f"[packet]   fig15 g{row['group']} loss {row['loss']:g}: flow "
+            f"{row['flow_jct_ms']!r} ms, packet-vs-flow divergence "
+            f"{100 * row['div']:.2f}% (logged, not gated)")
+    return dict(ph.stats, rows=rows,
+                packet_wall_s=sum(r["packet_wall_s"] for r in rows))
+
+
+def leaf_uplink(topo, host):
+    """First non-host peer of the host's leaf switch."""
+    leaf = topo.ports[host][0][0]
+    for p in sorted(topo.ports[leaf]):
+        peer = topo.ports[leaf][p][0]
+        if not peer.startswith("h"):
+            return leaf, peer
+    raise RuntimeError(f"no uplink above {host}")
+
+
+def gate_values(mods, engine, kw):
+    """``tests/test_engines.py``'s JCT points and
+    ``tools/check_faults.py``'s recovery latencies on one engine:
+    label -> (value, tolerance).  Every op must complete without a QP
+    error."""
+    fattree, wl, make_engine = mods
+    out = {}
+
+    def run(label, topo, op, n, timeout=120.0, **extra):
+        eng = make_engine(engine, topo, **kw, **extra)
+        r = eng.stage(op)
+        eng.run(timeout=timeout)
+        if r.error or r.t_sender_cqe < 0 or len(r.t_deliver) < n:
+            fail(f"{label}/{engine}: incomplete (error {r.error!r}, cqe "
+                 f"{r.t_sender_cqe}, {len(r.t_deliver)}/{n} delivered)")
+        return r
+
+    members = ["h0", "h1", "h2", "h3"]
+    two_pod = dict(n_pods=2, leaves_per_pod=2, hosts_per_leaf=2,
+                   aggs_per_pod=2, bw=100 * fattree.GBPS)
+    for nbytes in (64 << 10, 1 << 20, 8 << 20):
+        r = run("testbed", fattree.testbed(),
+                wl.GroupOp("bcast", members, nbytes), 3)
+        out[f"testbed_bcast_{nbytes}"] = (r.jct(3), GATE_TOL["jct"])
+    for nbytes in (256 << 10, 4 << 20):
+        topo = fattree.fat_tree(**two_pod)
+        r = run("two_pod", topo, wl.GroupOp("bcast", topo.hosts, nbytes), 7)
+        out[f"two_pod_bcast_{nbytes}"] = (r.jct(7), GATE_TOL["jct"])
+    for transport in wl.TRANSPORT_CHOICES:
+        for nbytes in (256 << 10, 1 << 20):
+            r = run("transport", fattree.testbed(n_hosts=4),
+                    wl.GroupOp("bcast", members, nbytes,
+                               transport=transport), 3)
+            out[f"{transport}_bcast_{nbytes}"] = (r.jct(3), GATE_TOL["jct"])
+        r = run("allreduce", fattree.testbed(),
+                wl.GroupOp("allreduce", members, 1 << 20,
+                           transport=transport), 4)
+        out[f"{transport}_allreduce"] = (r.jct(4), GATE_TOL["allreduce"])
+    topo = fattree.fig4()
+    leaf, spine = leaf_uplink(topo, "h2")
+    seed = {"seed": 7} if engine == "packet" else {}
+    cases = (("link_down", wl.FaultEvent("link_down", FAULT_AT, node=leaf,
+                                         peer=spine)),
+             ("link_flap", wl.FaultEvent("link_flap", FAULT_AT, node=leaf,
+                                         peer=spine, duration=50e-6)),
+             ("switch_fail", wl.FaultEvent("switch_fail", FAULT_AT,
+                                           node=spine)),
+             ("host_gone_dark", wl.FaultEvent("host_gone_dark", FAULT_AT,
+                                              node="h3")),
+             ("master_crash", wl.FaultEvent("master_crash", FAULT_AT)))
+    base = run("fault_base", fattree.fig4(),
+               wl.GroupOp("bcast", members, FAULT_NBYTES), 3, 1.0, **seed)
+    for name, fault in cases:
+        op = wl.GroupOp("bcast", members, FAULT_NBYTES, faults=(fault,))
+        r = run(name, fattree.fig4(), op, len(op.surviving_receivers()),
+                1.0, **seed)
+        out[f"recovery_{name}"] = (r.t_sender_cqe - base.t_sender_cqe,
+                                   GATE_TOL["recovery"])
+    return out
+
+
+def fork_batch(mods, workers):
+    """Eight scenarios of a lossy 16-member gleam bcast on packet
+    ``run_many`` (each scenario its own RNG stream).  The scenarios share
+    one group, whose message ids count on in each process, so a forked
+    run's ids restart per worker: the records are compared without
+    them."""
+    fattree, wl, make_engine = mods
+    eng = make_engine("packet", fattree.testbed(n_hosts=16,
+                                                bw=200 * fattree.GBPS),
+                      loss_rate=1e-3, seed=11, group_kw={"window": 512})
+    recs = []
+    op = wl.GroupOp("bcast", [f"h{i}" for i in range(16)], FIG15_NBYTES)
+    t0 = time.perf_counter()
+    ends = eng.run_many([lambda e: recs.append(e.stage(op))] * FORK_SCENARIOS,
+                        timeout=240.0, workers=workers)
+    wall = time.perf_counter() - t0
+    return (ends, [(r.t_submit, r.t_sender_cqe,
+                    sorted(r.t_deliver.items()), r.error) for r in recs],
+            eng.last_run_stats, eng.last_run_errors), wall
+
+
+def packet_vs_flow(rec, fts, mods):
+    t0 = time.perf_counter()
+    want = gate_values(mods, "packet", {})
+    packet_wall = time.perf_counter() - t0
+    with Phase("packet_vs_flow", rec, fts, lossy=False) as ph:
+        got = gate_values(mods, "flow", {"device": FLOW_DEVICE})
+    rows = [gate(label, got[label][0], value, tol)
+            for label, (value, tol) in want.items()]
+    serial, serial_wall = fork_batch(mods, None)
+    forked, forked_wall = fork_batch(mods, FORK_WORKERS)
+    same = forked[:3] == serial[:3] and not forked[3]
+    log(f"[packet]   run_many: {FORK_SCENARIOS} scenarios serial "
+        f"{serial_wall:.3f} s, workers={FORK_WORKERS} {forked_wall:.3f} s "
+        f"(forked after CUDA init), records and last_run_stats "
+        f"{'equal' if same else 'DIFFER'}; worker errors {forked[3]}")
+    if not same:
+        fail(f"packet_vs_flow: run_many(workers={FORK_WORKERS}) differs "
+             f"from serial: {forked[3]}")
+    return dict(ph.stats, rows=rows, packet_wall_s=packet_wall,
+                fork={"workers": FORK_WORKERS, "scenarios": FORK_SCENARIOS,
+                      "serial_s": serial_wall, "forked_s": forked_wall,
+                      "equal": same})
+
+
+def fleet_phase(rec, fts, mods):
+    from repro_torch.apps.fleet import FleetSpec, run_fleet
+    fattree = mods[0]
+    spec = FleetSpec(**FLEET_SPEC)
+
+    def fabric():
+        return fattree.fat_tree(bw=100 * fattree.GBPS, **FLEET_FABRIC)
+
+    shared = fabric()
+    t0 = time.perf_counter()
+    rp = run_fleet("packet", shared, spec, seed=1)
+    packet_wall = time.perf_counter() - t0
+    with Phase("fleet", rec, fts, lossy=False) as ph:
+        rf = run_fleet("flow", shared, spec, device=FLOW_DEVICE)
+        fresh = run_fleet("flow", fabric(), spec, device=FLOW_DEVICE)
+    rows = []
+    for rep in (rp, rf):
+        if rep["errors"]:
+            fail(f"fleet {rep['engine']}: {rep['errors']} errored ops")
+    for phase, qf in sorted(rf["tenants"].items()):
+        qp = rp["tenants"][phase]
+        if phase.startswith("tenant-"):
+            rows.append(gate(f"fleet {phase} p99", qf["p99"], qp["p99"],
+                             GATE_TOL["fleet"], "p99"))
+        for q in (qf, qp):
+            if not q["p50"] <= q["p99"] <= q["p999"] <= q["latency"]:
+                fail(f"fleet {phase}: non-monotone quantiles {q}")
+    cp, cf = rp["census"], rf["census"]
+    census_ok = cf["qp_per_host"] == cp["qp_per_host"] and \
+        cf["mft_groups_total"] == cp["mft_groups_total"]
+    shared_ok = fresh["tenants"] == rf["tenants"] and \
+        fresh["census"] == rf["census"]
+    hit_rate = rf["staging"]["hit_rate"]
+    log(f"[packet]   fleet: census qp_total {cp['qp_total']} (flow "
+        f"{cf['qp_total']}), mft groups {cp['mft_groups_total']} (flow "
+        f"{cf['mft_groups_total']}){'' if census_ok else '  MISMATCH'}; "
+        f"staging hit rate {hit_rate:.3f}; flow on the packet engine's "
+        f"fabric {'equals' if shared_ok else 'DIFFERS from'} a fresh one")
+    if not census_ok:
+        fail(f"fleet census: flow {cf} vs packet {cp}")
+    if not hit_rate > 0:
+        fail("fleet: the staging cache saw no hits")
+    if not shared_ok:
+        fail("fleet: flow on the shared fabric differs from a fresh one")
+    return dict(ph.stats, rows=rows, packet_wall_s=packet_wall,
+                census_equal=census_ok, staging_hit_rate=hit_rate,
+                shared_fabric_equal=shared_ok)
+
+
+def apps_phase(rec, fts, mods):
+    from repro_torch.apps.collectives_lowering import (MeshShape,
+                                                       param_count,
+                                                       train_step_workload)
+    from repro_torch.apps.metrics import run_phased, step_time
+    from repro_torch.apps.traffic import ArrivalSpec, ServingGenerator
+    from repro_torch.configs.base import get_config
+    from repro_torch.models.blocks import count_params
+    from repro_torch.models.model import model_defs
+    fattree, _, make_engine = mods
+    mesh = MeshShape(**APPS_MESH)
+    cfgs = {arch: get_config(arch, smoke=True) for arch in APPS_ARCHS}
+    for arch, cfg in cfgs.items():
+        if param_count(cfg) != count_params(model_defs(cfg)):
+            fail(f"apps {arch}: param_count {param_count(cfg)} != "
+                 f"count_params(model_defs) {count_params(model_defs(cfg))}")
+    gen = ServingGenerator(cfgs["llama3_2_3b"], **APPS_SERVE)
+    spec = ArrivalSpec(**APPS_ARRIVALS)
+
+    def run(engine, kw):
+        steps = {}
+        for arch, cfg in cfgs.items():
+            for transport in APPS_TRANSPORTS:
+                eng = make_engine(engine, fattree.testbed(
+                    n_hosts=mesh.n_chips), **kw)
+                wl = train_step_workload(cfg, mesh, seq=64, batch=8,
+                                         transport=transport)
+                steps[(arch, transport)] = step_time(
+                    *run_phased(eng, wl, timeout=60.0))
+        rep = gen.run(make_engine(engine, fattree.testbed(n_hosts=8), **kw),
+                      spec, timeout=60.0)
+        return steps, rep
+
+    t0 = time.perf_counter()
+    want, want_rep = run("packet", {})
+    packet_wall = time.perf_counter() - t0
+    with Phase("apps", rec, fts, lossy=False) as ph:
+        got, got_rep = run("flow", {"device": FLOW_DEVICE})
+    rows = [gate(f"apps {arch} train/{transport} step", got[(arch, transport)],
+                 want[(arch, transport)], GATE_TOL["apps"], "step time")
+            for arch, transport in want]
+    for arch in cfgs:
+        if want[(arch, "gleam")] > want[(arch, "multiunicast")]:
+            fail(f"apps {arch}: gleam step slower than multiunicast")
+    for engine, r in (("packet", want_rep), ("flow", got_rep)):
+        q = r.quantiles
+        log(f"[packet]   apps serve/{engine}: achieved "
+            f"{r.achieved_qps!r}/{spec.rate:g} qps, p50 {q['p50']!r} p99 "
+            f"{q['p99']!r} p999 {q['p999']!r} s")
+        if r.n_requests != spec.n or not 0 < r.achieved_qps \
+                <= spec.rate * 1.05 \
+                or not q["p50"] <= q["p99"] <= q["p999"] <= q["max"]:
+            fail(f"apps serve/{engine}: {r.n_requests} requests, achieved "
+                 f"{r.achieved_qps}, quantiles {q}")
+    rows.append(gate("apps serve achieved qps", got_rep.achieved_qps,
+                     want_rep.achieved_qps, GATE_TOL["apps"], "QPS"))
+    return dict(ph.stats, rows=rows, packet_wall_s=packet_wall)
+
+
+def host_cpu() -> str:
+    """The host CPU's model name (``unknown`` where ``/proc/cpuinfo``
+    gives none), architecture and cores: the packet engine's times are
+    taken on it."""
+    import platform
+    name = "unknown"
+    try:
+        with open("/proc/cpuinfo") as fh:
+            name = next((line.split(":", 1)[1].strip() for line in fh
+                         if line.startswith("model name")), name)
+    except OSError:
+        pass
+    return f"{name} ({platform.machine()}, {os.cpu_count()} cores)"
+
+
+def run_packet(rec):
+    """The packet engine (host) beside the flow engine (card) at every
+    packet-vs-flow gate of the reference; each flow side one path phase."""
+    from repro_torch.core import fattree, flowsim_torch as fts
+    from repro_torch.core import workload as wl
+    from repro_torch.core.engine import make_engine
+    mods = (fattree, wl, make_engine)
+    cpu = host_cpu()
+    log(f"[packet] host CPU: {cpu}")
+    out = {}
+    for label, fn in (("packet_frozen", packet_frozen),
+                      ("packet_fig15", packet_fig15),
+                      ("packet_vs_flow", packet_vs_flow),
+                      ("fleet", fleet_phase), ("apps", apps_phase)):
+        t0 = time.perf_counter()
+        out[label] = fn(rec, fts, mods)
+        out[label]["phase_wall_s"] = time.perf_counter() - t0
+        log(f"[packet] {label}: {out[label]['phase_wall_s']:.3f} s "
+            f"(packet side {out[label].get('packet_wall_s', 0.0):.3f} s), "
+            f"flow launches {out[label]['launches']}")
+        out[label]["host_cpu"] = cpu
+    return out
+
+
 # ---------------------------------------------------------------- kernels
 
 def cuda_ms(fn, reps):
@@ -2167,6 +2618,7 @@ def main() -> int:
     paths.update(run_serve(decode_rec))
     paths.update(run_prefill(prefill_rec))
     paths.update(run_train())
+    paths.update(run_packet(rec))
     rows = run_kernels(rec, paths) + run_decode_kernels(decode_rec, paths) \
         + run_prefill_kernels(prefill_rec, paths) \
         + run_train_kernels(prefill_rec)

@@ -1,1 +1,2 @@
-"""Topology, workload IR and the flow engine (see ``engine.py``)."""
+"""Topology, workload IR, the packet simulator and the engines (see
+``engine.py``)."""

@@ -1,6 +1,8 @@
-"""The flow engine: Workload-IR staging onto a fluid solver.
+"""The engines: Workload-IR staging onto a packet simulator or a fluid
+solver.
 
-The port of the flow half of the reference's ``core/engine.py``.  A
+The port of the reference's ``core/engine.py``.  A ``PacketEngine``
+drives every staged op through the per-packet simulator on the host.  A
 ``FlowEngine`` lowers declarative group operations (``GroupOp`` /
 ``Workload``, ``core/workload.py``) onto max-min fair fluid flows — a
 gleam multicast is one flow over its distribution-tree links, an overlay
@@ -15,38 +17,45 @@ timeline — hands them to a solver, and back-fills ``MsgRecord``s
 
 Engines by name (``make_engine``):
 
+    ``packet``   the packet-level reference: ``PacketEngine`` adapts
+                 ``gleam.GleamNetwork`` (per-packet event loop of
+                 ``packetsim``, RC endpoints, Gleam switches, go-back-N,
+                 DCQCN) on the host; it takes no ``device``;
     ``flow``     fluid model on ``flowsim_torch.TorchFlowSim``; runs on
                  ``device`` (default ``"cuda"``, which raises without a
                  card; ``device="cpu"`` runs the plain PyTorch solver);
     ``flow-np``  fluid model on the numpy ``flowsim.FlowSim``.
 
-The packet engine of the reference is not ported yet.  The constants the
-flow half reads from the reference's packet layer are copied below.
+The packet half (``PacketEngine``, ``_cqe_from_deliveries``, the fork
+workers of ``run_many``) is a copy of the reference's; ``MTU`` and
+``HDR`` come from the port's ``packet``, ``DEFAULT_FAIL_DETECT`` from
+its ``faults``.  As in the reference, ``gleam`` (and with it
+``packetsim``, ``switch``, ``endpoint`` and ``ftable``) is imported only
+where a ``PacketEngine`` is built, so a flow-only user never loads the
+packet simulator.
 """
 from __future__ import annotations
 
 import math
+import os
+import pickle
+import traceback
 import warnings
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 from repro_torch.core import staging
 from repro_torch.core.fattree import Topology
-from repro_torch.core.faults import DEFAULT_LINK_DETECT, validate_fault_plan
+from repro_torch.core.faults import (DEFAULT_FAIL_DETECT,
+                                     DEFAULT_FAULT_RETRIES,
+                                     DEFAULT_LINK_DETECT, validate_fault_plan)
 from repro_torch.core.flowsim import FlowSim, LossParams, static_maxmin_loops
 from repro_torch.core.flowsim_torch import TorchFlowSim
 from repro_torch.core.metrics import MsgRecord
+from repro_torch.core.packet import HDR, MTU
 from repro_torch.core.workload import (GroupOp, RELAY_OVERHEAD, Transport,
                                        Workload, get_transport, relay_plan)
 
-ENGINE_CHOICES = ("flow", "flow-np")
-
-#: bytes of payload per DATA packet (the reference's ``packet.MTU``)
-MTU = 1500
-#: Eth+IP+UDP+BTH+ICRC overhead bytes per packet (``packet.HDR``)
-HDR = 58
-#: the master's failure-detection delay, seconds
-#: (``gleam.DEFAULT_FAIL_DETECT``)
-DEFAULT_FAIL_DETECT = 1e-3
+ENGINE_CHOICES = ("packet", "flow", "flow-np")
 
 # ==================================================== shared staging glue
 
@@ -115,6 +124,589 @@ class _WorkloadStaging:
         """Deprecated: ``stage(GroupOp('unicast', (src, dst), nbytes))``."""
         return self._legacy("add_unicast", GroupOp(
             "unicast", (src, dst), nbytes, key=key))
+
+
+# =========================================================== packet engine
+
+def _cqe_from_deliveries(rec: MsgRecord) -> None:
+    """Overlay completion policy: the 'CQE' of a software relay bcast
+    is the last relay delivery (the overlay has no aggregated ACK)."""
+    rec.t_sender_cqe = max(rec.t_deliver.values())
+
+
+class PacketEngine(_WorkloadStaging):
+    """Cycle-accurate backend: adapts ``GleamNetwork``/``MulticastGroup``
+    (per-packet event simulation) to the SimEngine contract.
+
+    Multicast groups are created and registered lazily per member set
+    (registration time is excluded from message records, matching how the
+    paper measures steady-state JCT after setup) and reused across
+    epochs; Appendix-B source switching handles source rotation.
+    Overlay transports lower onto the ``baselines.py`` relay classes —
+    real RC unicast QPs with per-hop host forwarding overhead.
+    ``relay_kw`` forwards QP tuning (window, mtu, ...) to those relays.
+    """
+
+    name = "packet"
+
+    def __init__(self, topo: Topology, *, group_kw: Optional[dict] = None,
+                 relay_kw: Optional[dict] = None,
+                 staging_cache: bool = True, **sim_kw):
+        from repro_torch.core.gleam import GleamNetwork
+        self.topo = topo
+        # the packet engine's staged artifacts are the topology's route
+        # memos (dist / candidate_ports — pure functions of the routed
+        # fabric).  ``staging_cache=False`` turns them off topology-wide
+        # so the cache-on/off bit-identity tests have a memo-free
+        # reference run (slow: one BFS per dist() call; testing only).
+        topo.route_cache = bool(staging_cache)
+        self.net = GleamNetwork(topo, **sim_kw)
+        self.group_kw = dict(group_kw or {})
+        self.relay_kw = dict(relay_kw or {})
+        self._groups: Dict[Tuple[str, ...], object] = {}
+        self._chans: Dict[Tuple[str, str], object] = {}
+        self._staged: List = []                 # submission thunks
+        # (record, n deliveries to wait for, completion policy or None)
+        self._pending: List[Tuple[MsgRecord, int, Optional[Callable]]] = []
+        self._op_phys: Dict[str, float] = {}    # op-level fabric overrides
+        self.last_run_stats: List = []
+        self.last_run_errors: List[str] = []    # run_many degradations
+
+    # ------------------------------------------------------------ helpers
+
+    def stage(self, op: GroupOp) -> MsgRecord:
+        self._apply_op_phys(op)
+        return super().stage(op)
+
+    def _apply_op_phys(self, op: GroupOp) -> None:
+        """Apply a GroupOp's loss/ECN scenario parameters to the fabric.
+
+        Loss rate and ECN marking are *physical* — one fabric, one
+        value — so they are engine-global here (the flow engines can
+        honor them per-flow).  Two staged ops demanding different
+        non-None values is a modeling error, not a race to resolve.
+        """
+        sim = self.net.sim
+        for attr, val in (("loss_rate", op.loss_rate),
+                          ("ecn_backlog", op.ecn_backlog)):
+            if val is None:
+                continue
+            val = float(val)
+            prev = self._op_phys.setdefault(attr, val)
+            if prev != val:
+                raise ValueError(
+                    f"conflicting GroupOp.{attr} values on the packet "
+                    f"engine: {prev!r} vs {val!r} (the fabric {attr} is "
+                    "physical and global; run the ops in separate "
+                    "engines)")
+            setattr(sim, attr, val)
+
+    def _group(self, members: Sequence[str]):
+        """Get-or-register the group for a member set.
+
+        Registration drives the simulator (the Appendix-A envelope
+        exchange is itself simulated traffic), which is why data
+        submissions are DEFERRED to ``run()``: staging op B must not
+        silently drain already-staged op A's packets.
+        """
+        key = tuple(members)
+        g = self._groups.get(key)
+        if g is None:
+            g = self.net.multicast_group(members, **self.group_kw)
+            g.register()
+            self._groups[key] = g
+        return g
+
+    def _stage_group_op(self, members, nbytes, source, submit) -> MsgRecord:
+        g = self._group(members)
+        rec = MsgRecord(-1, nbytes, self.net.sim.now)
+
+        def thunk():
+            if source is not None and source != g.source:
+                g.switch_source(source)
+            real = submit(g)
+            # alias the group's bookkeeping to the record we handed out
+            rec.msg_id, rec.t_submit = real.msg_id, real.t_submit
+            g.records[real.msg_id] = rec
+
+        self._staged.append(thunk)
+        self._pending.append((rec, g.n_receivers(), None))
+        return rec
+
+    # ----------------------------------------------------------- lowering
+
+    def _stage_native(self, op: GroupOp) -> MsgRecord:
+        if op.events or op.faults:
+            return self._stage_dynamic(op)
+        if op.op == "write":
+            return self._stage_group_op(
+                op.members, op.nbytes, op.source,
+                lambda g: g.write(op.nbytes, same_mr=op.same_mr))
+        return self._stage_group_op(op.members, op.nbytes, op.source,
+                                    lambda g: g.bcast(op.nbytes))
+
+    def _stage_dynamic(self, op: GroupOp) -> MsgRecord:
+        """Dynamic-membership lowering: the op's timed ``MemberEvent``s
+        run natively on the live fabric — each event is an in-sim
+        callback driving the group's membership control plane (in-band
+        MFT-update envelopes, QP re-arm, failure isolation; see
+        ``core/gleam.py``).
+
+        Membership mutates the group, so a dynamic op always gets a
+        FRESH group instead of the per-member-set cache.  The pending
+        record waits for every *surviving* initial receiver (leavers
+        and failed members are excused; joiners deliver from their
+        join point but are not required to complete the in-flight
+        message), which keeps ``run_many``'s quiesce/fork machinery
+        working unchanged — events are scheduled relative to the
+        submission instant inside the deferred thunk.
+
+        ``FaultEvent``s lower the same way: each fault is a scheduled
+        callback driving the group's self-healing ops (link/switch
+        repair re-floods, switch-originated teardown confirm,
+        master re-election — ``core/gleam.py``).  Fault scenarios get
+        the RoCE-style bounded retry budget by default (an unreachable
+        peer must surface as a QP error, never a hang); zero-fault ops
+        keep ``max_retries=None`` so their records stay bit-identical
+        to the pre-fault-plane tree."""
+        kw = dict(self.group_kw)
+        if op.faults:
+            validate_fault_plan(self.topo, op)
+            kw.setdefault("max_retries", DEFAULT_FAULT_RETRIES)
+        g = self.net.multicast_group(list(op.members), **kw)
+        g.register()
+        sim = self.net.sim
+        rec = MsgRecord(-1, op.nbytes, sim.now)
+        events = op.sorted_events()
+        faults = op.sorted_faults()
+
+        def thunk():
+            if op.source is not None and op.source != g.source:
+                g.switch_source(op.source)
+            if op.op == "write":
+                real = g.write(op.nbytes, same_mr=op.same_mr)
+            else:
+                real = g.bcast(op.nbytes)
+            rec.msg_id, rec.t_submit = real.msg_id, real.t_submit
+            g.records[real.msg_id] = rec
+            t0 = sim.now
+            ops = {"join": g.join, "leave": g.leave, "fail": g.fail,
+                   "master-switch": g.master_switch}
+            for ev in events:
+                sim.schedule(t0 + ev.at,
+                             lambda now, fn=ops[ev.kind], m=ev.member:
+                             fn(m, now=now))
+            fops = {
+                "link_down": lambda now, f:
+                    g.link_fault(f.node, f.peer, now=now),
+                "link_flap": lambda now, f:
+                    g.link_fault(f.node, f.peer, now=now,
+                                 duration=f.duration),
+                "switch_fail": lambda now, f:
+                    g.switch_fault(f.node, now=now),
+                "host_gone_dark": lambda now, f:
+                    g.host_gone_dark(f.node, now=now),
+                "master_crash": lambda now, f: g.master_crash(now=now),
+            }
+            for f in faults:
+                sim.schedule(t0 + f.at,
+                             lambda now, fn=fops[f.kind], f=f: fn(now, f))
+
+        self._staged.append(thunk)
+        self._pending.append((rec, len(op.surviving_receivers()), None))
+        return rec
+
+    def _stage_overlay(self, op: GroupOp, transport: Transport) -> MsgRecord:
+        """Relay transports run the ``baselines.py`` machinery: QPs are
+        wired at stage time (silent), data submission is deferred.
+
+        Overlay fault plans (the IR admits only ``host_gone_dark`` on
+        overlays — fabric and master faults are native-transport
+        concepts) lower to a scheduled NIC blackout plus, one
+        ``fail_detect`` later, the relay-schedule splice
+        (``repair_dead_relay``: the dead relay's children re-parent and
+        the chunk stream is resubmitted).  A graceful ``leave``
+        MemberEvent takes the same splice path, but immediately — the
+        departing host announces itself, so there is no detection
+        delay and no blackout."""
+        members = op.ordered_members()
+        kw = dict(self.relay_kw)
+        if op.faults:
+            validate_fault_plan(self.topo, op)
+            kw.setdefault("max_retries", DEFAULT_FAULT_RETRIES)
+        b = transport.packet_bcast(self.net, members, op.chunks, **kw)
+        rec = MsgRecord(-1, op.nbytes, self.net.sim.now)
+        b.t_deliver = rec.t_deliver             # deliveries land on rec
+        sim = self.net.sim
+
+        def thunk():
+            rec.t_submit = sim.now
+            b.start(op.nbytes)
+            t0 = sim.now
+            for ev in op.sorted_events():       # graceful leaves: splice now
+                sim.schedule(t0 + ev.at,
+                             lambda now, m=ev.member:
+                             b.repair_dead_relay(m, now))
+            if op.faults:
+                detect = float(self.group_kw.get("fail_detect",
+                                                 DEFAULT_FAIL_DETECT))
+                for f in op.sorted_faults():
+                    sim.schedule(t0 + f.at,
+                                 lambda now, m=f.node: sim.host_dark(m))
+                    sim.schedule(t0 + f.at + detect,
+                                 lambda now, m=f.node:
+                                 b.repair_dead_relay(m, now))
+
+        self._staged.append(thunk)
+        n = len(op.surviving_receivers()) if (op.faults or op.events) \
+            else b.n_receivers()
+        self._pending.append((rec, n, _cqe_from_deliveries))
+        return rec
+
+    def _stage_allreduce(self, op: GroupOp, transport: Transport
+                         ) -> MsgRecord:
+        """Fan-in reduce (every member unicasts its contribution to the
+        root — the many-to-one analogue of the paper's feedback
+        aggregation) followed by a bcast of the result over the op's
+        transport, triggered when the last contribution lands."""
+        sim = self.net.sim
+        members = op.ordered_members()
+        root = members[0]
+        rec = MsgRecord(-1, op.nbytes, sim.now)
+
+        if transport.native:
+            g = self._group(tuple(members))
+            overlay = None
+        else:
+            overlay = transport.packet_bcast(self.net, members, op.chunks,
+                                             **self.relay_kw)
+            overlay.t_deliver = rec.t_deliver
+
+        def start_bcast(now: float) -> None:
+            rec.t_deliver[root] = now           # root holds the result
+            if overlay is not None:
+                overlay.start(op.nbytes)
+                return
+            if root != g.source:
+                g.switch_source(root)
+            real = g.bcast(op.nbytes)
+            g.records[real.msg_id] = rec        # deliveries + CQE -> rec
+
+        arrived: set = set()
+        pairs = []
+        for m in members[1:]:
+            qa, qb = self.net.unicast_qp(m, root)
+
+            def on_deliver(mid, now, m=m):
+                arrived.add(m)
+                if len(arrived) == len(members) - 1:
+                    start_bcast(now)
+
+            qb.on_deliver = on_deliver
+            pairs.append((m, qa))
+
+        def thunk():
+            rec.t_submit = sim.now
+            for m, qa in pairs:
+                qa.submit(op.nbytes, sim.now)
+                sim.kick(sim.hosts[m], sim.now)
+
+        self._staged.append(thunk)
+        fin = _cqe_from_deliveries if overlay is not None else None
+        self._pending.append((rec, len(members), fin))
+        return rec
+
+    def _stage_unicast(self, src: str, dst: str, nbytes: int,
+                       key: int = 0) -> MsgRecord:
+        chan = self._chans.get((src, dst))
+        if chan is None:
+            qa, qb = self.net.unicast_qp(src, dst)
+            recs: Dict[int, MsgRecord] = {}
+            qa.on_complete = lambda m, now: (
+                recs[m.msg_id].__setattr__("t_sender_cqe", now)
+                if m.msg_id in recs else None)
+            qb.on_deliver = lambda mid, now: (
+                recs[mid].t_deliver.__setitem__(dst, now)
+                if mid in recs else None)
+            chan = (qa, recs)
+            self._chans[(src, dst)] = chan
+        qa, recs = chan
+        mid = len(recs)
+        rec = MsgRecord(mid, nbytes, self.net.sim.now)
+        recs[mid] = rec
+
+        def thunk():
+            sim = self.net.sim
+            rec.t_submit = sim.now
+            qa.submit(nbytes, sim.now, msg_id=mid)
+            sim.kick(sim.hosts[src], sim.now)
+
+        self._staged.append(thunk)
+        self._pending.append((rec, 1, None))
+        return rec
+
+    # ------------------------------------------------------------ drivers
+
+    def run(self, timeout: float = 30.0) -> float:
+        sim = self.net.sim
+        for thunk in self._staged:              # submit everything NOW —
+            thunk()                             # staged ops run concurrently
+        self._staged = []
+        deadline = sim.now + timeout
+        while self._pending:
+            before = sim.events
+            sim.run(until=deadline)
+            still = []
+            for r, n, fin in self._pending:
+                if fin is not None and len(r.t_deliver) >= n \
+                        and r.t_sender_cqe < 0:
+                    fin(r)
+                if r.error:
+                    continue            # bounded-retry terminal error:
+                                        # the op is complete, not stuck
+                if len(r.t_deliver) < n or r.t_sender_cqe < 0:
+                    still.append((r, n, fin))
+            self._pending = still
+            if not self._pending:
+                break
+            if sim.events == before or sim.now >= deadline:
+                break                           # stalled or out of budget
+        return sim.now
+
+    def _quiesce(self, timeout: float) -> None:
+        """Restore independent-experiment semantics between scenarios:
+        drain residual events (stray ACKs, armed timers), then reset the
+        clock and every clock-bearing piece of state (NIC egress
+        reservations, rate-pacing gates, DCQCN rate machines, switch CNP
+        counters and aging) so the next scenario starts on a fresh
+        fabric — matching the flow engine's isolated scenarios.
+        Connection state (groups, QPs, PSNs) survives: registration is
+        setup the paper excludes from steady-state measurements."""
+        sim = self.net.sim
+        deadline = sim.now + timeout
+        if sim._q:
+            sim.run(until=deadline)             # drain to empty (bounded)
+        # a stalled scenario (lossy fabric, armed timers) can hit the
+        # deadline with events still queued — discard them rather than
+        # let them fire into the next scenario off the reset clock
+        sim._q.clear()
+        sim.now = 0.0
+        sim.reset_free()
+        sim.clear_faults()      # restore links/hosts a fault scenario took
+                                # down (no-op unless a fault ever fired)
+        for host in sim.hosts.values():
+            host._kick_t = math.inf
+            for qp in host.qps.values():
+                qp.next_emit_t = 0.0
+                qp.timer_deadline = math.inf
+                qp._timer_ev = math.inf
+                qp.rate.rate = qp.rate.peak
+                qp.rate.alpha = 1.0
+                qp.rate.last_cnp = -math.inf
+                qp.rate.last_inc = 0.0
+                qp.last_cnp_t = -math.inf
+        for sw in sim.switches.values():
+            sw._cnp_t.clear()
+            for t in sw.tables.tables.values():
+                t.cnp_count.clear()
+
+    # --------------------------------------------- scenario batch driving
+
+    def _scenario_counters(self) -> Tuple[int, int, int, int, int]:
+        sim = self.net.sim
+        no_qp = sum(h.no_qp_drops for h in sim.hosts.values())
+        rtx = sum(q.retransmitted for h in sim.hosts.values()
+                  for q in h.qps.values())
+        return (sim.events, sim.dropped, sim.tx_bytes, no_qp, rtx)
+
+    def _run_scenario(self, index: int, staged: List, pending: List,
+                      timeout: float) -> Tuple[float, Dict[str, int]]:
+        """Drive one staged scenario on a quiesced fabric with its own
+        deterministic RNG stream (seed ⊕ scenario index — never the
+        residue of earlier scenarios' draws), so the result does not
+        depend on which scenarios ran before it in this process.  That
+        invariance is what makes the serial and process-parallel paths
+        bit-identical, and it turns the scenario index into a free
+        multi-seed axis for the loss sweeps."""
+        sim = self.net.sim
+        self._quiesce(timeout)
+        sim.reseed_scenario(index)
+        before = self._scenario_counters()
+        self._staged, self._pending = staged, pending
+        end = self.run(timeout)
+        after = self._scenario_counters()
+        stats = {"events": after[0] - before[0],
+                 "dropped": after[1] - before[1],
+                 "tx_bytes": after[2] - before[2],
+                 "no_qp_drops": after[3] - before[3],
+                 "retransmitted": after[4] - before[4]}
+        return end, stats
+
+    def run_many(self, scenarios: Sequence[Callable], timeout: float = 30.0,
+                 workers: Optional[int] = None) -> List[float]:
+        """Independent-experiment scenario batch.
+
+        Every scenario is staged first (staging is silent: group
+        registration traffic runs, data submission thunks are
+        deferred), then each scenario is driven on a quiesced fabric
+        with the clock reset to 0 and a per-scenario RNG stream
+        (groups/QPs are reused across scenarios; records measure
+        relative to their own ``t_submit``).
+
+        ``workers=None`` (default) keeps the serial path.  ``workers=0``
+        uses one process per CPU; ``workers=N`` forks N worker
+        processes, each driving a round-robin share of the scenarios on
+        a copy-on-write image of the staged engine and shipping record
+        times + counter deltas back over a pipe.  Scenario records and
+        the per-scenario ``last_run_stats`` deltas (events / dropped /
+        tx_bytes / no_qp_drops / retransmitted) are bit-identical
+        between the two paths — the determinism tests assert it.  The
+        parent folds only the engine-level aggregates (``sim.events`` /
+        ``dropped`` / ``tx_bytes``) back; per-host ``no_qp_drops`` and
+        per-QP ``retransmitted`` attribution stays in the workers, so
+        after a parallel run read those from ``last_run_stats``, not
+        from the (never-driven) parent objects.  On platforms without
+        ``fork`` the call silently degrades to serial.  Caveat: forking
+        a process whose threads hold locks is never fully safe in
+        CPython — workers touch only the pure-Python simulator and exit
+        via ``os._exit``, which has been robust in practice (also after
+        CUDA init on the card: ``chip_smoke.py``'s packet_vs_flow phase),
+        but pass ``workers=None``/``1`` if your embedding process cannot
+        tolerate ``fork``."""
+        metas: List[Tuple[List, List]] = []
+        for stage in scenarios:
+            stage(self)
+            metas.append((self._staged, self._pending))
+            self._staged, self._pending = [], []
+        if workers is not None and workers == 0:
+            workers = os.cpu_count() or 1
+        workers = min(workers or 1, len(metas))
+        if workers > 1 and hasattr(os, "fork"):
+            return self._run_many_parallel(metas, timeout, workers)
+        ends: List[float] = []
+        stats: List[Dict[str, int]] = []
+        for i, (staged, pending) in enumerate(metas):
+            end, st = self._run_scenario(i, staged, pending, timeout)
+            ends.append(end)
+            stats.append(st)
+        self.last_run_stats = stats
+        self.last_run_errors: List[str] = []
+        return ends
+
+    def _restore_records(self, pending: List, rec_times: List) -> None:
+        """Back-fill a scenario's caller-held records from a worker's
+        shipped completion times."""
+        for (rec, _, _), (mid, t_sub, t_cqe, deliver, err) in zip(
+                pending, rec_times):
+            rec.msg_id = mid
+            rec.t_submit = t_sub
+            rec.t_sender_cqe = t_cqe
+            rec.t_deliver.clear()
+            rec.t_deliver.update(deliver)
+            rec.error = err
+
+    def _run_many_parallel(self, metas: List[Tuple[List, List]],
+                           timeout: float, workers: int) -> List[float]:
+        """Fork-based scenario parallelism (quiesce makes scenarios
+        independent experiments, so they partition freely).  Each child
+        inherits the fully-staged engine copy-on-write, drives scenarios
+        ``w, w+workers, ...`` exactly like the serial path, and STREAMS
+        one pickle frame per scenario back up the pipe (record
+        completion times + counter deltas); the parent back-fills the
+        caller's records and folds the deltas into its own
+        (never-driven) simulator counters.
+
+        Degradation is graceful and per-scenario: a scenario that
+        raises in a worker is reported by index (frame tag ``"err"``)
+        and the rest of that worker's share keeps running; a worker
+        that dies outright (OOM kill, segfault, truncated frame) just
+        stops producing frames.  Every scenario that did not come back
+        clean is re-run serially in the parent — same
+        ``_run_scenario``, same per-index reseed, so the results stay
+        bit-identical to the serial path and a deterministic scenario
+        error reproduces with a real traceback instead of an opaque
+        EOF.  ``last_run_errors`` records what degraded and why."""
+        children = []
+        for w in range(workers):
+            r_fd, w_fd = os.pipe()
+            pid = os.fork()
+            if pid == 0:                                  # ---- child
+                try:
+                    os.close(r_fd)
+                    with os.fdopen(w_fd, "wb") as fh:
+                        for i in range(w, len(metas), workers):
+                            staged, pending = metas[i]
+                            try:
+                                end, st = self._run_scenario(
+                                    i, staged, pending, timeout)
+                                frame = ("ok", i, end, st,
+                                         [(r.msg_id, r.t_submit,
+                                           r.t_sender_cqe,
+                                           dict(r.t_deliver), r.error)
+                                          for r, _, _ in pending])
+                            except BaseException:
+                                frame = ("err", i, traceback.format_exc())
+                            pickle.dump(frame, fh,
+                                        protocol=pickle.HIGHEST_PROTOCOL)
+                            fh.flush()
+                except BaseException:
+                    pass
+                finally:
+                    os._exit(0)
+            os.close(w_fd)                                # ---- parent
+            children.append((pid, r_fd, w))
+        sim = self.net.sim
+        ends = [0.0] * len(metas)
+        stats: List[Optional[Dict[str, int]]] = [None] * len(metas)
+        reported: set = set()
+        errors: List[str] = []
+        failed: List[int] = []
+        for pid, r_fd, w in children:
+            expected = list(range(w, len(metas), workers))
+            with os.fdopen(r_fd, "rb") as fh:
+                while True:
+                    try:
+                        frame = pickle.load(fh)
+                    except EOFError:
+                        break               # clean end of stream
+                    except Exception:
+                        break               # truncated frame: child died
+                    if frame[0] == "err":
+                        _, i, tb = frame
+                        reported.add(i)
+                        failed.append(i)
+                        errors.append(
+                            f"scenario {i} raised in worker {w}:\n{tb}")
+                        continue
+                    _, i, end, st, rec_times = frame
+                    reported.add(i)
+                    ends[i] = end
+                    stats[i] = st
+                    self._restore_records(metas[i][1], rec_times)
+                    sim.events += st["events"]
+                    sim.dropped += st["dropped"]
+                    sim.tx_bytes += st["tx_bytes"]
+            os.waitpid(pid, 0)
+            lost = [i for i in expected if i not in reported]
+            if lost:
+                errors.append(
+                    f"worker {w} (pid {pid}) died before reporting "
+                    f"scenarios {lost}")
+        retry = sorted(set(failed)
+                       | {i for i in range(len(metas)) if i not in reported})
+        self.last_run_errors = errors
+        if retry:
+            warnings.warn(
+                f"parallel run_many degraded: re-running scenarios "
+                f"{retry} serially ({len(errors)} worker report(s) — "
+                f"see last_run_errors)", RuntimeWarning)
+            for i in retry:
+                staged, pending = metas[i]
+                end, st = self._run_scenario(i, staged, pending, timeout)
+                ends[i] = end
+                stats[i] = st
+        self.last_run_stats = stats
+        return ends
 
 
 # ============================================================= flow engine
@@ -1277,16 +1869,25 @@ class FlowEngine(_WorkloadStaging):
 
 # ================================================================= factory
 
-def make_engine(name: str, topo: Topology, **kw) -> FlowEngine:
-    """Build a flow engine by name (see ENGINE_CHOICES).
+def make_engine(name: str, topo: Topology, **kw):
+    """Build an engine by name (see ENGINE_CHOICES).
 
-    ``flow`` solves on ``TorchFlowSim`` (``device`` kwarg, default
-    ``"cuda"``: raises without a card); ``flow-np`` on the numpy
-    ``FlowSim``.  Other kwargs (``loss_rate``, ``ecn_backlog``, ``seed``,
-    ``group_kw``, ``relay_kw``, ``staging_cache``, ``segment_solver``) go
-    to ``FlowEngine``.  Unknown names raise ValueError listing the valid
-    ones.
+    ``packet`` builds a ``PacketEngine``, which forwards its kwargs to
+    ``GleamNetwork``/``PacketSim`` (``loss_rate``, ``seed``, ``p4_mode``,
+    ``ecn_backlog``, plus ``group_kw`` / ``relay_kw`` /
+    ``staging_cache``) and takes no ``device``.  ``flow`` solves on
+    ``TorchFlowSim`` (``device`` kwarg, default ``"cuda"``: raises without
+    a card); ``flow-np`` on the numpy ``FlowSim``.  The flow engines take
+    the same ``loss_rate`` / ``ecn_backlog`` / ``seed`` / ``group_kw`` /
+    ``relay_kw`` / ``staging_cache`` slice plus ``segment_solver``, so one
+    kwargs dict drives a packet-vs-flow comparison.  Unknown names raise
+    ValueError listing the valid ones.
     """
+    if name == "packet":
+        if "device" in kw:
+            raise TypeError("the packet engine runs on the host; it takes "
+                            "no device")
+        return PacketEngine(topo, **kw)
     if name == "flow":
         return FlowEngine(topo, backend="torch", **kw)
     if name == "flow-np":

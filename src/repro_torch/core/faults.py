@@ -47,19 +47,27 @@ import dataclasses
 from typing import List, Sequence, Set, Tuple
 
 __all__ = [
-    "FAULT_CHOICES", "DEFAULT_LINK_DETECT", "DEFAULT_FAULT_RETRIES",
-    "FaultEvent", "validate_fault_plan",
+    "FAULT_CHOICES", "DEFAULT_FAIL_DETECT", "DEFAULT_LINK_DETECT",
+    "DEFAULT_FAULT_RETRIES", "FaultEvent", "validate_fault_plan",
 ]
 
 # Timed fault kinds a dynamic GroupOp may carry.
 FAULT_CHOICES = ("link_down", "link_flap", "switch_fail",
                  "host_gone_dark", "master_crash")
 
+# How long the master takes to notice a silently-failed receiver before
+# isolating its port (keepalive-timeout scale, >> RTO so the sender has
+# visibly wedged by the time isolation un-wedges it).  The reference
+# defines it in core/gleam.py; here it sits beside DEFAULT_LINK_DETECT so
+# the flow engine reads it without loading the packet simulator, and
+# gleam.py re-exports it.
+DEFAULT_FAIL_DETECT = 1e-3
+
 # Link-layer loss-of-signal detection delay (seconds): how long until
 # the switch adjacent to a dead link/port notices and starts local
 # repair.  Deliberately much shorter than the master's keepalive-based
-# ``DEFAULT_FAIL_DETECT`` (1 ms, core/gleam.py) — loss of light is a
-# hardware signal, a dead process is a timeout.
+# ``DEFAULT_FAIL_DETECT`` (1 ms, above) — loss of light is a hardware
+# signal, a dead process is a timeout.
 DEFAULT_LINK_DETECT = 100e-6
 
 # Default RoCE-style retry budget applied to QPs in fault scenarios

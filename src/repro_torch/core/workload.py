@@ -41,9 +41,12 @@ in config files and checked into reference fixtures
 (``tools/check_fig09.py`` drives CI's divergence gate this way).
 
 The four built-in transports register at the end of this module, with
-the relay edge-sets of the reference's ``core/baselines.py`` and no
-packet-level runner (``packet_bcast=None``): the port has no packet
-engine yet.  ``register_transport`` accepts additional strategies.
+the relay edge-sets of the reference's ``core/baselines.py``.  Each
+relay transport's packet-level runner (``packet_bcast``) imports the
+port's ``core/baselines.py`` at its first call, so a flow-only user never
+loads the packet engine (the reference registers the transports from
+``baselines.py`` on first lookup instead).  ``register_transport``
+accepts additional strategies.
 
 This module is the port's own copy of the reference ``core/workload.py``
 (the port imports nothing of the reference package).
@@ -589,12 +592,25 @@ def multiunicast_edges(members: Sequence[str]) -> List[Tuple[str, str]]:
     return [(members[0], m) for m in members[1:]]
 
 
+def _packet_runner(name: str) -> Callable:
+    """The packet-level runner of relay transport ``name``: the relay
+    class of ``core/baselines.py``, imported at the first call."""
+    def run(net, members, chunks, **qp_kw):
+        from repro_torch.core.baselines import PACKET_RUNNERS
+        return PACKET_RUNNERS[name](net, members, chunks, **qp_kw)
+    return run
+
+
 # The four §5 transport strategies.  "gleam" is native: no relay edges,
-# the engine uses its own multicast machinery (one flow over the
-# distribution tree).
+# the engines use their own multicast machinery (switch replication /
+# one flow over the distribution tree).
 register_transport(Transport("gleam"))
-register_transport(Transport("multiunicast", relay_edges=multiunicast_edges,
-                             chunked=False))
-register_transport(Transport("ring", relay_edges=ring_edges, chunked=True))
-register_transport(Transport("binary-tree", relay_edges=binary_tree_edges,
-                             chunked=True))
+register_transport(Transport(
+    "multiunicast", relay_edges=multiunicast_edges, chunked=False,
+    packet_bcast=_packet_runner("multiunicast")))
+register_transport(Transport(
+    "ring", relay_edges=ring_edges, chunked=True,
+    packet_bcast=_packet_runner("ring")))
+register_transport(Transport(
+    "binary-tree", relay_edges=binary_tree_edges, chunked=True,
+    packet_bcast=_packet_runner("binary-tree")))

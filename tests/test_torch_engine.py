@@ -1,10 +1,13 @@
-"""The port's flow engine against the reference, and the port's rules.
+"""The port's engines against the reference, and the port's rules.
 
 Records of ``repro_torch``'s ``make_engine("flow", topo, device="cpu")``
 (the torch solver) and ``"flow-np"`` (its numpy copy) are held against
 the reference package's ``make_engine("flow-np")`` on the scenarios of
 ``tests/test_engines.py`` and ``tests/test_segments.py``, both packages
 fed the same topology and Workload through ``repro_torch.convert``.
+Where the reference runs its packet engine on a scenario, the port's
+``make_engine("packet")`` runs it too and is held to it bit for bit
+(rtol 0): every record field and the run's counters.
 
 The rules: ``repro_torch`` and ``chip_smoke.py`` import neither ``jax``
 nor ``repro``; the port runs with both absent; its engine runs on the
@@ -39,6 +42,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SRC = os.path.join(REPO, "src")
 TRANSPORTS = ("gleam", "multiunicast", "ring", "binary-tree")
 PORT = {"flow": {"device": "cpu"}, "flow-np": {}}
+#: the flow ports and the packet engine, which is compared exactly
+ENGINES = sorted(PORT) + ["packet"]
 
 
 def two_pod_fat_tree():
@@ -50,17 +55,30 @@ def records(recs):
     return [(r.t_sender_cqe, sorted(r.t_deliver.items())) for r in recs]
 
 
+def packet_records(eng, recs):
+    """Every record field and the run's counters (packet engines)."""
+    sim = eng.net.sim
+    return ([(r.msg_id, r.t_submit, r.t_sender_cqe,
+              sorted(r.t_deliver.items()), r.error) for r in recs],
+            (sim.events, sim.dropped, sim.tx_bytes,
+             sum(q.retransmitted for h in sim.hosts.values()
+                 for q in h.qps.values())),
+            eng.last_run_stats)
+
+
 def run_both(ref_topo, ops, port_name, *, scenarios=False, **kw):
-    """Records of the same ops on the reference flow-np engine and on a
-    port engine; ``scenarios`` runs each op as its own run_many
-    scenario, else all ops contend in one run()."""
+    """Records of the same ops on the reference engine (its packet engine
+    for ``port_name="packet"``, else its flow-np) and on a port engine;
+    ``scenarios`` runs each op as its own run_many scenario, else all ops
+    contend in one run()."""
     wl = RefWorkload("t", list(ops))
     out = []
     for maker, topo, w, extra in (
             (ref_make_engine, ref_topo, wl, {}),
             (make_engine, topology_from_reference(ref_topo),
-             workload_from_reference(wl), PORT[port_name])):
-        name = "flow-np" if maker is ref_make_engine else port_name
+             workload_from_reference(wl), PORT.get(port_name, {}))):
+        name = port_name if maker is make_engine or port_name == "packet" \
+            else "flow-np"
         eng = maker(name, topo, **kw, **extra)
         if scenarios:
             recs = [rs[0] for rs in eng.run_workloads(
@@ -68,11 +86,17 @@ def run_both(ref_topo, ops, port_name, *, scenarios=False, **kw):
         else:
             recs = [eng.stage(op) for op in w.ops]
             eng.run()
-        out.append(records(recs))
+        out.append(packet_records(eng, recs) if port_name == "packet"
+                   else records(recs))
     return out
 
 
 def assert_records_close(got, want, rtol):
+    """Flow records within ``rtol``; packet records (``packet_records``)
+    exactly equal."""
+    if isinstance(got, tuple):
+        assert got == want
+        return
     assert len(got) == len(want)
     for (gc, gd), (wc, wd) in zip(got, want):
         assert gc == pytest.approx(wc, rel=rtol), (gc, wc)
@@ -83,7 +107,7 @@ def assert_records_close(got, want, rtol):
 
 # ====================================================== engine parity
 
-@pytest.mark.parametrize("port_name", sorted(PORT))
+@pytest.mark.parametrize("port_name", ENGINES)
 @pytest.mark.parametrize("transport", TRANSPORTS)
 @pytest.mark.parametrize("nbytes", [256 << 10, 1 << 20])
 def test_transport_bcast_matches_reference(port_name, transport, nbytes):
@@ -94,7 +118,7 @@ def test_transport_bcast_matches_reference(port_name, transport, nbytes):
     assert_records_close(got, want, 1e-3)
 
 
-@pytest.mark.parametrize("port_name", sorted(PORT))
+@pytest.mark.parametrize("port_name", ENGINES)
 @pytest.mark.parametrize("transport", TRANSPORTS)
 def test_allreduce_matches_reference(port_name, transport):
     got, want = run_both(ref_fattree.testbed(),
@@ -104,7 +128,7 @@ def test_allreduce_matches_reference(port_name, transport):
     assert_records_close(got, want, 1e-3)
 
 
-@pytest.mark.parametrize("port_name", sorted(PORT))
+@pytest.mark.parametrize("port_name", ENGINES)
 def test_contended_fat_tree_matches_reference(port_name):
     """All hosts of a 2-pod fat tree, a write, a unicast and a second
     group contending in one run."""
@@ -119,7 +143,7 @@ def test_contended_fat_tree_matches_reference(port_name):
     assert_records_close(got, want, 1e-3)
 
 
-@pytest.mark.parametrize("port_name", sorted(PORT))
+@pytest.mark.parametrize("port_name", ENGINES)
 @pytest.mark.parametrize("loss", [1e-4, 1e-2])
 def test_lossy_scenarios_match_reference(port_name, loss):
     hosts = ("h0", "h1", "h2", "h3", "h4", "h5")
@@ -141,7 +165,7 @@ def test_dynamic_ops_match_reference(port_name, seed):
     assert_records_close(got, want, 1e-3)
 
 
-@pytest.mark.parametrize("port_name", sorted(PORT))
+@pytest.mark.parametrize("port_name", ENGINES)
 def test_faults_under_loss_match_reference(port_name):
     """A churn x loss x link-flap cell (fig_matrix's smoke fabric)."""
     from repro.core.workload import FaultEvent, MemberEvent
@@ -227,10 +251,21 @@ def test_wire_bytes_includes_per_segment_headers():
 
 
 def test_copied_constants_equal_the_reference():
+    """The engine imports its constants from the port's own packet and
+    faults modules (``gleam`` re-exports ``DEFAULT_FAIL_DETECT``), which
+    equal the reference's."""
     from repro.core import faults, gleam, packet
-    assert (port_engine.MTU, port_engine.HDR) == (packet.MTU, packet.HDR)
-    assert port_engine.DEFAULT_FAIL_DETECT == gleam.DEFAULT_FAIL_DETECT
-    assert port_engine.DEFAULT_LINK_DETECT == faults.DEFAULT_LINK_DETECT
+    from repro_torch.core import faults as port_faults
+    from repro_torch.core import gleam as port_gleam
+    from repro_torch.core import packet as port_packet
+    assert (port_engine.MTU, port_engine.HDR) == \
+        (port_packet.MTU, port_packet.HDR) == (packet.MTU, packet.HDR)
+    assert port_engine.DEFAULT_FAIL_DETECT == \
+        port_faults.DEFAULT_FAIL_DETECT == \
+        port_gleam.DEFAULT_FAIL_DETECT == gleam.DEFAULT_FAIL_DETECT
+    assert port_engine.DEFAULT_LINK_DETECT == \
+        port_faults.DEFAULT_LINK_DETECT == faults.DEFAULT_LINK_DETECT
+    assert port_engine.ENGINE_CHOICES == ("packet", "flow", "flow-np")
 
 
 def test_workload_round_trip_and_transports():
@@ -259,9 +294,12 @@ def test_make_engine_flow_needs_a_card_unless_asked_for_cpu():
 def test_make_engine_rejects_unknown_names():
     topo = topology_from_reference(ref_fattree.testbed())
     with pytest.raises(ValueError, match="flow-np"):
-        make_engine("packet", topo)
+        make_engine("ns3", topo)
     with pytest.raises(TypeError):
         make_engine("flow-np", topo, device="cpu")
+    with pytest.raises(TypeError):
+        make_engine("packet", topo, device="cpu")
+    assert make_engine("packet", topo).name == "packet"
 
 
 # ============================================================== isolation
@@ -320,6 +358,47 @@ def test_port_runs_with_jax_and_repro_absent():
         ref["fig09/bcast_1MB/gleam_us"], rel=0.10)
     assert (jb + sw) * 1e6 == pytest.approx(
         ref["fig09/bcast_1MB/multiunicast_us"], rel=0.10)
+
+
+FLOW_ONLY = """
+import sys
+sys.modules["jax"] = None
+sys.modules["repro"] = None
+SIM = ("gleam", "packetsim", "switch", "endpoint", "ftable", "baselines")
+def loaded():
+    return sorted(m for m in SIM if "repro_torch.core." + m in sys.modules)
+from repro_torch.core import workload
+from repro_torch.core.engine import make_engine
+from repro_torch.core import fattree
+from repro_torch.core.faults import FaultEvent
+assert loaded() == [], loaded()
+members = [f"h{i}" for i in range(8)]
+dark = (FaultEvent("host_gone_dark", 2e-6, node="h3"),)
+for name, kw in (("flow", {"device": "cpu"}), ("flow-np", {})):
+    eng = make_engine(name, fattree.testbed(n_hosts=8), **kw)
+    w = workload.Workload("w")
+    w.bcast(members, 1 << 16)
+    w.bcast(members, 1 << 16, transport="ring", chunks=4, faults=dark)
+    w.bcast(members, 1 << 16, faults=dark)
+    (recs,) = eng.run_workloads([w])
+    assert len(recs) == 3
+assert loaded() == [], loaded()
+make_engine("packet", fattree.testbed(n_hosts=8))
+assert loaded() == ["endpoint", "ftable", "gleam", "packetsim", "switch"], \
+    loaded()
+print("ok")
+"""
+
+
+def test_flow_engine_never_loads_the_packet_simulator():
+    """Importing ``workload`` and ``engine`` and running both flow
+    engines on static, overlay and faulted ops loads none of the packet
+    simulator's modules; building a packet engine loads them."""
+    env = dict(os.environ, PYTHONPATH=SRC)
+    proc = subprocess.run([sys.executable, "-c", FLOW_ONLY], env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.strip().splitlines()[-1] == "ok"
 
 
 def test_chip_smoke_refuses_without_a_card(tmp_path):
