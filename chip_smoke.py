@@ -45,18 +45,26 @@ version on the card:
      then the three smoke configs in float32 (TF32 off, so the SIMT
      attention variant) on card and CPU, last-position logits within
      1e-3;
-   - train: ``runtime/train.Trainer`` at full width, seed-0 float32
-     parameters and moments drawn on the card, bf16 compute, synthetic
-     data, no checkpoint, 3 steps: granite_3_2b 4 x 4096 in 2
-     microbatches, mamba2_370m 8 x 4096 (``flash_attention`` /
-     ``ssd_scan`` launched twice a layer and microbatch, forward and
-     remat recompute, every launch the tensor-core variant); finite
-     losses, ms a step, tokens/s, model FLOP utilisation, peak memory
-     and one more step traced with ``torch.profiler``; then the granite
-     and mamba2 smoke configs in float32 (TF32 off) for 8 steps on card
-     and CPU from one step-0 checkpoint (per-step losses within 1e-4),
-     and a crash at step 6 resumed from the step-4 checkpoint by a fresh
-     ``Trainer`` (final loss within rtol 1e-6 of the uninterrupted run);
+   - train: full width, seed-0 float32 parameters and moments drawn
+     on the card, bf16 compute, no checkpoint, 3 steps, through
+     ``runtime/train.Trainer`` on synthetic tokens: granite_3_2b 4 x
+     4096 in 2 microbatches, mamba2_370m 8 x 4096, mixtral_8x7b (2 of 32
+     layers: the router, the capacity drops, the aux loss) 2 x 4096 in
+     2; through ``launch/steps.make_train_step`` on ``batch_structs``
+     batches from a seeded generator: whisper_medium (24 + 24 layers) 4
+     x 4096 tokens and 1024 frames in 2, internvl2_26b (4 of 48 layers)
+     2 x (256 vision + 3840 text); every attention sublayer, cross-
+     attention, encoder layer and Mamba-2 sublayer launches its kernel
+     twice a microbatch, forward and remat recompute, every launch the
+     tensor-core variant; finite losses, peak under 80 GB, ms a step,
+     tokens/s, model FLOP utilisation and one more step traced with
+     ``torch.profiler``; then the granite, mamba2, mixtral, qwen3_moe and
+     jamba smoke configs in float32 (TF32 off) for 8 steps on card and
+     CPU from one step-0 checkpoint (per-step losses within 1e-4), and a
+     crash at step 6 resumed from the step-4 checkpoint by a fresh
+     ``Trainer`` (final loss within rtol 1e-6 of the uninterrupted run),
+     and the whisper and internvl2 smoke configs for 8 steps of
+     ``make_train_step`` on card and CPU (losses within 1e-4);
    - the packet-vs-flow gates: the packet engine on the host (its wall,
      events/s and the host CPU logged) and the flow engine on the card,
      each flow side one phase:
@@ -102,8 +110,12 @@ version on the card:
    1e-3); the two autograd Functions' backwards (plain PyTorch) against
    torch.autograd of the plain versions at captured bf16 layer inputs:
    granite's layer at 1 x 4096, danube's windowed layer at 1 x 8192,
-   mamba's at 2 x 4096 (each gradient within the forward's tolerance
-   times its max abs; SDPA's backward timed beside the attention's).
+   mamba's at 2 x 4096, whisper's encoder layer (2 x 1024,
+   bidirectional) and its first cross-attention (1 x 4096 over 1024),
+   mixtral's windowed D 128 layer at 1 x 8192, jamba's first Mamba-2
+   layer (N 16) at 1 x 4096 (each gradient within the forward's
+   tolerance times its max abs; SDPA's backward timed beside the
+   attention's).
    Times through the wrapper from CUDA events; for
    ``flash_decode`` and ``ssd_scan`` also the device time a call and the
    device kernels a call, from torch.profiler, with the share of the
@@ -179,6 +191,8 @@ GATE_TOL = {"jct": 0.10, "allreduce": 0.20, "recovery": 0.15,
 FAULT_AT, FAULT_NBYTES = 3e-6, 1 << 17
 #: where the gates' flow side runs; a CPU rehearsal sets it to "cpu"
 FLOW_DEVICE = "cuda"
+#: where train_cross runs its card side (the CPU to rehearse it)
+CARD = "cuda"
 #: the forked run_many batch (after CUDA is up) held to the serial one
 FORK_WORKERS, FORK_SCENARIOS = 4, 8
 #: check_fleet.py's spec and fabric (100 Gb/s)
@@ -275,16 +289,30 @@ PREFILL_CROSS = (("granite_3_2b", 2, 64), ("h2o_danube_3_4b", 2, 64),
                  ("mixtral_8x7b", 2, 64), ("qwen3_moe_235b_a22b", 2, 64),
                  ("jamba_v0_1_52b", 2, 64), ("whisper_medium", 2, 64),
                  ("internvl2_26b", 2, 64))
-#: the train paths at full width, through ``runtime/train.Trainer``:
-#: (phase, arch, batch, sequence, microbatches, the kernel every mixer
-#: layer launches twice a microbatch: forward and remat recompute)
-TRAIN = (("train_granite", "granite_3_2b", 4, 4096, 2, "flash_attention"),
-         ("train_mamba", "mamba2_370m", 8, 4096, 1, "ssd_scan"))
+#: the train paths at full width: (phase, arch, layers (0: the config's;
+#: cut where the float32 train state, 16 bytes a parameter: parameters,
+#: gradients and two moments, would not fit 80 GB), batch, decoder
+#: positions (the vision prefix's included), microbatches, route):
+#: "trainer" runs ``runtime/train.Trainer`` on its synthetic token
+#: pipeline; "step" runs ``launch/steps.make_train_step`` on
+#: ``batch_structs`` batches from a seeded ``torch.Generator`` (the
+#: Trainer's pipeline carries no ``frames`` or ``vision_embed``, nor does
+#: the reference's).  Every attention and Mamba-2 layer launches its
+#: kernel twice a microbatch: forward and remat recompute.
+TRAIN = (("train_granite", "granite_3_2b", 0, 4, 4096, 2, "trainer"),
+         ("train_mamba", "mamba2_370m", 0, 8, 4096, 1, "trainer"),
+         ("train_mixtral", "mixtral_8x7b", 2, 2, 4096, 2, "trainer"),
+         ("train_whisper", "whisper_medium", 0, 4, 4096, 2, "step"),
+         ("train_internvl2", "internvl2_26b", 4, 2, 4096, 1, "step"))
 #: steps of each train phase; one more is traced with torch.profiler
 TRAIN_STEPS = 3
-#: the card-vs-CPU and restart check of the trainer: smoke configs in
-#: float32 (TF32 off), steps, checkpoint period, the injected crash
-TRAIN_CROSS = dict(archs=("granite_3_2b", "mamba2_370m"), steps=8,
+#: the card-vs-CPU check of training: smoke configs in float32 (TF32
+#: off), steps, batch, sequence; through the ``Trainer`` (with the
+#: checkpoint period and the injected crash of the restart check) and
+#: through ``make_train_step`` (the encoder-decoder and the VLM)
+TRAIN_CROSS = dict(trainer=("granite_3_2b", "mamba2_370m", "mixtral_8x7b",
+                            "qwen3_moe_235b_a22b", "jamba_v0_1_52b"),
+                   step=("whisper_medium", "internvl2_26b"), steps=8,
                    ckpt_every=4, fail_at=6, batch=4, seq=64)
 #: per-step losses, card against CPU; final loss after a restart against
 #: the uninterrupted run (tests/test_runtime.py's rtol)
@@ -292,10 +320,18 @@ TRAIN_CROSS_TOL = 1e-4
 RESTART_RTOL = 1e-6
 #: the backward rows: the autograd Functions' backwards against autograd
 #: of the plain versions at the train paths' layers, from captured
-#: prefill inputs: (name, captured phase, layer, rows kept)
-TRAIN_BACKWARD = (("granite layer 0", "prefill_granite", 0, 1),
-                  ("danube layer 0", "prefill_danube", 0, 1),
-                  ("mamba layer 0", "prefill_mamba", 0, 2))
+#: prefill inputs: (name, captured phase, kernel, call, rows kept).
+#: Whisper's calls: its 24 encoder layers first, then each decoder
+#: layer's self- and cross-attention, so call 25 is the cross-attention
+#: of decoder layer 0.
+TRAIN_BACKWARD = (
+    ("granite layer 0", "prefill_granite", "flash_attention", 0, 1),
+    ("danube layer 0", "prefill_danube", "flash_attention", 0, 1),
+    ("mamba layer 0", "prefill_mamba", "ssd_scan", 0, 2),
+    ("whisper encoder layer 0", "prefill_whisper", "flash_attention", 0, 2),
+    ("whisper cross layer 0", "prefill_whisper", "flash_attention", 25, 1),
+    ("mixtral layer 0", "prefill_mixtral", "flash_attention", 0, 1),
+    ("jamba ssd layer 0", "prefill_jamba", "ssd_scan", 0, 1))
 #: tests/test_kernels.py's ATTN_CASES: (B, Sq, Skv, H, KVH, D, causal,
 #: window), and SSD_CASES: (B, S, H, P, N, chunk)
 ATTN_CASES = ((1, 128, 128, 4, 4, 64, True, 0),
@@ -1004,9 +1040,10 @@ def serve_cross(arch, spec, rec, device="cuda"):
 class PrefillRecorder:
     """Wraps ``kernels/ops.flash_attention`` and ``ops.ssd_scan`` (the
     model's layers look them up at call time) to keep the inputs of the
-    first and the last call of each kernel in an armed prefill, keyed by
-    (phase, kernel, call index): ``calls`` says how many times the
-    prefill calls each (``path_launches``)."""
+    first and the last call of each kernel in an armed prefill, and of the
+    calls ``TRAIN_BACKWARD`` names, keyed by (phase, kernel, call index):
+    ``calls`` says how many times the prefill calls each
+    (``path_launches``)."""
 
     def __init__(self, ops):
         self.ops, self.inputs, self.phase = ops, {}, None
@@ -1017,11 +1054,15 @@ class PrefillRecorder:
     def arm(self, phase, calls):
         self.phase, self.n_calls = phase, calls
         self.calls = dict.fromkeys(calls, 0)
+        self.keep = {k: {0, n - 1} | {call for _, ph, kernel, call, _
+                                      in TRAIN_BACKWARD
+                                      if (ph, kernel) == (phase, k)}
+                     for k, n in calls.items()}
 
     def _keep(self, kernel, tensors, kw):
         if self.phase:
             i = self.calls[kernel]
-            if i in (0, self.n_calls[kernel] - 1):
+            if i in self.keep[kernel]:
                 self.inputs[(self.phase, kernel, i)] = (
                     tuple(t.clone() for t in tensors), dict(kw))
             self.calls[kernel] += 1
@@ -1198,32 +1239,128 @@ def ssd_ops(b, s, h, p, n, chunk):
 
 
 def model_flops(cfg, batch, seq):
-    """Model FLOPs of one train step: 6 x the parameters outside the
-    input embedding x tokens, plus, forward and backward (3 x the
-    forward), the attention products the mask keeps (q Kᵀ and P V: 4 D a
-    kept (query, key) pair and head) or the SSD scan's products."""
+    """Model FLOPs of one train step of ``batch`` sequences of ``seq``
+    decoder positions, forward and backward (3 x the forward): 2 x the
+    weights each position passes (a decoder position the blocks' weights,
+    of an MoE ffn only its ``top_k`` of ``n_experts`` experts, a text
+    position also the LM head, a vision position ``vis_proj``, an encoder
+    frame ``enc_in``, the encoder's blocks and every decoder layer's
+    cross-attention k and v), plus the attention products the mask keeps
+    (q Kᵀ and P V: 4 D a kept (query, key) pair and head: causal or
+    windowed self-attention, the encoder's bidirectional attention, the
+    cross-attention of every decoder position over every frame) or the
+    SSD scan's products."""
     from repro_torch.models.blocks import count_params
     from repro_torch.models.model import model_defs
     from repro_torch.models.ssm import ssm_dims
-    n = count_params(model_defs(cfg)) - cfg.vocab_size * cfg.d_model
-    flops = 6 * n * batch * seq
+    defs = model_defs(cfg)
+    d = cfg.d_model
+    frames = max(seq // max(cfg.audio_stride, 1), 8) if cfg.enc_layers else 0
+    text = seq - cfg.vision_prefix
+    blocks = count_params(defs["blocks"])
+    per_frame = 0
+    for j, (mixer, ffn) in enumerate(cfg.pattern):
+        sub = defs["blocks"][f"sub{j}"]
+        if ffn == "moe":
+            experts = sum(count_params(sub["ffn"][k])
+                          for k in ("we_i", "we_g", "we_o"))
+            blocks -= experts * (1 - cfg.top_k / cfg.n_experts)
+        if cfg.enc_layers and mixer == "attn":
+            cross_kv = count_params(sub["mixer"]["xwk"]) \
+                + count_params(sub["mixer"]["xwv"])
+            blocks -= cross_kv
+            per_frame += cross_kv
+    fwd = 2 * batch * (seq * blocks + text * d * cfg.vocab_size
+                       + cfg.vision_prefix * d * d)
+    hd_heads = 4 * cfg.hd * cfg.n_heads * batch
     for mixer, _ in cfg.pattern:
         if mixer == "attn":
-            flops += 3 * cfg.n_blocks * 4 * cfg.hd * cfg.n_heads * batch \
-                * attn_pairs(seq, seq, True, cfg.window)
+            fwd += cfg.n_blocks * hd_heads * (
+                attn_pairs(seq, seq, True, cfg.window)
+                + (attn_pairs(seq, frames, False, 0) if frames else 0))
         else:
             _, h, p, n_state, _ = ssm_dims(cfg)
-            flops += 3 * cfg.n_blocks * ssd_ops(batch, seq, h, p, n_state,
-                                                min(256, seq))
-    return flops
+            fwd += cfg.n_blocks * ssd_ops(batch, seq, h, p, n_state,
+                                          min(256, seq))
+    if frames:
+        per_frame += count_params(defs["enc_blocks"]) + d * d
+        fwd += 2 * batch * frames * per_frame + cfg.enc_layers * hd_heads \
+            * attn_pairs(frames, frames, False, 0)
+    return 3 * fwd
 
 
-def train_phase(label, cfg, batch, seq, accum, kernel, device="cuda"):
-    """``TRAIN_STEPS`` steps of ``runtime/train.Trainer`` on ``cfg`` at
-    full width (seed-0 parameters drawn on the card, synthetic data, no
-    checkpoint), the launch counts zeroed just before and read just
-    after; then one more step under torch.profiler.  Returns the phase
-    record."""
+def train_launches(cfg, passes):
+    """Kernel launches of ``passes`` forward-and-backward passes: the
+    prefill path's launches (``path_launches``: each attention sublayer,
+    its cross-attention and each encoder layer one ``flash_attention``,
+    each Mamba-2 sublayer one ``ssd_scan``) each pass, twice where the
+    config rematerialises its blocks (the recompute in the backward)."""
+    per = 2 if cfg.remat != "none" else 1
+    return {k: n * per * passes
+            for k, n in path_launches(cfg, decode=False).items() if n}
+
+
+def train_batches(cfg, batch, seq, steps, device):
+    """``steps`` train batches shaped by ``launch/steps.batch_structs``,
+    drawn from ``torch.Generator(device).manual_seed(0)``: tokens and
+    targets (the tokens shifted by one), a loss mask of ones, and unit
+    normal ``vision_embed`` / ``frames`` in bf16."""
+    from repro_torch.launch.steps import batch_structs
+    gen = torch.Generator(device=device).manual_seed(0)
+    out = []
+    for _ in range(steps):
+        b = {}
+        for name, spec in batch_structs(cfg, seq, batch, train=True).items():
+            if name == "tokens":
+                rows = torch.randint(0, cfg.vocab_size, (batch,
+                                                          spec.shape[1] + 1),
+                                     generator=gen, device=device)
+                b["tokens"] = rows[:, :-1].to(spec.dtype)
+                b["targets"] = rows[:, 1:].to(spec.dtype)
+            elif name == "loss_mask":
+                b[name] = torch.ones(spec.shape, dtype=spec.dtype,
+                                     device=device)
+            elif name != "targets":
+                b[name] = torch.randn(spec.shape, generator=gen,
+                                      device=device).to(spec.dtype)
+        out.append(b)
+    return out
+
+
+class StepRunner:
+    """``make_train_step`` over a list of batches, the ``Trainer``'s loop
+    without its data pipeline: seed-0 parameters (``Model``, as the
+    ``Trainer`` draws them) or ``params``, fresh moments, each step timed
+    to the float of its loss."""
+
+    def __init__(self, cfg, accum, device, params=None):
+        from repro_torch.launch.steps import make_train_step
+        from repro_torch.models.model import Model
+        from repro_torch.optim import adamw
+        self.params = Model(cfg, seed=0, device=device).params \
+            if params is None else params
+        self.opt_state = adamw.init(self.params)
+        self.step = make_train_step(cfg, accum_steps=accum, device=device)
+
+    def run(self, batches):
+        history = []
+        for i, batch in enumerate(batches):
+            t0 = time.perf_counter()
+            self.params, self.opt_state, m = self.step(
+                self.params, self.opt_state, batch)
+            loss = float(m["loss"])
+            history.append({"step": i, "loss": loss,
+                            "dt": time.perf_counter() - t0})
+        return {"history": history, "final_loss": history[-1]["loss"]}
+
+
+def train_phase(label, cfg, batch, seq, accum, route, device="cuda"):
+    """``TRAIN_STEPS`` steps on ``cfg`` at full width (seed-0 parameters
+    drawn on the card, no checkpoint) through the ``Trainer`` (``route``
+    "trainer", synthetic tokens) or ``make_train_step`` ("step",
+    ``train_batches``), the launch counts zeroed just before and read
+    just after; then one more step under torch.profiler.  Returns the
+    phase record."""
     import tempfile
     from repro_torch.data.pipeline import DataConfig
     from repro_torch.models.blocks import tree_leaves
@@ -1232,17 +1369,35 @@ def train_phase(label, cfg, batch, seq, accum, kernel, device="cuda"):
     torch.cuda.reset_peak_memory_stats()
     lines = []
     with tempfile.TemporaryDirectory() as tmp:
-        trainer = Trainer(cfg, DataConfig(vocab_size=cfg.vocab_size,
-                                          seq_len=seq, global_batch=batch),
-                          TrainerConfig(total_steps=TRAIN_STEPS, ckpt_every=0,
-                                        accum_steps=accum, log_every=1,
-                                        ckpt_dir=tmp),
-                          log=lines.append, device=device)
-        trainer.init_state()
+        if route == "trainer":
+            runner = Trainer(cfg, DataConfig(vocab_size=cfg.vocab_size,
+                                             seq_len=seq, global_batch=batch),
+                             TrainerConfig(total_steps=TRAIN_STEPS,
+                                           ckpt_every=0, accum_steps=accum,
+                                           log_every=1, ckpt_dir=tmp),
+                             log=lines.append, device=device)
+            runner.init_state()
+
+            def run():
+                return runner.run(resume=False)
+
+            def one_more():
+                runner.step_fn(runner.params, runner.opt_state, runner.err,
+                               runner.pipeline.batch_at(TRAIN_STEPS))
+        else:
+            batches = train_batches(cfg, batch, seq, TRAIN_STEPS + 1, device)
+            runner = StepRunner(cfg, accum, device)
+
+            def run():
+                return runner.run(batches[:TRAIN_STEPS])
+
+            def one_more():
+                runner.step(runner.params, runner.opt_state,
+                            batches[TRAIN_STEPS])
         torch.cuda.synchronize()
         reset_counts()
         t0 = time.perf_counter()
-        out = trainer.run(resume=False)
+        out = run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = counts()
@@ -1251,12 +1406,11 @@ def train_phase(label, cfg, batch, seq, accum, kernel, device="cuda"):
             torch.profiler.ProfilerActivity.CUDA])
         with prof:
             t0 = time.perf_counter()
-            trainer.step_fn(trainer.params, trainer.opt_state, trainer.err,
-                            trainer.pipeline.batch_at(TRAIN_STEPS))
+            one_more()
             torch.cuda.synchronize()
             prof_ms = (time.perf_counter() - t0) * 1e3
-        n_params = sum(t.numel() for _, t in tree_leaves(trainer.params))
-        del trainer
+        n_params = sum(t.numel() for _, t in tree_leaves(runner.params))
+        del runner, run, one_more
     peak = torch.cuda.max_memory_allocated() / 1e9
     torch.cuda.empty_cache()
     losses = [h["loss"] for h in out["history"]]
@@ -1264,9 +1418,12 @@ def train_phase(label, cfg, batch, seq, accum, kernel, device="cuda"):
     step_s = sum(dts[1:]) / len(dts[1:])
     flops = model_flops(cfg, batch, seq)
     row = {"arch": cfg.name, "n_layers": cfg.n_layers,
-           "d_model": cfg.d_model, "compute_dtype": cfg.compute_dtype,
-           "remat": cfg.remat, "batch": batch, "seq": seq,
-           "accum_steps": accum, "steps": TRAIN_STEPS, "n_params": n_params,
+           "enc_layers": cfg.enc_layers, "d_model": cfg.d_model,
+           "compute_dtype": cfg.compute_dtype, "remat": cfg.remat,
+           "route": route, "batch": batch, "seq": seq,
+           "vision_prefix": cfg.vision_prefix, "accum_steps": accum,
+           "steps": TRAIN_STEPS, "n_params": n_params,
+           "state_gb": 16 * n_params / 1e9,
            "losses": losses, "step_s": dts, "wall_s": wall,
            "ms_per_step": step_s * 1e3,
            "tokens_per_s": batch * seq / step_s,
@@ -1278,9 +1435,11 @@ def train_phase(label, cfg, batch, seq, accum, kernel, device="cuda"):
     by_range = tr["range_device_ms_per_step"]
     tr["backward_device_ms"] = tr["device_busy_ms"] - by_range.get(
         "train_step.forward", 0.0) - by_range.get("train_step.adamw", 0.0)
-    log(f"[paths] {label}: {cfg.name} {batch} x {seq} tokens a step in "
-        f"{accum} microbatches, {TRAIN_STEPS} steps, losses {losses}, step "
-        f"s {dts}, {row['ms_per_step']:.1f} ms a step after the first, "
+    log(f"[paths] {label}: {cfg.name} ({n_params / 1e9:.3f} B parameters, "
+        f"{row['state_gb']:.1f} GB of float32 state) {batch} x {seq} "
+        f"positions a step in {accum} microbatches through the {route}, "
+        f"{TRAIN_STEPS} steps, losses {losses}, step s {dts}, "
+        f"{row['ms_per_step']:.1f} ms a step after the first, "
         f"{row['tokens_per_s']:.1f} tok/s, mfu {row['mfu']:.4f} "
         f"({flops / 1e12:.1f} model TFLOP a step at 989 TFLOP/s bf16), "
         f"peak {peak:.1f} GB, launches {launches}; profiled step: wall "
@@ -1294,111 +1453,161 @@ def train_phase(label, cfg, batch, seq, accum, kernel, device="cuda"):
         log(f"[paths]   host   {ms:10.3f} ms  {n:6d}x  {key[:90]}")
     if not all(np.isfinite(losses)) or len(losses) != TRAIN_STEPS:
         fail(f"{label}: losses {losses}")
-    want = 2 * cfg.n_layers * accum * TRAIN_STEPS if device == "cuda" else 0
-    kind = {"flash_attention": "flash_attention_wgmma",
-            "ssd_scan": "ssd_scan_mma"}[kernel]
-    for name in (kernel, kind):
-        if launches[name] != want:
-            fail(f"{label}: {name} launched {launches[name]} times, not "
-                 f"{want} (2 a layer and microbatch)")
+    if peak >= 80:
+        fail(f"{label}: peak {peak:.1f} GB")
+    kinds = {"flash_attention": "flash_attention_wgmma",
+             "ssd_scan": "ssd_scan_mma"}
+    for kernel, n in train_launches(cfg, accum * TRAIN_STEPS).items():
+        want = n if device == "cuda" else 0
+        for name in (kernel, kinds[kernel]):
+            if launches[name] != want:
+                fail(f"{label}: {name} launched {launches[name]} times, "
+                     f"not {want} (each layer's, twice a microbatch where "
+                     f"rematerialised)")
     return row
 
 
-def train_cross(spec=TRAIN_CROSS):
-    """The smoke configs' ``Trainer`` in float32 (TF32 off) on the card
-    and on the CPU from one step-0 checkpoint: per-step losses within
-    ``TRAIN_CROSS_TOL``; then on the card a crash at ``fail_at`` and a
-    fresh ``Trainer`` resuming from the last checkpoint, whose final
-    loss must equal the uninterrupted card run's (``RESTART_RTOL``)."""
+def train_cross_arch(arch, route, spec):
+    """One smoke config's card-vs-CPU check (``train_cross``): the
+    losses of both runs, the card run's launches, and for the ``Trainer``
+    the crash-and-restart outcome."""
     import shutil
     import tempfile
     from repro_torch.configs.base import get_config
     from repro_torch.data.pipeline import DataConfig
+    from repro_torch.models.blocks import tree_map
+    from repro_torch.models.model import Model
     from repro_torch.runtime.train import (SimulatedFailure, Trainer,
                                            TrainerConfig)
+    cfg = get_config(arch, smoke=True).replace(compute_dtype="float32")
+    out = {}
+    if route == "step":
+        batches = train_batches(cfg, spec["batch"], spec["seq"],
+                                spec["steps"], "cpu")
+        params = Model(cfg, seed=0, device="cpu").params
+        cpu = StepRunner(cfg, 1, "cpu", tree_map(torch.clone, params)).run(
+            batches)
+        card_runner = StepRunner(cfg, 1, CARD, tree_map(
+            lambda t: t.to(CARD), params))
+        torch.cuda.synchronize()
+        reset_counts()
+        card = card_runner.run([{k: v.to(CARD) for k, v in b.items()}
+                                for b in batches])
+        torch.cuda.synchronize()
+        launches = counts()
+        return cfg, cpu, card, launches, out
+    dc = DataConfig(vocab_size=cfg.vocab_size, seq_len=spec["seq"],
+                    global_batch=spec["batch"])
+    with tempfile.TemporaryDirectory() as tmp:
+        def trainer(name, device, **kw):
+            return Trainer(cfg, dc, TrainerConfig(
+                total_steps=spec["steps"], ckpt_every=spec["ckpt_every"],
+                keep=3, ckpt_dir=os.path.join(tmp, name), **kw),
+                log=lambda *_: None, device=device)
+        start = trainer("start", "cpu")
+        start.init_state()
+        start.ckpt.save(0, start._state_tree(), meta={"loss": None})
+        start.ckpt.wait()
+        for name in ("cpu", "card", "ft"):
+            shutil.copytree(os.path.join(tmp, "start"),
+                            os.path.join(tmp, name))
+        cpu = trainer("cpu", "cpu").run()
+        torch.cuda.synchronize()
+        reset_counts()
+        card = trainer("card", CARD).run()
+        torch.cuda.synchronize()
+        launches = counts()
+        out["crashed"] = False
+        crashing = trainer("ft", CARD, fail_at_steps=(spec["fail_at"],))
+        try:
+            crashing.run()
+        except SimulatedFailure:
+            out["crashed"] = True
+        # the step-4 checkpoint's write runs on the crashed Trainer's
+        # writer thread, which outlives the exception: let it commit, or
+        # the restart may read step 0 (a card step takes milliseconds)
+        crashing.ckpt.wait()
+        out["resumed"] = trainer("ft", CARD).run()
+    return cfg, cpu, card, launches, out
+
+
+def train_cross(spec=TRAIN_CROSS):
+    """The smoke configs trained in float32 (TF32 off) on the card and on
+    the CPU from the same step-0 state: per-step losses within
+    ``TRAIN_CROSS_TOL``, and each attention and Mamba-2 layer's float32
+    (SIMT) kernel launched twice a step.  Through the ``Trainer`` both
+    start from one step-0 checkpoint, and on the card a crash at
+    ``fail_at`` is resumed by a fresh ``Trainer`` from the last
+    checkpoint, whose final loss must equal the uninterrupted card run's
+    (``RESTART_RTOL``); the encoder-decoder and the VLM go through
+    ``make_train_step`` (``StepRunner``) on ``train_batches``."""
     prev = torch.backends.cuda.matmul.allow_tf32, \
         torch.backends.cudnn.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     rows = []
     try:
-        for arch in spec["archs"]:
-            cfg = get_config(arch, smoke=True).replace(
-                compute_dtype="float32")
-            dc = DataConfig(vocab_size=cfg.vocab_size, seq_len=spec["seq"],
-                            global_batch=spec["batch"])
-            with tempfile.TemporaryDirectory() as tmp:
-                def trainer(name, device, **kw):
-                    return Trainer(cfg, dc, TrainerConfig(
-                        total_steps=spec["steps"],
-                        ckpt_every=spec["ckpt_every"], keep=3,
-                        ckpt_dir=os.path.join(tmp, name), **kw),
-                        log=lambda *_: None, device=device)
-                start = trainer("start", "cpu")
-                start.init_state()
-                start.ckpt.save(0, start._state_tree(), meta={"loss": None})
-                start.ckpt.wait()
-                for name in ("cpu", "card", "ft"):
-                    shutil.copytree(os.path.join(tmp, "start"),
-                                    os.path.join(tmp, name))
-                cpu = trainer("cpu", "cpu").run()
-                torch.cuda.synchronize()
-                reset_counts()
-                card = trainer("card", "cuda").run()
-                torch.cuda.synchronize()
-                launches = counts()
-                crashed = False
-                try:
-                    trainer("ft", "cuda", fail_at_steps=(spec["fail_at"],)
-                            ).run()
-                except SimulatedFailure:
-                    crashed = True
-                resumed = trainer("ft", "cuda").run()
-            got = [h["loss"] for h in card["history"]]
-            want = [h["loss"] for h in cpu["history"]]
-            diff = max(abs(a - b) for a, b in zip(got, want))
-            restart = abs(resumed["final_loss"] - card["final_loss"])
-            kernel = "ssd_scan_simt" if cfg.family == "ssm" \
-                else "flash_attention_simt"      # float32: the FMA variants
-            n_launch = 2 * cfg.n_layers * spec["steps"]
-            ok = (diff <= TRAIN_CROSS_TOL and crashed
-                  and restart <= RESTART_RTOL * abs(card["final_loss"])
-                  and [h["step"] for h in resumed["history"]]
-                  == list(range(spec["ckpt_every"], spec["steps"]))
-                  and launches[kernel] == n_launch)
-            log(f"[paths] train_cross {arch}: {spec['steps']} steps of "
-                f"{spec['batch']} x {spec['seq']}, losses on the card "
-                f"{got}, max abs diff from the CPU {diff!r} (limit "
-                f"{TRAIN_CROSS_TOL}); crash at step {spec['fail_at']} "
-                f"{crashed}, resumed steps "
-                f"{[h['step'] for h in resumed['history']]}, final loss "
-                f"{resumed['final_loss']!r} vs uninterrupted "
-                f"{card['final_loss']!r} (abs diff {restart!r}, rtol "
-                f"{RESTART_RTOL}); {kernel} launched {launches[kernel]} "
-                f"(want {n_launch})")
-            if not ok:
-                fail(f"train_cross {arch}: loss diff {diff}, crashed "
-                     f"{crashed}, restart diff {restart}, launches "
-                     f"{launches}")
-            rows.append({"arch": arch, "card_losses": got,
-                         "cpu_losses": want, "max_abs_diff": diff,
-                         "restart_final_loss": resumed["final_loss"],
-                         "final_loss": card["final_loss"],
-                         "restart_abs_diff": restart, "launches": launches})
+        for route in ("trainer", "step"):
+            for arch in spec[route]:
+                cfg, cpu, card, launches, ft = train_cross_arch(arch, route,
+                                                                spec)
+                rows.append(train_cross_row(arch, route, spec, cfg, cpu,
+                                            card, launches, ft))
     finally:
         (torch.backends.cuda.matmul.allow_tf32,
          torch.backends.cudnn.allow_tf32) = prev
     return rows
 
 
+def train_cross_row(arch, route, spec, cfg, cpu, card, launches, ft):
+    """Decide and log one ``train_cross`` point."""
+    got = [h["loss"] for h in card["history"]]
+    want = [h["loss"] for h in cpu["history"]]
+    diff = max(abs(a - b) for a, b in zip(got, want))
+    # float32: the SIMT / FMA variants
+    want_launches = {f"{k}_simt": n for k, n in
+                     train_launches(cfg, spec["steps"]).items()}
+    ok = diff <= TRAIN_CROSS_TOL and len(got) == spec["steps"] and all(
+        launches[k] == n for k, n in want_launches.items())
+    row = {"arch": arch, "route": route, "card_losses": got,
+           "cpu_losses": want, "max_abs_diff": diff, "launches": launches,
+           "want_launches": want_launches}
+    text = (f"[paths] train_cross {arch} through the {route}: "
+            f"{spec['steps']} steps of {spec['batch']} x {spec['seq']}, "
+            f"losses on the card {got}, max abs diff from the CPU {diff!r} "
+            f"(limit {TRAIN_CROSS_TOL}); launches {launches} (want "
+            f"{want_launches})")
+    if route == "trainer":
+        resumed = ft["resumed"]
+        restart = abs(resumed["final_loss"] - card["final_loss"])
+        steps = [h["step"] for h in resumed["history"]]
+        ok = ok and ft["crashed"] and steps == list(
+            range(spec["ckpt_every"], spec["steps"])) \
+            and restart <= RESTART_RTOL * abs(card["final_loss"])
+        row.update(restart_final_loss=resumed["final_loss"],
+                   final_loss=card["final_loss"], restart_abs_diff=restart)
+        text += (f"; crash at step {spec['fail_at']} {ft['crashed']}, "
+                 f"resumed steps {steps}, final loss "
+                 f"{resumed['final_loss']!r} vs uninterrupted "
+                 f"{card['final_loss']!r} (abs diff {restart!r}, rtol "
+                 f"{RESTART_RTOL})")
+    log(text)
+    if not ok:
+        fail(f"train_cross {arch}: {text}")
+    return row
+
+
 def run_train(phases=TRAIN):
-    """Every train phase at full width, each state freed before the next
-    is drawn; then the smoke-config cross and restart check."""
+    """Every train phase at full width (depth cut where given), each state
+    freed before the next is drawn; then the smoke-config cross and
+    restart check."""
     from repro_torch.configs.base import get_config
     out = {}
-    for label, arch, batch, seq, accum, kernel in phases:
-        out[label] = train_phase(label, get_config(arch), batch, seq, accum,
-                                 kernel)
+    for label, arch, layers, batch, seq, accum, route in phases:
+        cfg = get_config(arch)
+        if layers:
+            cfg = cfg.replace(n_layers=layers)
+        out[label] = train_phase(label, cfg, batch, seq, accum, route)
     points = train_cross()
     out["train_cross"] = {"points": points, "launches": {
         name: sum(r["launches"][name] for r in points) for name in counts()}}
@@ -2530,17 +2739,19 @@ def run_train_kernels(prefill_rec, specs=TRAIN_BACKWARD):
     layer, from the prefill phases' captured layer inputs in bf16 (the
     dtype the train phases run), the batch cut to ``rows``."""
     rows = []
-    for name, phase, layer, keep in specs:
-        for (ph, kernel, lay), (tensors, kw) in prefill_rec.inputs.items():
-            if (ph, lay) != (phase, layer):
-                continue
-            tensors = [t[:keep] for t in tensors]
-            if kernel == "flash_attention":
-                rows.append(attention_backward_row(
-                    name, *tensors, kw["causal"], kw["window"]))
-            else:
-                rows.append(ssd_backward_row(name, tensors, kw["chunk"],
-                                             kw["y_dtype"]))
+    for name, phase, kernel, call, keep in specs:
+        if (phase, kernel, call) not in prefill_rec.inputs:
+            fail(f"{name}: no captured input of {phase}'s {kernel} call "
+                 f"{call}")
+            continue
+        tensors, kw = prefill_rec.inputs[(phase, kernel, call)]
+        tensors = [t[:keep] for t in tensors]
+        if kernel == "flash_attention":
+            rows.append(attention_backward_row(
+                name, *tensors, kw["causal"], kw["window"]))
+        else:
+            rows.append(ssd_backward_row(name, tensors, kw["chunk"],
+                                         kw["y_dtype"]))
     return rows
 
 

@@ -10,23 +10,29 @@ The port of the reference package's ``launch/steps.py`` on one device.
   runs the flash-attention kernel forward and every Mamba-2 layer the
   SSD-scan kernel (twice where the block is rematerialised), their
   backwards plain PyTorch (``kernels/ref.py``).
+- ``batch_structs(cfg, seq, batch, train=)`` gives the shape and dtype
+  of every entry of a batch, as the reference's does: tokens (and
+  targets and loss mask) of ``seq - vision_prefix`` positions, the VLM's
+  ``vision_embed`` and the encoder-decoder's ``frames``.
 - ``make_prefill_step(cfg)`` returns ``prefill_step(params, batch)``,
   which runs ``forward_hidden`` over the whole prompt under
   ``torch.no_grad()`` and gives only the last position's logits, which
   is what serving needs to start decoding (a (B, S, V) logits buffer
   would be pointless).
 
-The serve step, the abstract input specs and the dry-run lowering belong
+The serve step, the sharded input specs and the dry-run lowering belong
 to later slices (ROADMAP queue 1 item 8).
 """
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import model as mdl
-from repro_torch.models.blocks import tree_map
+from repro_torch.models.blocks import tree_leaves, tree_map
 from repro_torch.optim import adamw
 
 #: the reference's (arch x shape) cells, as data: sequence, batch and
@@ -37,6 +43,37 @@ SHAPE_TABLE = {
     "decode_32k": dict(seq=32768, batch=128, kind="decode"),
     "long_500k": dict(seq=524288, batch=1, kind="decode"),
 }
+
+
+class TensorSpec(NamedTuple):
+    """The shape and dtype of a batch entry (the reference's
+    ``ShapeDtypeStruct``)."""
+    shape: tuple
+    dtype: torch.dtype
+
+
+def batch_structs(cfg: ArchConfig, seq: int, batch: int, *,
+                  train: bool) -> dict:
+    """``{name: TensorSpec}`` of a batch of ``batch`` sequences of ``seq``
+    positions: ``tokens`` (int32) of ``seq - vision_prefix`` positions,
+    with ``targets`` (int32) and ``loss_mask`` (float32) of the same shape
+    when ``train``; ``vision_embed`` (batch, vision_prefix, d_model) bf16
+    for a VLM and ``frames`` (batch, max(seq // audio_stride, 8),
+    d_model) bf16 for an encoder-decoder.  The reference's
+    ``batch_structs``, as shapes and dtypes."""
+    s_text = seq - cfg.vision_prefix if cfg.vision_prefix else seq
+    out = {"tokens": TensorSpec((batch, s_text), torch.int32)}
+    if train:
+        out["targets"] = TensorSpec((batch, s_text), torch.int32)
+        out["loss_mask"] = TensorSpec((batch, s_text), torch.float32)
+    if cfg.vision_prefix:
+        out["vision_embed"] = TensorSpec(
+            (batch, cfg.vision_prefix, cfg.d_model), torch.bfloat16)
+    if cfg.enc_layers > 0:
+        enc_len = max(seq // max(cfg.audio_stride, 1), 8)
+        out["frames"] = TensorSpec((batch, enc_len, cfg.d_model),
+                                   torch.bfloat16)
+    return out
 
 
 def make_prefill_step(cfg: ArchConfig, *, device="cuda"):
@@ -66,19 +103,27 @@ def _leaf(p, g):
     return t
 
 
-def grad_leaves(params, grads, n_blocks):
+#: the stacked parameter trees: each becomes a list of per-layer trees
+STACKED = ("blocks", "enc_blocks")
+
+
+def grad_leaves(params, grads):
     """A tree like ``params`` whose tensors are autograd leaves sharing
     the parameters' storage, each with its ``.grad`` set to the matching
     slice of ``grads``, so that a ``backward()`` ADDS the gradient there.
-    The stacked ``blocks`` become a list of per-layer trees whose leaves
-    are the layers' slices (a form ``models/model.block_layers`` takes):
-    autograd through ``a[i]`` of a stacked parameter would give every
-    layer a full-size (n_blocks, ...) zero tensor to add."""
+    The stacked ``blocks`` (and an encoder's ``enc_blocks``) become lists
+    of per-layer trees whose leaves are the layers' slices (a form
+    ``models/model.block_layers`` takes): autograd through ``a[i]`` of a
+    stacked parameter would give every layer a full-size (n_layers, ...)
+    zero tensor to add."""
     tree = {k: tree_map(_leaf, v, grads[k]) for k, v in params.items()
-            if k != "blocks"}
-    tree["blocks"] = [tree_map(lambda p, g: _leaf(p[i], g[i]),
-                               params["blocks"], grads["blocks"])
-                      for i in range(n_blocks)]
+            if k not in STACKED}
+    for key in STACKED:
+        if key in params:
+            n = len(next(tree_leaves(params[key]))[1])
+            tree[key] = [tree_map(lambda p, g: _leaf(p[i], g[i]),
+                                  params[key], grads[key])
+                         for i in range(n)]
     return tree
 
 
@@ -89,9 +134,8 @@ def accumulate_grads(params, batch, cfg, grads, *, device="cuda"):
     recompute included) runs on autograd's device thread, outside any
     range opened here."""
     with torch.profiler.record_function("train_step.forward"):
-        total, metrics = mdl.loss_fn(grad_leaves(params, grads,
-                                                 cfg.n_blocks),
-                                     batch, cfg, device=device)
+        total, metrics = mdl.loss_fn(grad_leaves(params, grads), batch,
+                                     cfg, device=device)
     total.backward()
     return metrics
 
@@ -103,16 +147,15 @@ def make_train_step(cfg: ArchConfig, opt_cfg=None, accum_steps: int = 1, *,
     tensors in its layout) on ``device`` (``cuda`` by default, which
     needs a card), ``opt_state`` ``adamw.init(params)``; ``batch`` holds
     ``tokens``, ``targets`` and ``loss_mask`` (B, S) arrays or tensors,
-    B a multiple of ``accum_steps``.  Microbatch i takes rows
-    ``i * B / accum_steps`` onward, as the reference's reshape does.
-    MoE, encoder and VLM configurations raise
-    (``models/model.check_train_supported``).
+    with ``vision_embed`` or ``frames`` where the model takes them
+    (``batch_structs``), B a multiple of ``accum_steps``.  Microbatch i
+    takes rows ``i * B / accum_steps`` onward of every entry, as the
+    reference's reshape does.
     Parameters and moments are updated in place and returned (at
     granite_3_2b's width each is 10.5 GB); metrics are ``loss``,
     ``aux_loss``, ``perplexity`` (over the microbatches' mean loss),
     ``grad_norm`` and ``lr``."""
     dev = resolve_device(device)
-    mdl.check_train_supported(cfg)
     opt_cfg = opt_cfg or adamw.AdamWConfig()
 
     def train_step(params, opt_state, batch):
@@ -121,8 +164,10 @@ def make_train_step(cfg: ArchConfig, opt_cfg=None, accum_steps: int = 1, *,
             raise ValueError(f"batch {b} is not a multiple of "
                              f"accum_steps {accum_steps}")
         mb = b // accum_steps
-        grads = tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32),
-                         params)
+        # float32 gradients (float64 for float64 parameters: the tests'
+        # exact evaluation)
+        grads = tree_map(lambda p: torch.zeros_like(
+            p, dtype=torch.promote_types(p.dtype, torch.float32)), params)
         if accum_steps <= 1:
             metrics = accumulate_grads(params, batch, cfg, grads, device=dev)
         else:

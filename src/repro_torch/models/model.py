@@ -26,16 +26,15 @@ matrix products the reference leaves to XLA are ``torch.einsum`` here,
 with the parameters cast to the compute dtype inside every product, as
 the reference casts them.
 
-``Model`` holds every configuration, and every configuration decodes and
-runs its forward.  A sliding-window model's cache is a rolling buffer of
-``window`` slots (``cache_len``): position p writes slot p mod window, and
-its valid slots are always the prefix ``[0, min(p + 1, window))``, so the
-kernel attends that prefix (the reference's sharded-branch mask; its
-single-shard mask is a fault, ROADMAP queue 3).  A request's position in
-the encoder-decoder's sinusoidal encoding is its own row's (the reference
-broadcasts one position to the batch: queue 3).  Training raises for
-MoE, encoder and vision-prefix configurations
-(``check_train_supported``: ROADMAP queue 1 item 7).  The multi-device
+``Model`` holds every configuration, and every configuration decodes,
+runs its forward and trains.  A sliding-window model's cache is a
+rolling buffer of ``window`` slots (``cache_len``): position p writes
+slot p mod window, and its valid slots are always the prefix ``[0,
+min(p + 1, window))``, so the kernel attends that prefix (the
+reference's sharded-branch mask; its single-shard mask is a fault,
+ROADMAP queue 3).  A request's position in the encoder-decoder's
+sinusoidal encoding is its own row's (the reference broadcasts one
+position to the batch: queue 3).  The multi-device
 split-KV branches (``softmax_combine``) are not ported: the port serves on
 one card.
 """
@@ -127,24 +126,6 @@ def model_defs(cfg: ArchConfig):
     if cfg.vision_prefix > 0:
         defs["vis_proj"] = ParamDef((d, d), ("embed", None))
     return defs
-
-
-def check_train_supported(cfg: ArchConfig) -> None:
-    """Raise for what the port's train step does not run yet: it trains
-    attention and Mamba-2 models with an MLP or no ffn; MoE ffns (the
-    router's aux loss and the capacity drops under autograd), encoders
-    and vision prefixes (their training inputs) come later."""
-    why = []
-    if any(f == "moe" for _, f in cfg.pattern):
-        why.append("MoE ffns")
-    if cfg.enc_layers > 0:
-        why.append("an encoder")
-    if cfg.vision_prefix > 0:
-        why.append("a vision prefix")
-    if why:
-        raise NotImplementedError(
-            f"{cfg.name}: the port does not train {', '.join(why)} yet "
-            f"(ROADMAP queue 1 item 7)")
 
 
 class Model(nn.Module):
@@ -447,7 +428,7 @@ def block_layers(blocks):
 
 
 def _block(bp, x, cfg, positions, causal, pattern, memory):
-    aux = 0.0
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for j, (mixer, ffn) in enumerate(pattern):
         x, a = sublayer_apply(bp[f"sub{j}"], x, mixer, ffn, cfg, positions,
                               causal=causal, memory=memory)
@@ -459,8 +440,9 @@ def run_blocks(blocks, x, cfg, positions, *, pattern=None, causal=True,
                memory=None):
     """The stacked blocks over a whole sequence (``pattern`` the
     sublayers of a block, ``cfg.pattern`` by default), a Python loop in
-    place of the reference's scan.  Returns ``(x, aux)``, aux the router
-    loss summed over the MoE sublayers (0.0 without).
+    place of the reference's scan.  Returns ``(x, aux)``, aux a float32
+    scalar tensor: the router loss summed over the MoE sublayers (0
+    without), out of each block's checkpoint where it is rematerialised.
 
     Where gradients are kept and ``cfg.remat != "none"``, each block runs
     under ``torch.utils.checkpoint`` (non-reentrant), the reference's
@@ -475,7 +457,7 @@ def run_blocks(blocks, x, cfg, positions, *, pattern=None, causal=True,
     """
     pattern = cfg.pattern if pattern is None else pattern
     remat = cfg.remat != "none" and torch.is_grad_enabled()
-    aux = 0.0
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for bp in block_layers(blocks):
         args = (bp, x, cfg, positions, causal, pattern, memory)
         if remat:
@@ -593,20 +575,21 @@ def chunked_xent(x, lm_head, targets, mask, cfg):
 
 def loss_fn(params, batch, cfg, *, device="cuda"):
     """``(total, metrics)``: the next-token loss of ``batch`` (``tokens``,
-    ``targets``, optional ``loss_mask``, arrays or tensors) plus
-    ``router_aux_coef`` times the MoE router loss (0: the configurations
-    it trains have no MoE, ``check_train_supported``); metrics ``loss``, ``aux_loss`` and ``perplexity =
-    exp(min(loss, 20))``, detached.  ``total`` carries the graph."""
+    ``targets``, optional ``loss_mask``, with ``vision_embed`` or
+    ``frames`` where the model takes them; arrays or tensors) plus
+    ``router_aux_coef`` times the MoE router loss, summed over the MoE
+    sublayers and not divided by their number, as the reference's
+    ``run_blocks`` sums it (0 without MoE); metrics ``loss``,
+    ``aux_loss`` and ``perplexity = exp(min(loss, 20))``, detached.
+    ``total`` carries the graph."""
     dev = resolve_device(device)
-    check_train_supported(cfg)
     x, aux = forward_hidden(params, batch, cfg, device=dev)
     mask = batch.get("loss_mask")
     if mask is not None:
         mask = torch.as_tensor(mask).to(dev)
     loss = chunked_xent(x, params["lm_head"],
                         torch.as_tensor(batch["targets"]).to(dev), mask, cfg)
-    aux = torch.as_tensor(aux, dtype=torch.float32, device=dev)
     total = loss + cfg.router_aux_coef * aux
     loss = loss.detach()
-    return total, {"loss": loss, "aux_loss": aux,
+    return total, {"loss": loss, "aux_loss": aux.detach(),
                    "perplexity": torch.exp(torch.clamp(loss, max=20.0))}

@@ -22,7 +22,12 @@ reference computes it):
   return), each summing a token's k contributions in k order in the
   compute dtype, as the reference's scatter-add does on the CPU.
 
-The capacity drops are part of the result.  The reference's other
+The capacity drops are part of the result.  Under autograd (training)
+the gradient reaches the gates (the top-k probabilities renormalised),
+the aux loss through the mean probability (the top-1 density is a count
+and carries none), the router and the experts through the (E, cap_e, D)
+buffer; a dropped row and the buffer's sentinel row get exactly none, as
+in the reference.  The reference's other
 grouping, ``moe_impl == "ragged"`` (no capacity, a grouped GEMM), is not
 ported: no configuration selects it, and ``moe_apply`` raises for it.
 """
@@ -142,5 +147,6 @@ def moe_apply(p, x, cfg, decode=False):
     if cfg.moe_impl != "bucket":
         raise NotImplementedError(
             f"{cfg.name}: moe_impl {cfg.moe_impl!r} is not ported; the "
-            f"port groups experts by capacity buckets only")
+            f"port groups experts by capacity buckets only (ROADMAP queue "
+            f"1 item 7)")
     return (moe_decode if decode else moe_train)(p, x, cfg)

@@ -132,16 +132,36 @@ class TrainerConfig:
     fail_at_steps: tuple = ()
 
 
+def check_pipeline_inputs(cfg: ArchConfig) -> None:
+    """Raise for a model that takes inputs the data pipeline does not
+    carry.  ``Pipeline`` gives ``tokens``, ``targets`` and ``loss_mask``,
+    as the reference's does; an encoder-decoder also needs ``frames`` and
+    a VLM ``vision_embed``, so the reference's ``Trainer`` fails on them
+    at its first step.  ``launch/steps.make_train_step`` trains them on a
+    batch that holds those inputs (``steps.batch_structs``)."""
+    need = [name for name, used in (("frames", cfg.enc_layers > 0),
+                                    ("vision_embed", cfg.vision_prefix > 0))
+            if used]
+    if need:
+        raise NotImplementedError(
+            f"{cfg.name}: the Trainer's data pipeline carries only tokens, "
+            f"targets and loss_mask (as the reference's does), not "
+            f"{' or '.join(need)}; train it through "
+            f"launch/steps.make_train_step on a batch that holds them")
+
+
 class Trainer:
     """The reference's ``Trainer`` on one device (``cuda`` by default,
     which needs a card; ``device="cpu"`` runs the kernels' plain
-    versions)."""
+    versions).  It trains every configuration whose inputs are tokens
+    alone, and raises for the encoder-decoder and the VLM
+    (``check_pipeline_inputs``)."""
 
     def __init__(self, cfg: ArchConfig, data_cfg: DataConfig,
                  tcfg: TrainerConfig, opt_cfg: adamw.AdamWConfig | None = None,
                  log: Callable[[str], None] = print, *, device="cuda"):
         self.device = resolve_device(device)
-        mdl.check_train_supported(cfg)
+        check_pipeline_inputs(cfg)
         if tcfg.grad_compression not in ("none", "int8_ef"):
             raise ValueError(f"grad_compression {tcfg.grad_compression!r}")
         self.cfg = cfg

@@ -25,10 +25,12 @@ from repro.models import attention as ref_attn
 from repro.models import blocks as ref_blocks
 from repro.models import model as ref_model
 from repro_torch.configs import base as port_base
+from repro_torch.data.pipeline import DataConfig
 from repro_torch.models import attention as port_attn
 from repro_torch.models import blocks as port_blocks
 from repro_torch.launch import steps as port_steps
 from repro_torch.models import model as port_model
+from repro_torch.runtime import train as port_train
 
 from _torch_parity import op_by_op, ported
 from _torch_parity import to_np as _np
@@ -96,11 +98,11 @@ def test_init_params_scheme():
 
 
 @pytest.mark.parametrize("arch", ["whisper_medium", "internvl2_26b"])
-def test_later_slices_raise(arch):
-    """``Model`` holds every configuration, and every one decodes; the
-    train step and the loss raise for what they do not run yet (encoders
-    and vision prefixes here, MoE in ``tests/test_torch_moe.py``), naming
-    ROADMAP queue 1 item 7."""
+def test_later_slices_raise(arch, tmp_path):
+    """``Model`` holds every configuration, and every one decodes and
+    builds a train step; the ``Trainer`` raises for the encoder-decoder
+    and the VLM, whose ``frames`` or ``vision_embed`` its data pipeline
+    does not carry (nor does the reference's)."""
     cfg = port_base.get_config(arch, smoke=True)
     model = port_model.Model(cfg, device="cpu")
     caches = port_model.init_caches(cfg, 1, 8, device="cpu")
@@ -108,8 +110,12 @@ def test_later_slices_raise(arch):
                                           torch.tensor([[1]]), 0, cfg,
                                           device="cpu")
     assert logits.shape == (1, 1, cfg.vocab_size)
-    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-        port_steps.make_train_step(cfg, device="cpu")
+    assert callable(port_steps.make_train_step(cfg, device="cpu"))
+    with pytest.raises(NotImplementedError, match="data pipeline"):
+        port_train.Trainer(cfg, DataConfig(vocab_size=cfg.vocab_size,
+                                           seq_len=16, global_batch=2),
+                           port_train.TrainerConfig(ckpt_dir=str(tmp_path)),
+                           device="cpu")
 
 
 # ================================================================ blocks

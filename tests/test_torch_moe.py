@@ -181,16 +181,74 @@ def test_defs_and_cap_are_the_reference():
 
 @pytest.mark.parametrize("arch", MOE)
 def test_moe_training_raises(arch):
-    """MoE training is a later item: the train step and the loss raise,
-    naming it."""
+    """MoE configurations train: the train step is built and the loss
+    carries a gradient to every router.  The unported ``"ragged"``
+    grouping raises, naming ROADMAP queue 1 item 7."""
     pcfg = port_base.get_config(arch, smoke=True)
-    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-        port_steps.make_train_step(pcfg, device="cpu")
+    assert callable(port_steps.make_train_step(pcfg, device="cpu"))
     model = port_model.Model(pcfg, device="cpu")
     tok = torch.zeros((1, 8), dtype=torch.long)
+    leaves = port_steps.grad_leaves(model.params, port_model.tree_map(
+        torch.zeros_like, model.params))
+    total, metrics = port_model.loss_fn(leaves, {"tokens": tok,
+                                                 "targets": tok},
+                                        pcfg, device="cpu")
+    total.backward()
+    assert float(metrics["aux_loss"]) > 0
+    for j, (_, ffn) in enumerate(pcfg.pattern):
+        if ffn == "moe":
+            for block in leaves["blocks"]:
+                assert block[f"sub{j}"]["ffn"]["router"].grad.abs().sum() > 0
+    ragged = pcfg.replace(moe_impl="ragged")
     with pytest.raises(NotImplementedError, match="queue 1 item 7"):
         port_model.loss_fn(model.params, {"tokens": tok, "targets": tok},
-                           pcfg, device="cpu")
+                           ragged, device="cpu")
+
+
+#: (arch, skewed): every MoE smoke config at seeded inputs, and mixtral's
+#: forward with expert 0 sent more rows than ``cap_e`` (``skewed``)
+GRAD_CASES = [(arch, False) for arch in MOE] + [("mixtral_8x7b", True)]
+
+
+@pytest.mark.parametrize("arch,skew", GRAD_CASES)
+def test_moe_train_gradients_match_reference(arch, skew):
+    """``moe_train`` under autograd: the gradients of ``sum(y * dy) +
+    aux`` with respect to x, the router and the three expert weights
+    against ``jax.grad`` of the reference's, float32 under ``jit``, within
+    1e-5 scaled by each gradient's largest magnitude.  They reach the
+    gates (the top-k probabilities renormalised), the aux loss through
+    the mean probability, the router and the experts through the
+    (E, cap_e, D) buffer; a row dropped past ``cap_e`` and the buffer's
+    sentinel row contribute nothing in either package."""
+    cfg, pcfg = configs(arch, "float32")
+    if skew:
+        _, x, w = skewed(arch, 32, seed=2)
+    else:
+        x = np.random.default_rng(5).standard_normal(
+            (2, 32, cfg.d_model)).astype(np.float32)
+        w = _ref_ffn(arch)
+    dy = np.random.default_rng(6).standard_normal(x.shape).astype(
+        np.float32)
+    fn = functools.partial(ref_moe.moe_train, cfg=cfg,
+                           mesh=single_device_mesh(),
+                           batch_axes=ref_model.BATCH_AXES)
+
+    def objective(w, x):
+        y, aux = fn(w, x)
+        return (y * dy).sum() + aux
+    want = run_ref(jax.grad(objective, argnums=(0, 1)), "float32",
+                   {k: jnp.asarray(v) for k, v in w.items()},
+                   jnp.asarray(x))
+    tw = {k: torch.tensor(v, requires_grad=True) for k, v in w.items()}
+    tx = torch.tensor(x, requires_grad=True)
+    y, aux = port_moe.moe_train(tw, tx, pcfg)
+    ((y * torch.tensor(dy)).sum() + aux).backward()
+    for name, got, exp in [(k, tw[k].grad, want[0][k]) for k in tw] + [
+            ("x", tx.grad, want[1])]:
+        exp = _np(exp)
+        tol = TOL["float32"] * max(np.abs(exp).max(), 1.0)
+        np.testing.assert_allclose(_np(got), exp, rtol=0, atol=tol,
+                                   err_msg=name)
 
 
 def test_op_by_op_moe_is_the_eager_shard_map():

@@ -50,11 +50,13 @@ from repro.models import model as ref_model
 from repro.models import ssm as ref_ssm
 from repro_torch.configs import base as port_base
 from repro_torch.convert import params_from_reference
+from repro_torch.data.pipeline import DataConfig
 from repro_torch.launch import steps as port_steps
 from repro_torch.models import attention as port_attn
 from repro_torch.models import blocks as port_blocks
 from repro_torch.models import model as port_model
 from repro_torch.models import ssm as port_ssm
+from repro_torch.runtime import train as port_train
 
 from _torch_parity import (batch_arrays, op_by_op, port_batch, ported,
                            ref_batch, ref_params, run_ref)
@@ -305,20 +307,26 @@ def test_model_holds_every_config_and_convert_carries_it(arch):
 
 
 @pytest.mark.parametrize("arch", ["whisper_medium", "internvl2_26b"])
-def test_forward_raises_for_moe_encoders_and_vision(arch):
-    """The encoder's and the vision prefix's forward runs; their loss
-    (training) raises, naming ROADMAP queue 1 item 7 (MoE's in
-    ``tests/test_torch_moe.py``)."""
+def test_forward_raises_for_moe_encoders_and_vision(arch, tmp_path):
+    """The encoder's and the vision prefix's forward runs and so does
+    their loss; the ``Trainer`` raises for them, naming the input its
+    data pipeline lacks (MoE's training in ``tests/test_torch_moe.py``)."""
     pcfg = port_base.get_config(arch, smoke=True)
     model = port_model.Model(pcfg, device="cpu")
     batch = port_batch(batch_arrays(pcfg, 1, 16))
     x, aux = port_model.forward_hidden(model.params, batch, pcfg,
                                        device="cpu")
     assert x.shape == (1, 16 - pcfg.vision_prefix, pcfg.d_model)
-    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-        port_model.loss_fn(model.params, {**batch,
-                                          "targets": batch["tokens"]},
-                           pcfg, device="cpu")
+    total, _ = port_model.loss_fn(model.params, {**batch,
+                                                 "targets": batch["tokens"]},
+                                  pcfg, device="cpu")
+    assert torch.isfinite(total)
+    with pytest.raises(NotImplementedError,
+                       match="frames" if pcfg.enc_layers else "vision_embed"):
+        port_train.Trainer(pcfg, DataConfig(vocab_size=pcfg.vocab_size,
+                                            seq_len=16, global_batch=2),
+                           port_train.TrainerConfig(ckpt_dir=str(tmp_path)),
+                           device="cpu")
 
 
 def test_shape_table_is_the_reference_data():

@@ -1,15 +1,16 @@
 """The port's training path against the reference package.
 
-``loss_fn`` (its loss, metrics and every gradient leaf), the gradients of
-the two kernel Functions (``kernels/flash_attention.FlashAttention``,
-``kernels/ssd_scan.SSDScan``), ``adamw.apply``, ``make_train_step`` at
-``accum_steps`` 1 and 2 and an 8-step ``Trainer`` run against the
-reference's at the granite_3_2b and mamba2_370m smoke configs, in
-float32, the reference under ``jit``, within ``TOL`` (the gradient
-leaves of ``loss_fn`` against a float64 evaluation, see
-``test_loss_and_every_gradient_match_reference``).  Both packages load
-the same weights (``params_from_reference``), and the ``Trainer`` run
-starts from the reference's step-0 state written by the reference's
+``loss_fn`` (its loss, metrics and every gradient leaf) at all ten smoke
+configs, also at drawn leaves and with MoE rows dropped at capacity; the
+gradients of the two kernel Functions
+(``kernels/flash_attention.FlashAttention``, ``kernels/ssd_scan.SSDScan``),
+``adamw.apply``, ``make_train_step`` at ``accum_steps`` 1 and 2, and
+8-step ``Trainer`` runs (granite_3_2b, mixtral_8x7b) against the
+reference's, in float32, the reference under ``jit``, within ``TOL`` (the
+gradient leaves of ``loss_fn`` against a float64 evaluation, see
+``test_loss_and_every_gradient_match_reference``).  Both packages load the
+same weights (``params_from_reference``), and the ``Trainer`` runs start
+from the reference's step-0 state written by the reference's
 ``CheckpointManager``, which also holds the shared on-disk layout.
 
 The reference's ``ssd_chunked`` masks L after its exp, so its gradient is
@@ -19,6 +20,7 @@ are finite.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 import os
 import subprocess
@@ -38,6 +40,7 @@ from repro.launch.mesh import single_device_mesh
 from repro.models import attention as ref_attn
 from repro.models import blocks as ref_blocks
 from repro.models import model as ref_model
+from repro.models import moe as ref_moe
 from repro.models import ssm as ref_ssm
 from repro.optim import adamw as ref_adamw
 from repro.runtime import train as ref_train
@@ -50,12 +53,17 @@ from repro_torch.kernels import ssd_scan as port_ssd
 from repro_torch.launch import steps as port_steps
 from repro_torch.models import blocks as port_blocks
 from repro_torch.models import model as port_model
+from repro_torch.models import moe as port_moe
 from repro_torch.optim import adamw
 from repro_torch.runtime import train as port_train
 
 SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "src")
-TRAIN = ("granite_3_2b", "mamba2_370m")
+TRAIN = port_base.ARCH_IDS
+#: text positions of a parity batch: 32, and 64 for danube, a multiple of
+#: its smoke window (32) at which the window binds and the reference
+#: applies it (ROADMAP queue 3)
+SEQ = {"h2o_danube_3_4b": 64}
 TOL = 1e-4
 
 
@@ -75,14 +83,15 @@ def _ref_params(arch):
                                   jax.random.PRNGKey(0))
 
 
-def ported(arch):
-    """Reference config and params (seed 0), the port's config and a
-    Model loaded with those params, float32 compute."""
+def ported(arch, params=None):
+    """Reference config and params (seed 0 unless ``params`` is given),
+    the port's config and a Model loaded with those params, float32
+    compute."""
     cfg = ref_base.get_config(arch, smoke=True).replace(
         compute_dtype="float32")
     pcfg = port_base.get_config(arch, smoke=True).replace(
         compute_dtype="float32")
-    params = _ref_params(arch)
+    params = _ref_params(arch) if params is None else params
     model = port_model.Model(pcfg, device="cpu")
     model.load_state_dict(params_from_reference(
         jax.tree.map(np.asarray, params)))
@@ -90,12 +99,24 @@ def ported(arch):
 
 
 def lm_batch(cfg, b, s, seed=0):
-    rows = np.random.default_rng(seed).integers(
-        0, cfg.vocab_size, (b, s + 1)).astype(np.int32)
+    """A train batch of ``s`` text positions from ``default_rng(seed)``:
+    tokens, targets, a loss mask, and where the model takes them the
+    vision prefix's ``vision_embed`` and the encoder's ``frames``
+    (``steps.batch_structs``' shapes, unit normals that bf16 holds
+    exactly)."""
+    rng = np.random.default_rng(seed)
+    rows = rng.integers(0, cfg.vocab_size, (b, s + 1)).astype(np.int32)
     mask = np.ones((b, s), np.float32)
     mask[0, : s // 4] = 0.0            # a masked prefix: the mean is weighted
-    return {"tokens": rows[:, :-1], "targets": rows[:, 1:],
-            "loss_mask": mask}
+    out = {"tokens": rows[:, :-1], "targets": rows[:, 1:],
+           "loss_mask": mask}
+    structs = port_steps.batch_structs(cfg, s + cfg.vision_prefix, b,
+                                       train=True)
+    for name in ("vision_embed", "frames"):
+        if name in structs:
+            x = rng.standard_normal(structs[name].shape).astype(np.float32)
+            out[name] = torch.tensor(x).bfloat16().float().numpy()
+    return out
 
 
 def ref_jit(fn, *args):
@@ -132,20 +153,66 @@ def train_step_grads(model, batch, cfg, dtype):
                      for k, g in port_blocks.tree_leaves(grads)}
 
 
-def loss_and_gradients(arch, seed):
+@contextlib.contextmanager
+def routes():
+    """Record ``(eids, n_exp, cap_e)`` of every call of the port's
+    capacity-bucketed expert ffn (``moe._bucket_ffn``): each row's
+    expert, ``n_exp`` for a row sent nowhere, so the routing and both
+    kinds of drop."""
+    calls, bucket_ffn = [], port_moe._bucket_ffn
+
+    def recorded(rows, eids, n_exp, cap_e, *args):
+        calls.append((eids.clone(), n_exp, cap_e))
+        return bucket_ffn(rows, eids, n_exp, cap_e, *args)
+    port_moe._bucket_ffn = recorded
+    try:
+        yield calls
+    finally:
+        port_moe._bucket_ffn = bucket_ffn
+
+
+def dropped(eids, n_exp, cap_e):
+    """Rows a bucket-ffn call drops: those sent nowhere (past ``cap``)
+    and those past ``cap_e`` at their expert."""
+    counts = torch.bincount(eids, minlength=n_exp + 1)
+    return int(counts[n_exp] + torch.clamp(counts[:n_exp] - cap_e,
+                                           min=0).sum())
+
+
+def _ref_value_and_grad(arch):
+    """``jax.jit(jax.value_and_grad(loss_fn))`` of the reference at
+    ``arch``'s float32 smoke config."""
+    cfg = ref_base.get_config(arch, smoke=True).replace(
+        compute_dtype="float32")
+    mesh = single_device_mesh()
+    return jax.jit(jax.value_and_grad(
+        lambda p, b: ref_model.loss_fn(p, b, cfg, mesh), has_aux=True))
+
+
+#: one compilation per architecture, shared by its batch seeds and drawn
+#: leaves
+ref_value_and_grad = functools.lru_cache(maxsize=None)(_ref_value_and_grad)
+
+
+def loss_and_gradients(arch, seed, params=None, cached=True):
     """At the smoke config and batch ``seed``: the reference's
     ``(total, metrics)`` and float32 gradients (under ``jit``), the port's
-    float32 metrics and gradients, and the port's float64 gradients."""
-    cfg, pcfg, params, model = ported(arch)
-    batch = lm_batch(cfg, 2, 32, seed=seed)
-    mesh = single_device_mesh()
-    want, want_g = ref_jit(
-        jax.value_and_grad(lambda p, b: ref_model.loss_fn(p, b, cfg, mesh),
-                           has_aux=True), params,
-        {k: jnp.asarray(v) for k, v in batch.items()})
-    metrics, grads = train_step_grads(model, batch, pcfg, torch.float32)
-    _, g64 = train_step_grads(model, batch, pcfg, torch.float64)
-    return cfg, want, named(want_g), metrics, grads, g64
+    float32 metrics and gradients, the port's float64 gradients, and the
+    routes of the port's float32 and float64 evaluations (``routes``).
+    ``params`` (a reference tree) replaces the seed-0 parameters;
+    ``cached=False`` traces the reference anew (for a function patched at
+    trace time)."""
+    cfg, pcfg, params, model = ported(arch, params)
+    batch = lm_batch(cfg, 2, SEQ.get(arch, 32), seed=seed)
+    fn = ref_value_and_grad(arch) if cached else _ref_value_and_grad(arch)
+    with single_device_mesh():
+        want, want_g = fn(params, {k: jnp.asarray(v)
+                                   for k, v in batch.items()})
+    with routes() as r32:
+        metrics, grads = train_step_grads(model, batch, pcfg, torch.float32)
+    with routes() as r64:
+        _, g64 = train_step_grads(model, batch, pcfg, torch.float64)
+    return cfg, want, named(want_g), metrics, grads, g64, (r32, r64)
 
 
 def distances(want, grads, g64):
@@ -177,8 +244,37 @@ def test_loss_and_every_gradient_match_reference(arch, seed):
     reference at seed 0, 1.6e-4 and 1.9e-4 at seed 4, which is why
     neither package is held to the other at ``TOL`` directly (the
     figures come from ``python tests/test_torch_train.py``)."""
-    cfg, (want_total, want_m), want, metrics, grads, g64 = \
+    cfg, (want_total, want_m), want, metrics, grads, g64, (r32, r64) = \
         loss_and_gradients(arch, seed)
+    check_routes(cfg, r32, r64)
+    check_loss_and_gradients(cfg, want_total, want_m, want, metrics, grads,
+                             g64)
+
+
+def check_routes(cfg, r32, r64):
+    """The float64 evaluation routes every row to the experts the float32
+    one does, with the same drops, or it is a different function and no
+    oracle; and each block's recompute in the backward routes as its
+    forward did (the forward's calls, then the recompute's, block by
+    block in reverse order)."""
+    assert len(r32) == len(r64)
+    for i, ((e32, n_exp, cap_e), (e64, _, _)) in enumerate(zip(r32, r64)):
+        assert torch.equal(e32, e64), (
+            f"call {i}: the float64 evaluation routes "
+            f"{int((e32 != e64).sum())} rows elsewhere; drops "
+            f"{dropped(e32, n_exp, cap_e)} vs {dropped(e64, n_exp, cap_e)}")
+    per_block = [f for _, f in cfg.pattern].count("moe")
+    if not per_block or cfg.remat == "none":
+        return
+    blocks = [r32[i:i + per_block] for i in range(0, len(r32), per_block)]
+    assert len(blocks) == 2 * cfg.n_blocks
+    for fwd, again in zip(blocks[:cfg.n_blocks], blocks[cfg.n_blocks:][::-1]):
+        for (e, _, _), (e_again, _, _) in zip(fwd, again):
+            assert torch.equal(e, e_again)
+
+
+def check_loss_and_gradients(cfg, want_total, want_m, want, metrics, grads,
+                             g64):
     for key in ("loss", "aux_loss", "perplexity"):
         close(metrics[key], want_m[key])
     close(metrics["loss"] + cfg.router_aux_coef * metrics["aux_loss"],
@@ -189,6 +285,118 @@ def test_loss_and_every_gradient_match_reference(arch, seed):
             name, d_ref, d_port, scale)
         assert d_port <= ORACLE_FACTOR * max(
             d_ref, np.finfo(np.float32).eps * scale), (name, d_port, d_ref)
+
+
+def drawn_params(arch, seed):
+    """Every leaf of ``arch``'s smoke parameters drawn from
+    ``default_rng(seed)``: a leaf the init sets to a constant c (the q/k/v
+    biases, the norm scales, Mamba-2's ``dt_bias``, ``A_log`` and ``D``)
+    becomes c + 0.1 N(0, 1), every other leaf N(0, 1) times its init's
+    scale.  A reference tree, which both packages load.  (At c + 0.3 N
+    one of jamba's smoke chunks passes the decay sum at which the
+    reference's ``ssd_chunked`` gradient turns NaN, ROADMAP queue 3.)"""
+    cfg = ref_base.get_config(arch, smoke=True)
+    rng = np.random.default_rng(seed)
+
+    def draw(d):
+        x = rng.standard_normal(d.shape).astype(np.float32)
+        if d.init in ("zeros", "ones"):
+            return jnp.asarray(float(d.init == "ones") + 0.1 * x)
+        fan_in = d.shape[-2] if len(d.shape) >= 2 else d.shape[-1]
+        std = d.scale if d.scale is not None else 1.0 / np.sqrt(fan_in)
+        return jnp.asarray(x * np.float32(std))
+    return jax.tree.map(draw, ref_model.model_defs(cfg),
+                        is_leaf=ref_blocks.is_def)
+
+
+#: one configuration of each family at drawn leaves: qwen1.5 and whisper
+#: for the q/k/v biases, mamba2 and jamba for the Mamba-2 leaves
+DRAWN = ("qwen1_5_110b", "mixtral_8x7b", "mamba2_370m", "jamba_v0_1_52b",
+         "whisper_medium", "internvl2_26b")
+
+
+@pytest.mark.parametrize("arch", DRAWN)
+def test_loss_and_every_gradient_match_reference_at_drawn_leaves(arch):
+    """``test_loss_and_every_gradient_match_reference`` with every leaf
+    drawn (``drawn_params``), so that the leaves the init sets to
+    constants are compared at other values: a swapped ``bk``/``bv``, a
+    misplaced norm scale or a wrong use of ``A_log``, ``dt_bias`` or
+    ``D`` shows here."""
+    cfg, (want_total, want_m), want, metrics, grads, g64, (r32, r64) = \
+        loss_and_gradients(arch, 0, params=drawn_params(arch, 11))
+    check_routes(cfg, r32, r64)
+    check_loss_and_gradients(cfg, want_total, want_m, want, metrics, grads,
+                             g64)
+
+
+@contextlib.contextmanager
+def ref_overflow():
+    """Record, for every call of the reference's bucket ffn, its rows past
+    ``cap_e`` at their expert (``jax.debug.callback`` from inside its
+    jitted ``shard_map`` body).  At one device ``cap >= T k``, so no row
+    is sent nowhere: its sentinel rows are the unused send slots."""
+    counts, bucket_ffn = [], ref_moe._bucket_ffn
+
+    def recorded(rows, eids, n_exp, cap_e, *args, **kw):
+        c = jnp.bincount(eids, length=n_exp + 1)[:n_exp]
+        jax.debug.callback(lambda n: counts.append(int(n)),
+                           jnp.maximum(c - cap_e, 0).sum())
+        return bucket_ffn(rows, eids, n_exp, cap_e, *args, **kw)
+    ref_moe._bucket_ffn = recorded
+    try:
+        yield counts
+    finally:
+        ref_moe._bucket_ffn = bucket_ffn
+
+
+def concentrated_router(arch, scale=10.0):
+    """Seed-0 parameters whose first MoE sublayer sends most tokens to
+    expert 0: that router's column 0 becomes ``scale`` times the unit
+    mean of the sublayer's input rows (89% of mixtral's smoke tokens lie
+    on its positive side, so expert 0 is in the top k of ~57 of 64
+    tokens against a ``cap_e`` of 40).  The input of the first MoE
+    sublayer does not depend on any router, so one forward finds it."""
+    cfg, pcfg, params, model = ported(arch)
+    rows, bucket_ffn = [], port_moe._bucket_ffn
+
+    def recorded(x, *args):
+        rows.append(x.detach().clone())
+        return bucket_ffn(x, *args)
+    port_moe._bucket_ffn = recorded
+    try:
+        with torch.no_grad():
+            port_model.forward_hidden(model.params, lm_batch(cfg, 2, 32),
+                                      pcfg, device="cpu")
+    finally:
+        port_moe._bucket_ffn = bucket_ffn
+    mean = rows[0][::cfg.top_k].mean(0).double().numpy()
+    sub = next(f"sub{i}" for i, (_, f) in enumerate(cfg.pattern)
+               if f == "moe")
+    router = np.array(params["blocks"][sub]["ffn"]["router"])
+    router[0, :, 0] = scale * mean / np.linalg.norm(mean)
+    params = jax.tree.map(lambda a: a, params)
+    params["blocks"][sub]["ffn"]["router"] = jnp.asarray(router)
+    return params
+
+
+@pytest.mark.parametrize("arch", ["mixtral_8x7b", "jamba_v0_1_52b"])
+def test_gradients_match_reference_with_rows_dropped_at_capacity(arch):
+    """A router that sends more than ``cap_e`` rows to one expert
+    (``concentrated_router``): both packages drop the same number of
+    rows there, at least one, and the loss and every gradient leaf agree
+    as in ``test_loss_and_every_gradient_match_reference``.  A dropped
+    row adds nothing to the output, so its gate and its expert rows get
+    an exactly zero gradient in both."""
+    params = concentrated_router(arch)
+    with ref_overflow() as ref_counts:
+        cfg, (want_total, want_m), want, metrics, grads, g64, (r32, r64) \
+            = loss_and_gradients(arch, 0, params=params, cached=False)
+    got = [dropped(*call) for call in r32]
+    assert got[0] > 0 and ref_counts and ref_counts[0] == got[0], (
+        got, ref_counts)
+    check_routes(cfg, r32, r64)
+    check_loss_and_gradients(cfg, want_total, want_m, want, metrics, grads,
+                             g64)
 
 
 @pytest.mark.parametrize("s,chunk", [(64, 512), (64, 16), (60, 16)])
@@ -376,7 +584,8 @@ def test_schedule_matches_reference():
 
 @pytest.mark.parametrize("arch,accum", [("granite_3_2b", 1),
                                         ("granite_3_2b", 2),
-                                        ("mamba2_370m", 2)])
+                                        ("mamba2_370m", 2),
+                                        ("mixtral_8x7b", 2)])
 def test_train_step_matches_reference(arch, accum):
     """One ``make_train_step`` step (gradient accumulation over
     ``accum`` microbatches, then AdamW) against the reference's: every
@@ -404,6 +613,73 @@ def test_train_step_matches_reference(arch, accum):
                                        atol=TOL, err_msg=name)
 
 
+@pytest.mark.parametrize("arch", ["whisper_medium", "internvl2_26b",
+                                  "jamba_v0_1_52b"])
+def test_train_step_matches_reference_through_its_gradient(arch,
+                                                           monkeypatch):
+    """One ``make_train_step`` step at accum 1 (whisper's ``frames`` and
+    internvl2's ``vision_embed`` in the batch): every metric against the
+    reference's step; the step's gradient, leaf by leaf, under the rule of
+    ``test_loss_and_every_gradient_match_reference`` against the port's
+    float64 step; and its parameters and both moments against the
+    reference's ``adamw.apply`` of that gradient, element-wise.
+
+    At these configs a few elements (1 of 512 to 8 of 8192 in a leaf) have
+    a true gradient within float32's noise of 0, ~1e-9 (a key bias's is 0
+    exactly: softmax ignores it), where AdamW's first update
+    g / (|g| + 1e-8) takes the noise's sign: either package's float32
+    step then moves such an element by up to lr = 3e-4 the wrong way (the
+    port's 3.7e-4 from the float64 step at one whisper ``wv`` element, the
+    reference's 3.4e-5), beyond ``TOL`` of the other's."""
+    cfg, pcfg, params, model = ported(arch)
+    batch = lm_batch(cfg, 4, 32, seed=2)
+    opt = ref_adamw.AdamWConfig(warmup_steps=1)
+    mesh = single_device_mesh()
+    step = ref_steps.make_train_step(cfg, mesh, opt, accum_steps=1)
+    _, _, want_m = ref_jit(step, params, ref_adamw.init(params),
+                           {k: jnp.asarray(v) for k, v in batch.items()})
+    seen, apply = [], adamw.apply
+
+    def recorded(opt_cfg, params, state, grads):
+        seen.append({k: g.double().numpy()
+                     for k, g in port_blocks.tree_leaves(grads)})
+        return apply(opt_cfg, params, state, grads)
+    monkeypatch.setattr(adamw, "apply", recorded)
+    out = {}
+    for dtype in (torch.float32, torch.float64):
+        p = port_blocks.tree_map(lambda t: t.detach().clone().to(dtype),
+                                 model.params)
+        out[dtype] = port_steps.make_train_step(
+            pcfg.replace(compute_dtype=str(dtype)[6:]),
+            adamw.AdamWConfig(warmup_steps=1), 1, device="cpu")(
+                p, adamw.init(p), batch)
+    tparams, tstate, got_m = out[torch.float32]
+    assert set(got_m) == set(want_m)
+    for key in want_m:
+        close(got_m[key], want_m[key])
+    grads, g64 = seen
+    want_g, _ = ref_jit(jax.grad(lambda p, b: ref_model.loss_fn(
+        p, b, cfg, mesh), has_aux=True), params,
+        {k: jnp.asarray(v) for k, v in batch.items()})
+    for name, (d_ref, d_port, scale) in distances(
+            named(want_g), grads, g64).items():
+        assert d_ref <= max(TOL * scale, ORACLE_FACTOR * d_port), (
+            name, d_ref, d_port, scale)
+        assert d_port <= ORACLE_FACTOR * max(
+            d_ref, np.finfo(np.float32).eps * scale), (name, d_port, d_ref)
+    new_p, new_s, _ = ref_jit(
+        functools.partial(ref_adamw.apply, opt), params,
+        ref_adamw.init(params),
+        jax.tree.map(jnp.asarray, port_blocks.unflatten(
+            {k: g.astype(np.float32) for k, g in grads.items()})))
+    for tree, ttree in ((new_p, tparams), (new_s["m"], tstate["m"]),
+                        (new_s["v"], tstate["v"])):
+        want = named(tree)
+        for name, t in port_blocks.tree_leaves(ttree):
+            np.testing.assert_allclose(_np(t), want[name], rtol=TOL,
+                                       atol=TOL, err_msg=name)
+
+
 def test_train_step_rejects_a_batch_accum_does_not_divide():
     _, pcfg, _, model = ported("granite_3_2b")
     step = port_steps.make_train_step(pcfg, accum_steps=3, device="cpu")
@@ -414,15 +690,15 @@ def test_train_step_rejects_a_batch_accum_does_not_divide():
 
 # ================================================================ trainer
 
-def test_trainer_history_matches_reference_from_its_checkpoint(tmp_path):
+def trainer_history_matches_reference(arch, tmp_path):
     """The reference ``Trainer`` runs 8 steps from its seed-0 state; that
     state, written at step 0 by the reference's ``CheckpointManager``, is
     where the port's ``Trainer`` resumes.  The loss histories agree, and
     the port's step-8 checkpoint restores in the reference equal to the
     reference's own final state."""
-    cfg = ref_base.get_config("granite_3_2b", smoke=True).replace(
+    cfg = ref_base.get_config(arch, smoke=True).replace(
         compute_dtype="float32")
-    pcfg = port_base.get_config("granite_3_2b", smoke=True).replace(
+    pcfg = port_base.get_config(arch, smoke=True).replace(
         compute_dtype="float32")
     kw = dict(total_steps=8, ckpt_every=4, keep=3, log_every=100)
     dc = dict(vocab_size=cfg.vocab_size, seq_len=32, global_batch=4, seed=7)
@@ -452,6 +728,17 @@ def test_trainer_history_matches_reference_from_its_checkpoint(tmp_path):
                                    rtol=TOL, atol=TOL, err_msg=name)
 
 
+def test_trainer_history_matches_reference_from_its_checkpoint(tmp_path):
+    """granite_3_2b: ``trainer_history_matches_reference``."""
+    trainer_history_matches_reference("granite_3_2b", tmp_path)
+
+
+def test_moe_trainer_history_matches_reference_from_its_checkpoint(tmp_path):
+    """mixtral_8x7b, the router's aux loss in every step's total and
+    its experts' moments: ``trainer_history_matches_reference``."""
+    trainer_history_matches_reference("mixtral_8x7b", tmp_path)
+
+
 def test_checkpoint_manifest_treedef_is_the_references():
     """The manifest's tree string, for the trainer's state tree (an
     empty ``err``, a scalar ``step``), is the reference's."""
@@ -477,16 +764,36 @@ def test_training_needs_a_card_by_default(tmp_path):
         port_model.loss_fn(model.params, lm_batch(pcfg, 1, 8), pcfg)
 
 
-@pytest.mark.parametrize("arch", ["mixtral_8x7b", "whisper_medium"])
+@pytest.mark.parametrize("arch", ["whisper_medium", "internvl2_26b"])
 def test_training_raises_for_moe_and_encoders(arch, tmp_path):
+    """The train step trains every configuration; the ``Trainer`` raises
+    for the encoder-decoder and the VLM, whose ``frames`` or
+    ``vision_embed`` its data pipeline does not carry (nor does the
+    reference's), and names them."""
     pcfg = port_base.get_config(arch, smoke=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port_steps.make_train_step(pcfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    assert callable(port_steps.make_train_step(pcfg, device="cpu"))
+    name = "frames" if pcfg.enc_layers else "vision_embed"
+    with pytest.raises(NotImplementedError, match=name):
         port_train.Trainer(pcfg, DataConfig(vocab_size=pcfg.vocab_size,
                                             seq_len=16, global_batch=2),
                            port_train.TrainerConfig(ckpt_dir=str(tmp_path)),
                            device="cpu")
+
+
+def test_batch_structs_are_the_references():
+    """``steps.batch_structs``: every entry's shape and dtype, the
+    reference's, for every configuration, train and not, at a length
+    the encoder's stride divides and one it does not."""
+    for arch in port_base.ARCH_IDS:
+        cfg = ref_base.get_config(arch)
+        pcfg = port_base.get_config(arch)
+        for seq, batch, train in ((4096, 4, True), (1000, 2, False),
+                                  (20, 1, True)):
+            want = ref_steps.batch_structs(cfg, seq, batch, train=train)
+            got = port_steps.batch_structs(pcfg, seq, batch, train=train)
+            assert {k: (tuple(v.shape), str(v.dtype)) for k, v in
+                    want.items()} == {k: (v.shape, str(v.dtype)[6:])
+                                      for k, v in got.items()}, arch
 
 
 TRAIN_ALONE = """
@@ -494,12 +801,26 @@ import sys, tempfile
 sys.modules["jax"] = None
 sys.modules["repro"] = None
 from repro_torch.launch import train
-for arch in ("granite_3_2b", "mamba2_370m"):
+for arch, cut in (("granite_3_2b", []), ("mamba2_370m", []),
+                  ("mixtral_8x7b", ["--layers", "1"])):
     with tempfile.TemporaryDirectory() as d:
         assert train.main(["--arch", arch, "--smoke", "--device", "cpu",
                            "--steps", "3", "--batch", "4", "--seq", "32",
                            "--accum", "2", "--ckpt-every", "2",
-                           "--ckpt-dir", d]) == 0
+                           "--ckpt-dir", d] + cut) == 0
+import torch
+from repro_torch.configs.base import get_config
+from repro_torch.launch import steps
+from repro_torch.models.model import Model
+from repro_torch.optim import adamw
+for arch in ("whisper_medium", "internvl2_26b"):
+    cfg = get_config(arch, smoke=True)
+    params = Model(cfg, device="cpu").params
+    batch = {k: torch.ones(s.shape, dtype=s.dtype) for k, s in
+             steps.batch_structs(cfg, 32, 2, train=True).items()}
+    _, _, m = steps.make_train_step(cfg, device="cpu")(
+        params, adamw.init(params), batch)
+    assert torch.isfinite(m["loss"])
 assert not any(m.startswith(("jax.", "repro.")) for m in sys.modules)
 print("ok")
 """
@@ -548,6 +869,39 @@ def test_cuda_attention_backward_matches_plain_autograd(case):
         assert float((g.float() - w.float()).abs().max()) <= tol
 
 
+#: (B, Sq, Skv, H, KVH, D, dtype), all bidirectional: whisper's encoder
+#: (Sq = Skv) and its cross-attention (decoder queries over encoder
+#: frames, Sq != Skv) at its heads, in bf16 (the wgmma forward), and a
+#: GQA cross-attention with ragged tiles in float32 (SIMT)
+CARD_CROSS = [(1, 512, 512, 16, 16, 64, "bfloat16"),
+              (2, 512, 128, 16, 16, 64, "bfloat16"),
+              (1, 300, 77, 8, 2, 64, "float32")]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", CARD_CROSS)
+def test_cuda_bidirectional_attention_backward_matches_plain_autograd(case):
+    """``test_cuda_attention_backward_matches_plain_autograd`` with
+    ``causal=False``: the encoder's attention and the cross-attention
+    the encoder-decoder trains through."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    b, sq, skv, h, kvh, d, dtype = case
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    q, k, v, do = (torch.randn(shape, generator=gen, device="cuda").to(
+        getattr(torch, dtype)) for shape in ((b, sq, h, d), (b, skv, kvh, d),
+                                            (b, skv, kvh, d), (b, sq, h, d)))
+    ins = [t.clone().requires_grad_() for t in (q, k, v)]
+    got = torch.autograd.grad(ops.flash_attention(*ins, causal=False), ins,
+                              do)
+    ins = [t.clone().requires_grad_() for t in (q, k, v)]
+    want = torch.autograd.grad(ref.mha_reference(*ins, causal=False), ins,
+                               do)
+    for g, w in zip(got, want):
+        tol = CARD_TOL[dtype] * float(w.float().abs().max())
+        assert float((g.float() - w.float()).abs().max()) <= tol
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
 def test_cuda_ssd_backward_matches_plain_autograd(dtype):
@@ -578,7 +932,7 @@ if __name__ == "__main__":
     # ``embed`` leaf's two distances over its largest magnitude.
     for arch in TRAIN:
         for seed in range(5):
-            _, _, want, _, grads, g64 = loss_and_gradients(arch, seed)
+            _, _, want, _, grads, g64, _ = loss_and_gradients(arch, seed)
             dist = distances(want, grads, g64)
             ratios = [d_port / max(d_ref, np.finfo(np.float32).eps * scale)
                       for d_ref, d_port, scale in dist.values()]
