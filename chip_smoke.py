@@ -189,9 +189,8 @@ GATE_TOL = {"jct": 0.10, "allreduce": 0.20, "recovery": 0.15,
             "fleet": 0.10, "apps": 0.10}
 #: check_faults.py's fault instant and message
 FAULT_AT, FAULT_NBYTES = 3e-6, 1 << 17
-#: where the gates' flow side runs; a CPU rehearsal sets it to "cpu"
-FLOW_DEVICE = "cuda"
-#: where train_cross runs its card side (the CPU to rehearse it)
+#: where the card side of the packet-vs-flow gates, the train phases and
+#: train_cross runs; a CPU rehearsal sets it to "cpu"
 CARD = "cuda"
 #: the forked run_many batch (after CUDA is up) held to the serial one
 FORK_WORKERS, FORK_SCENARIOS = 4, 8
@@ -1041,12 +1040,13 @@ class PrefillRecorder:
     """Wraps ``kernels/ops.flash_attention`` and ``ops.ssd_scan`` (the
     model's layers look them up at call time) to keep the inputs of the
     first and the last call of each kernel in an armed prefill, and of the
-    calls ``TRAIN_BACKWARD`` names, keyed by (phase, kernel, call index):
-    ``calls`` says how many times the prefill calls each
-    (``path_launches``)."""
+    calls the ``backward`` rows name (``run_train_kernels`` runs the same
+    rows), keyed by (phase, kernel, call index): ``calls`` says how many
+    times the prefill calls each (``path_launches``)."""
 
-    def __init__(self, ops):
+    def __init__(self, ops, backward=TRAIN_BACKWARD):
         self.ops, self.inputs, self.phase = ops, {}, None
+        self.backward = backward
         self._attn, self._ssd = ops.flash_attention, ops.ssd_scan
         ops.flash_attention = self.attention
         ops.ssd_scan = self.scan
@@ -1055,7 +1055,7 @@ class PrefillRecorder:
         self.phase, self.n_calls = phase, calls
         self.calls = dict.fromkeys(calls, 0)
         self.keep = {k: {0, n - 1} | {call for _, ph, kernel, call, _
-                                      in TRAIN_BACKWARD
+                                      in self.backward
                                       if (ph, kernel) == (phase, k)}
                      for k, n in calls.items()}
 
@@ -1354,7 +1354,7 @@ class StepRunner:
         return {"history": history, "final_loss": history[-1]["loss"]}
 
 
-def train_phase(label, cfg, batch, seq, accum, route, device="cuda"):
+def train_phase(label, cfg, batch, seq, accum, route):
     """``TRAIN_STEPS`` steps on ``cfg`` at full width (seed-0 parameters
     drawn on the card, no checkpoint) through the ``Trainer`` (``route``
     "trainer", synthetic tokens) or ``make_train_step`` ("step",
@@ -1375,7 +1375,7 @@ def train_phase(label, cfg, batch, seq, accum, route, device="cuda"):
                              TrainerConfig(total_steps=TRAIN_STEPS,
                                            ckpt_every=0, accum_steps=accum,
                                            log_every=1, ckpt_dir=tmp),
-                             log=lines.append, device=device)
+                             log=lines.append, device=CARD)
             runner.init_state()
 
             def run():
@@ -1385,8 +1385,8 @@ def train_phase(label, cfg, batch, seq, accum, route, device="cuda"):
                 runner.step_fn(runner.params, runner.opt_state, runner.err,
                                runner.pipeline.batch_at(TRAIN_STEPS))
         else:
-            batches = train_batches(cfg, batch, seq, TRAIN_STEPS + 1, device)
-            runner = StepRunner(cfg, accum, device)
+            batches = train_batches(cfg, batch, seq, TRAIN_STEPS + 1, CARD)
+            runner = StepRunner(cfg, accum, CARD)
 
             def run():
                 return runner.run(batches[:TRAIN_STEPS])
@@ -1458,7 +1458,7 @@ def train_phase(label, cfg, batch, seq, accum, route, device="cuda"):
     kinds = {"flash_attention": "flash_attention_wgmma",
              "ssd_scan": "ssd_scan_mma"}
     for kernel, n in train_launches(cfg, accum * TRAIN_STEPS).items():
-        want = n if device == "cuda" else 0
+        want = n if CARD == "cuda" else 0
         for name in (kernel, kinds[kernel]):
             if launches[name] != want:
                 fail(f"{label}: {name} launched {launches[name]} times, "
@@ -1677,7 +1677,7 @@ def packet_frozen(rec, fts, mods):
             fail(f"packet_frozen {name}: {got.get(name)} != {want}")
     with Phase("packet_frozen", rec, fts, lossy=False) as ph:
         flow = frozen_rows(make_engine("flow", fattree.testbed(n_hosts=10),
-                                       device=FLOW_DEVICE), wl)
+                                       device=CARD), wl)
     err = 0.0
     for name, want in ref["engines"]["flow-np"].items():
         g = flow[name]
@@ -1737,7 +1737,7 @@ def packet_fig15(rec, fts, mods):
     with Phase("packet_fig15", rec, fts, lossy=True) as ph:
         for row in rows:
             eng, r = fig15_point(mods, "flow", row["group"], row["loss"],
-                                 device=FLOW_DEVICE)
+                                 device=CARD)
             eng.run()
             row["flow_jct_ms"] = r.jct(row["group"] - 1) * 1e3
     for row in rows:
@@ -1846,7 +1846,7 @@ def packet_vs_flow(rec, fts, mods):
     want = gate_values(mods, "packet", {})
     packet_wall = time.perf_counter() - t0
     with Phase("packet_vs_flow", rec, fts, lossy=False) as ph:
-        got = gate_values(mods, "flow", {"device": FLOW_DEVICE})
+        got = gate_values(mods, "flow", {"device": CARD})
     rows = [gate(label, got[label][0], value, tol)
             for label, (value, tol) in want.items()]
     serial, serial_wall = fork_batch(mods, None)
@@ -1878,8 +1878,8 @@ def fleet_phase(rec, fts, mods):
     rp = run_fleet("packet", shared, spec, seed=1)
     packet_wall = time.perf_counter() - t0
     with Phase("fleet", rec, fts, lossy=False) as ph:
-        rf = run_fleet("flow", shared, spec, device=FLOW_DEVICE)
-        fresh = run_fleet("flow", fabric(), spec, device=FLOW_DEVICE)
+        rf = run_fleet("flow", shared, spec, device=CARD)
+        fresh = run_fleet("flow", fabric(), spec, device=CARD)
     rows = []
     for rep in (rp, rf):
         if rep["errors"]:
@@ -1951,7 +1951,7 @@ def apps_phase(rec, fts, mods):
     want, want_rep = run("packet", {})
     packet_wall = time.perf_counter() - t0
     with Phase("apps", rec, fts, lossy=False) as ph:
-        got, got_rep = run("flow", {"device": FLOW_DEVICE})
+        got, got_rep = run("flow", {"device": CARD})
     rows = [gate(f"apps {arch} train/{transport} step", got[(arch, transport)],
                  want[(arch, transport)], GATE_TOL["apps"], "step time")
             for arch, transport in want]
@@ -2734,12 +2734,13 @@ def ssd_backward_row(name, args, chunk, y_dtype):
         lambda *t: ref.ssd_reference(*t), dy, SSD_TOL[x.dtype], work)
 
 
-def run_train_kernels(prefill_rec, specs=TRAIN_BACKWARD):
-    """The backward rows: each Function's backward at a train path's
-    layer, from the prefill phases' captured layer inputs in bf16 (the
-    dtype the train phases run), the batch cut to ``rows``."""
+def run_train_kernels(prefill_rec):
+    """The backward rows (``prefill_rec.backward``): each Function's
+    backward at a train path's layer, from the prefill phases' captured
+    layer inputs in bf16 (the dtype the train phases run), the batch cut
+    to ``rows``."""
     rows = []
-    for name, phase, kernel, call, keep in specs:
+    for name, phase, kernel, call, keep in prefill_rec.backward:
         if (phase, kernel, call) not in prefill_rec.inputs:
             fail(f"{name}: no captured input of {phase}'s {kernel} call "
                  f"{call}")

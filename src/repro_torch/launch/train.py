@@ -27,9 +27,6 @@ def main(argv=None) -> int:
     ap.add_argument("--arch", choices=ARCH_IDS, required=True)
     ap.add_argument("--smoke", action="store_true",
                     help="reduced config (CPU-runnable)")
-    ap.add_argument("--layers", type=int, default=0,
-                    help="cut the depth to this many layers (a multiple "
-                         "of the block pattern; 0 keeps the config's)")
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=128)
@@ -45,8 +42,6 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
 
     cfg = get_config(args.arch, smoke=args.smoke)
-    if args.layers:
-        cfg = cfg.replace(n_layers=args.layers)
     dc = DataConfig(vocab_size=cfg.vocab_size, seq_len=args.seq,
                     global_batch=args.batch, path=args.data)
     tc = TrainerConfig(total_steps=args.steps, ckpt_every=args.ckpt_every,

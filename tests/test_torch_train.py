@@ -613,6 +613,12 @@ def test_train_step_matches_reference(arch, accum):
                                        atol=TOL, err_msg=name)
 
 
+#: the largest share of a config's gradient elements that may lie within
+#: float32's noise of 0 (see the test below); 0.19% at whisper's smoke
+#: config, whose key biases' true gradients are exactly 0
+NOISE_SHARE = 1e-2
+
+
 @pytest.mark.parametrize("arch", ["whisper_medium", "internvl2_26b",
                                   "jamba_v0_1_52b"])
 def test_train_step_matches_reference_through_its_gradient(arch,
@@ -621,27 +627,32 @@ def test_train_step_matches_reference_through_its_gradient(arch,
     internvl2's ``vision_embed`` in the batch): every metric against the
     reference's step; the step's gradient, leaf by leaf, under the rule of
     ``test_loss_and_every_gradient_match_reference`` against the port's
-    float64 step; and its parameters and both moments against the
-    reference's ``adamw.apply`` of that gradient, element-wise.
+    float64 step; its parameters and both moments against the
+    reference's ``adamw.apply`` of that gradient, element-wise; and
+    against the reference's own step, element-wise, outside the elements
+    whose true gradient is float32 noise.
 
-    At these configs a few elements (1 of 512 to 8 of 8192 in a leaf) have
-    a true gradient within float32's noise of 0, ~1e-9 (a key bias's is 0
-    exactly: softmax ignores it), where AdamW's first update
-    g / (|g| + 1e-8) takes the noise's sign: either package's float32
-    step then moves such an element by up to lr = 3e-4 the wrong way (the
-    port's 3.7e-4 from the float64 step at one whisper ``wv`` element, the
-    reference's 3.4e-5), beyond ``TOL`` of the other's."""
+    An element is noise when its float64 gradient is nonzero and no
+    larger than its leaf's float32 error (the larger of either package's
+    largest distance from the float64 gradient), and such elements are at
+    most ``NOISE_SHARE`` of the config's.  There the two float32
+    gradients may differ in sign, and AdamW's first update
+    g / (|g| + 1e-8) moves the element by up to lr = 3e-4 either way
+    (1 to 10 elements a config, at most 0.40 of the float32 error from
+    0), beyond ``TOL`` of the other's."""
     cfg, pcfg, params, model = ported(arch)
     batch = lm_batch(cfg, 4, 32, seed=2)
     opt = ref_adamw.AdamWConfig(warmup_steps=1)
     mesh = single_device_mesh()
     step = ref_steps.make_train_step(cfg, mesh, opt, accum_steps=1)
-    _, _, want_m = ref_jit(step, params, ref_adamw.init(params),
-                           {k: jnp.asarray(v) for k, v in batch.items()})
+    ref_p, ref_s, want_m = ref_jit(step, params, ref_adamw.init(params),
+                                   {k: jnp.asarray(v)
+                                    for k, v in batch.items()})
     seen, apply = [], adamw.apply
 
     def recorded(opt_cfg, params, state, grads):
-        seen.append({k: g.double().numpy()
+        # a copy: apply scales the gradient by the clip factor in place
+        seen.append({k: g.detach().double().clone().numpy()
                      for k, g in port_blocks.tree_leaves(grads)})
         return apply(opt_cfg, params, state, grads)
     monkeypatch.setattr(adamw, "apply", recorded)
@@ -661,23 +672,33 @@ def test_train_step_matches_reference_through_its_gradient(arch,
     want_g, _ = ref_jit(jax.grad(lambda p, b: ref_model.loss_fn(
         p, b, cfg, mesh), has_aux=True), params,
         {k: jnp.asarray(v) for k, v in batch.items()})
+    noise = {}
     for name, (d_ref, d_port, scale) in distances(
             named(want_g), grads, g64).items():
         assert d_ref <= max(TOL * scale, ORACLE_FACTOR * d_port), (
             name, d_ref, d_port, scale)
         assert d_port <= ORACLE_FACTOR * max(
             d_ref, np.finfo(np.float32).eps * scale), (name, d_port, d_ref)
+        noise[name] = (g64[name] != 0) & (
+            np.abs(g64[name]) <= max(d_ref, d_port))
+    assert sum(m.sum() for m in noise.values()) <= NOISE_SHARE * sum(
+        g.size for g in g64.values())
     new_p, new_s, _ = ref_jit(
         functools.partial(ref_adamw.apply, opt), params,
         ref_adamw.init(params),
         jax.tree.map(jnp.asarray, port_blocks.unflatten(
             {k: g.astype(np.float32) for k, g in grads.items()})))
-    for tree, ttree in ((new_p, tparams), (new_s["m"], tstate["m"]),
-                        (new_s["v"], tstate["v"])):
-        want = named(tree)
+    for tree, ref_tree, ttree in ((new_p, ref_p, tparams),
+                                  (new_s["m"], ref_s["m"], tstate["m"]),
+                                  (new_s["v"], ref_s["v"], tstate["v"])):
+        want, ref_want = named(tree), named(ref_tree)
         for name, t in port_blocks.tree_leaves(ttree):
-            np.testing.assert_allclose(_np(t), want[name], rtol=TOL,
+            got = _np(t)
+            np.testing.assert_allclose(got, want[name], rtol=TOL,
                                        atol=TOL, err_msg=name)
+            kept = ~noise[name]
+            np.testing.assert_allclose(got[kept], ref_want[name][kept],
+                                       rtol=TOL, atol=TOL, err_msg=name)
 
 
 def test_train_step_rejects_a_batch_accum_does_not_divide():
@@ -801,13 +822,12 @@ import sys, tempfile
 sys.modules["jax"] = None
 sys.modules["repro"] = None
 from repro_torch.launch import train
-for arch, cut in (("granite_3_2b", []), ("mamba2_370m", []),
-                  ("mixtral_8x7b", ["--layers", "1"])):
+for arch in ("granite_3_2b", "mamba2_370m", "mixtral_8x7b"):
     with tempfile.TemporaryDirectory() as d:
         assert train.main(["--arch", arch, "--smoke", "--device", "cpu",
                            "--steps", "3", "--batch", "4", "--seq", "32",
                            "--accum", "2", "--ckpt-every", "2",
-                           "--ckpt-dir", d] + cut) == 0
+                           "--ckpt-dir", d]) == 0
 import torch
 from repro_torch.configs.base import get_config
 from repro_torch.launch import steps
