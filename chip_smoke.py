@@ -267,6 +267,17 @@ DECODE_PAIRS = ((torch.float32, torch.float32),
 #: kernel-vs-plain tolerance (rtol = atol) by the dtype of q and out,
 #: tests/test_kernels.py's
 DECODE_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+#: the mesh phase: ``make_serve_step`` on ``single_device_mesh`` with the
+#: serve phase's granite weights, 4 rows, a 32,768-slot bf16 cache filled
+#: from the seed below ``start``, 16 steps from it
+MESH = dict(batch=4, seq=32768, start=8184, steps=16)
+#: the split-KV check: (name, B, S, H, KVH, D) of granite's and qwen1.5's
+#: decode layers, each row's valid prefix (inside block 0, on a block
+#: boundary, at the last slot, inside a middle block), block counts
+SPLIT_KV = (("granite", 4, 32768, 32, 8, 64), ("qwen1_5", 4, 32768, 64, 8,
+                                               128))
+SPLIT_KV_LENS = (100, 8192, 32768, 12000)
+SPLIT_KV_BLOCKS = (4, 8)
 #: the prefill paths at full width: (phase, arch, layers (0: the
 #: config's; cut where the float32 weights would not fit 80 GB), batch,
 #: prompt tokens); internvl2 adds its 256 vision positions, whisper's
@@ -930,9 +941,15 @@ def run_serve(rec, serve=SERVE, cross=CROSS, families=SERVE_FAMILIES,
     """The serve path at full width, then the cross-device check; then the
     other families at full width, each model freed before the next is
     drawn, and their cross-device checks."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models.model import Model
     out = {}
-    row, _ = serve_phase("serve", serve, rec, device)
+    model = Model(get_config(serve["arch"], smoke=serve["smoke"]), seed=0,
+                  device=device)
+    row, _ = serve_phase("serve", serve, rec, device, model=model)
     out["serve"] = {k: v for k, v in row.items() if k != "tokens"}
+    out["mesh"] = mesh_phase(model, device)
+    del model
     for label, arch, layers, requests, pool, max_new, max_seq in families:
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
@@ -947,8 +964,6 @@ def run_serve(rec, serve=SERVE, cross=CROSS, families=SERVE_FAMILIES,
         torch.backends.cudnn.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    from repro_torch.configs.base import get_config
-    from repro_torch.models.model import Model
     cfg = get_config(cross["arch"], smoke=cross["smoke"]).replace(
         compute_dtype="float32")
     cpu_model = Model(cfg, seed=0, device="cpu")
@@ -981,6 +996,160 @@ def run_serve(rec, serve=SERVE, cross=CROSS, families=SERVE_FAMILIES,
     out["serve_cross"] = {"points": points, "launches": {
         name: sum(r["launches"][name] for r in points) for name in counts()}}
     return out
+
+
+def mesh_phase(model, device="cuda", spec=MESH):
+    """``launch/steps.make_serve_step`` on ``single_device_mesh`` with the
+    serve phase's weights against ``decode_forward`` without a mesh, the
+    same caches (filled from the seed below ``start``) and tokens:
+    bit-identical logits and caches; the step's launches counted alone."""
+    from repro_torch.launch.mesh import single_device_mesh
+    from repro_torch.launch.steps import make_serve_step
+    from repro_torch.models import model as mdl
+    cfg, b = model.cfg, spec["batch"]
+    step = make_serve_step(cfg, single_device_mesh(device), False)
+    caches = [mdl.init_caches(cfg, b, spec["seq"], device=device)
+              for _ in range(2)]
+    gen = torch.Generator(device=device).manual_seed(0)
+    for c in caches[0]["layers"]["sub0"].values():
+        c[:, :, :spec["start"]] = torch.randn(
+            c[:, :, :spec["start"]].shape, generator=gen, device=device)
+    for name, c in caches[1]["layers"]["sub0"].items():
+        c.copy_(caches[0]["layers"]["sub0"][name])
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (spec["steps"], b, 1))).to(device)
+    got, want = [], []
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    for i in range(spec["steps"]):
+        got.append(step(model.params, caches[0], toks[i],
+                        spec["start"] + i)[0])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = counts()
+    for i in range(spec["steps"]):
+        want.append(mdl.decode_forward(model.params, caches[1], toks[i],
+                                       spec["start"] + i, cfg,
+                                       device=device)[0])
+    same = all(torch.equal(a, w) for a, w in zip(got, want)) and all(
+        torch.equal(caches[0]["layers"]["sub0"][n],
+                    caches[1]["layers"]["sub0"][n]) for n in ("k", "v"))
+    finite = all(bool(torch.isfinite(a).all()) for a in got)
+    per_step = path_launches(cfg, decode=True)["flash_decode"]
+    row = {"arch": cfg.name, "batch": b, "seq": spec["seq"],
+           "start": spec["start"], "steps": spec["steps"],
+           "plan": "inference" if not step.cfg.fsdp_weights else "default",
+           "ms_per_step": wall / spec["steps"] * 1e3,
+           "identical_to_decode_forward": same, "logits_finite": finite,
+           "launches": launches}
+    log(f"[paths] mesh: make_serve_step on single_device_mesh, "
+        f"{cfg.name} {b} x {spec['seq']} slots, {spec['steps']} steps from "
+        f"{spec['start']}: {row['ms_per_step']:.3f} ms/step, identical to "
+        f"decode_forward {same}, finite {finite}, launches {launches}")
+    want_launches = spec["steps"] * per_step
+    if not same or not finite:
+        fail(f"mesh: identical {same}, finite {finite}")
+    if launches["flash_decode_mma"] != want_launches \
+            or launches["flash_decode"] != want_launches:
+        fail(f"mesh: flash_decode launched {launches['flash_decode']} times "
+             f"({launches['flash_decode_mma']} mma), not {want_launches}")
+    del caches
+    torch.cuda.empty_cache()
+    return row
+
+
+def butterfly_merge(parts, merge):
+    """The partials of ``len(parts)`` ranks merged in
+    ``butterfly_allreduce``'s pairing: round j, rank i combines its own
+    with rank i ^ 2^j's.  Every rank's result, rank order."""
+    n = len(parts)
+    j = 1
+    while j < n:
+        parts = [merge(parts[i], parts[i ^ j]) for i in range(n)]
+        j *= 2
+    return parts
+
+
+def psum_merge(parts):
+    """The ``xla`` schedule's order: the max of m over the ranks, then
+    the rescaled l and acc summed in rank order."""
+    m = torch.stack([p[0] for p in parts]).amax(0)
+    l = sum(p[1] * torch.exp(p[0] - m) for p in parts)
+    acc = sum(p[2] * torch.exp(p[0] - m)[..., None] for p in parts)
+    return m, l, acc
+
+
+def run_split_kv(specs=SPLIT_KV, lens=SPLIT_KV_LENS, blocks=SPLIT_KV_BLOCKS,
+                 device="cuda"):
+    """The mesh path's split-KV attention at granite's and qwen1.5's decode
+    layer shapes, emulated on one card: ``flash_decode`` on each of 4 and
+    of 8 sequence blocks of the cache (each call held to the plain version,
+    the ``kv_len = 0`` blocks to out 0, m -1e30, l 0 without a NaN), the
+    partials merged by ``core/collectives._softmax_merge`` in the
+    butterfly's pairing and in the pmax / psum order, each merge held to
+    the plain version over the whole cache.  bf16 q on the bf16 cache
+    with a float32 out (the mesh path's: the tensor-core variant leaves
+    the last rounding to the merge) and with a bf16 out (the one-device
+    path's), and float32 q on it (the FMA variant); one block of each
+    timed."""
+    from repro_torch.core.collectives import _softmax_merge
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.kernels import ref
+    rows, rng = [], np.random.default_rng(3)
+    for name, b, s, h, kvh, d in specs:
+        kv_len = torch.tensor(lens, dtype=torch.int32, device=device)
+        q0, k, v = (torch.tensor(rng.standard_normal(shape).astype(
+            np.float32), device=device) for shape in
+            ((b, h, d), (b, s, kvh, d), (b, s, kvh, d)))
+        k, v = k.bfloat16(), v.bfloat16()
+        for q, out_dtype in ((q0.bfloat16(), torch.float32),
+                             (q0.bfloat16(), None),
+                             (q0.bfloat16().float(), None)):
+            tol = DECODE_TOL[q.dtype]
+            whole = ref.decode_reference(q, k, v, kv_len)
+            for n in blocks:
+                sl = s // n
+                parts, empty_ok = [], True
+                for i in range(n):
+                    kb = k[:, i * sl:(i + 1) * sl].contiguous()
+                    vb = v[:, i * sl:(i + 1) * sl].contiguous()
+                    lb = torch.clamp(kv_len - i * sl, 0, sl).to(torch.int32)
+                    row = check_decode(
+                        f"mesh split {name} {n} x {sl} block {i}", q, kb,
+                        vb, lb, fd, ref, timed=i == 0, out_dtype=out_dtype)
+                    rows.append(row)
+                    out, m, l = fd.flash_decode(q, kb, vb, lb, out_dtype)
+                    empty = lb == 0
+                    empty_ok &= bool(torch.isfinite(out).all()
+                                     and torch.isfinite(m).all()
+                                     and torch.isfinite(l).all()
+                                     and (out[empty] == 0).all()
+                                     and (m[empty] == -1e30).all()
+                                     and (l[empty] == 0).all())
+                    parts.append((m, l, out.float() * l[..., None]))
+                merged = {"butterfly": butterfly_merge(parts,
+                                                       _softmax_merge)[0],
+                          "psum": psum_merge(parts)}
+                for order, (m, l, acc) in merged.items():
+                    out = acc / torch.clamp(l, min=1e-30)[..., None]
+                    err = float((out - whole[0].float()).abs().max())
+                    ok = bool(torch.allclose(out, whole[0].float(),
+                                             rtol=tol, atol=tol)
+                              and torch.allclose(m, whole[1], rtol=tol,
+                                                 atol=tol)
+                              and torch.allclose(l, whole[2], rtol=tol,
+                                                 atol=tol)) and empty_ok
+                    log(f"[kernels] mesh split {name} {str(q.dtype)[6:]} q, "
+                        f"{str(out_dtype or q.dtype)[6:]} out, "
+                        f"{n} blocks of {sl}, {order} merge: out max |diff| "
+                        f"from the whole cache's plain version {err!r} "
+                        f"(tol {tol}), empty blocks clean {empty_ok}")
+                    if not ok:
+                        fail(f"mesh split {name} {q.dtype} {n} blocks "
+                             f"{order}: {err} (tol {tol}), empty blocks "
+                             f"clean {empty_ok}")
+    return rows
 
 
 def serve_cross(arch, spec, rec, device="cuda"):
@@ -2270,19 +2439,20 @@ def sdpa_ms(q, k, v, kv_len):
         qt, kt, vt, attn_mask=mask, enable_gqa=True), 200)
 
 
-def check_decode(name, q, k, v, kv_len, fd, ref, launches=0, timed=True):
+def check_decode(name, q, k, v, kv_len, fd, ref, launches=0, timed=True,
+                 out_dtype=None):
     """Kernel vs plain flash decode: out, m and l within the tolerance, a
     second call bit-identical, one device kernel a call (the library's
     count; the tracer's, where it gave a whole trace, must agree); then,
-    when ``timed``, times."""
+    when ``timed``, times.  ``out_dtype``: a float32 out of bf16 q."""
     tol = DECODE_TOL[q.dtype]
 
     def call():
-        return fd.flash_decode(q, k, v, kv_len)
+        return fd.flash_decode(q, k, v, kv_len, out_dtype)
     got = call()
     again = call()
     same = all(torch.equal(g, a) for g, a in zip(got, again))
-    want = ref.decode_reference(q, k, v, kv_len)
+    want = ref.decode_reference(q, k, v, kv_len, out_dtype)
     errs = [float((g.float() - w.float()).abs().max())
             for g, w in zip(got, want)]
     within = all(torch.allclose(g.float(), w.float(), rtol=tol, atol=tol)
@@ -2297,6 +2467,7 @@ def check_decode(name, q, k, v, kv_len, fd, ref, launches=0, timed=True):
            "shape": [*q.shape, k.shape[1], k.shape[2]],
            "q_dtype": str(q.dtype).split(".")[-1],
            "kv_dtype": str(k.dtype).split(".")[-1],
+           "out_dtype": str(got[0].dtype).split(".")[-1],
            "kv_len": kv_len.tolist(), "kv_keys": n_keys,
            "max_abs_err": errs[0], "m_max_abs_err": errs[1],
            "l_max_abs_err": errs[2], "tol": tol,
@@ -2308,8 +2479,8 @@ def check_decode(name, q, k, v, kv_len, fd, ref, launches=0, timed=True):
         row.update({
             "ms": cuda_ms(call, 200), "device_ms": dev_ms,
             "bound_share": bound_ms / dev_ms if dev_ms else None,
-            "plain_ms": cuda_ms(lambda: ref.decode_reference(q, k, v,
-                                                             kv_len), 10),
+            "plain_ms": cuda_ms(lambda: ref.decode_reference(
+                q, k, v, kv_len, out_dtype), 10),
             "bound_ms": bound_ms, "bound_by": bound_by,
             "bytes_bound_ms": bytes_ms,
             "library_ms": sdpa_ms(q, k, v, kv_len)})
@@ -2832,7 +3003,7 @@ def main() -> int:
     paths.update(run_train())
     paths.update(run_packet(rec))
     rows = run_kernels(rec, paths) + run_decode_kernels(decode_rec, paths) \
-        + run_prefill_kernels(prefill_rec, paths) \
+        + run_split_kv() + run_prefill_kernels(prefill_rec, paths) \
         + run_train_kernels(prefill_rec)
     line = kernels_line(rows, paths)
     log(f"[done] {time.perf_counter() - t_start:.1f} s")

@@ -13,9 +13,12 @@ Leaves are numbered in the reference's flatten order (dict keys sorted
 at every level); the tree goes to ``.tmp_step_*`` and is renamed into
 place once ``COMMITTED`` is written, and only committed steps count.
 With ``async_write`` the device-to-host copy is made at ``save`` and the
-disk write runs on one background thread.  Restore onto another mesh
-(the reference's ``shardings``) belongs to the elastic runtime, a later
-slice (ROADMAP queue 1 item 8).
+disk write runs on one background thread.  Leaves are whole logical
+arrays (a caller on a mesh gathers its blocks first,
+``parallel/sharding.gather``), which is what makes a restore onto any
+other mesh simple: ``restore(..., shardings=)`` loads each whole leaf and
+keeps the target mesh's block of it, so a checkpoint written on 4 ranks
+restores on 2 or 1.
 """
 from __future__ import annotations
 
@@ -129,12 +132,20 @@ class CheckpointManager:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
-    def restore(self, example_tree, *, step: int | None = None):
+    def restore(self, example_tree, *, step: int | None = None,
+                shardings=None):
         """Restore into the structure of ``example_tree`` (the latest
         committed step unless ``step``): ``(tree, step, meta)``, each leaf
         a tensor on its example leaf's device (the CPU for an array), in
         the dtype it was saved in.  Raises if the leaf count or a shape
-        differs from the example."""
+        differs from the example (whose leaves have the whole logical
+        shapes).
+
+        ``shardings``: a tree like ``example_tree`` of
+        ``parallel/sharding.NamedSharding`` on the TARGET mesh (elastic
+        restore: the mesh the checkpoint was written on does not
+        matter); each leaf is then this rank's block of the whole leaf,
+        on the mesh's device."""
         step = self.latest_step() if step is None else step
         if step is None:
             raise FileNotFoundError(f"no committed checkpoint in {self.dir}")
@@ -150,6 +161,12 @@ class CheckpointManager:
             if tuple(arr.shape) != tuple(ex.shape):
                 raise ValueError(f"leaf {i}: checkpoint {arr.shape} != "
                                  f"model {tuple(ex.shape)}")
-            dev = ex.device if isinstance(ex, torch.Tensor) else "cpu"
+            dev = ex.device if isinstance(ex, torch.Tensor) \
+                and shardings is None else "cpu"
             loaded.append(torch.from_numpy(arr).to(dev))
-        return _fill(example_tree, iter(loaded)), step, manifest["meta"]
+        tree = _fill(example_tree, iter(loaded))
+        if shardings is not None:
+            from repro_torch.parallel.sharding import shard
+            tree = tree_map(lambda t, s: shard(t, s.spec, s.mesh).to(
+                s.mesh.device), tree, shardings)
+        return tree, step, manifest["meta"]

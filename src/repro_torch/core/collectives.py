@@ -1,0 +1,328 @@
+"""Gleam collectives on a mesh of ranks (the adapted layer).
+
+The port of the reference package's ``core/collectives.py``.  The
+paper's two data-plane primitives map onto mesh collectives:
+
+- one-to-many *in-fabric multicast*  -> ``tree_broadcast`` (a binomial
+  tree of point-to-point rounds: the sender transmits O(log n) times
+  instead of n - 1, interior ranks forward);
+- many-to-one *feedback aggregation* -> ``tree_reduce`` /
+  ``butterfly_allreduce`` with any associative combine, Algorithm 2/3's
+  min-PSN aggregation generalised to any monoid.  The flagship use is
+  ``softmax_combine``: merging the split-KV decode partials (m, l, acc)
+  of a sequence-sharded cache up the aggregation tree.
+
+Baselines mirror the paper's design space: ``unicast_broadcast``
+("multiple unicasts", the root sends n - 1 times) and ``ring_broadcast``
+(overlay multicast, store and forward).
+
+Where the reference names an axis inside ``shard_map``, these take the
+``launch/mesh.Mesh`` and an axis name, and run on the process group of
+this rank's line along the axis.  Each round of the reference's
+``ppermute`` is one ``dist.batch_isend_irecv`` of the round's pairs
+(``ppermute``), waited on before the next round; a rank that receives
+nothing in a round keeps its value, as the reference's ``jnp.where``
+does.  They take a tensor or a tuple (list, dict) of tensors.  The tree
+and butterfly schedules need a power-of-two axis (``_log2``), and every
+function returns its input untouched on an axis of size 1, with no
+process group used.
+
+``psum``, ``pmax`` and ``all_gather`` are the library's own collectives,
+the counterparts of the reference's ``psum`` / ``pmax`` / ``all_gather``: the
+``xla`` schedule, and the communication GSPMD would place around the
+model's sharded products.  The other schedules never call a library
+collective.
+"""
+from __future__ import annotations
+
+import math
+from typing import Callable, Sequence
+
+import torch
+import torch.distributed as dist
+
+# The analytic alpha-beta JCT model lives in core/metrics.py with the
+# rest of the accounting; re-exported here as the reference does.
+from repro_torch.core.metrics import schedule_cost  # noqa: F401
+
+
+def _log2(n: int) -> int:
+    k = int(math.log2(n))
+    assert 2 ** k == n, f"axis size {n} must be a power of two"
+    return k
+
+
+def _flat(x):
+    """``(leaves, rebuild)`` of a tensor or a tuple / list / dict of them
+    (dict keys sorted)."""
+    if isinstance(x, torch.Tensor):
+        return [x], lambda leaves: leaves[0]
+    if isinstance(x, dict):
+        keys = sorted(x)
+        return [x[k] for k in keys], lambda leaves: dict(zip(keys, leaves))
+    kind = type(x)
+    return list(x), lambda leaves: kind(leaves)
+
+
+def _tree_map(fn, *trees):
+    leaves, rebuild = _flat(trees[0])
+    others = [_flat(t)[0] for t in trees[1:]]
+    return rebuild([fn(*parts) for parts in zip(leaves, *others)])
+
+
+# ---------------------------------------------------------------- rounds
+
+def _pack(leaves):
+    """The leaves as one flat buffer where they share a dtype (one message
+    a round instead of one a leaf), else as they are; and the inverse."""
+    if len(leaves) > 1 and len({t.dtype for t in leaves}) == 1:
+        shapes = [t.shape for t in leaves]
+        flat = torch.cat([t.reshape(-1) for t in leaves])
+
+        def unpack(bufs):
+            parts = bufs[0].split([math.prod(sh) for sh in shapes])
+            return [p.view(sh) for p, sh in zip(parts, shapes)]
+        return [flat], unpack
+    return [t.contiguous() for t in leaves], lambda bufs: bufs
+
+
+def ppermute(x, mesh, axis: str, perm):
+    """One round of point-to-point sends along ``axis``: for each pair
+    ``(src, dst)`` of axis coordinates, ``src`` sends ``x`` to ``dst``.
+    Returns what this rank received, or None when it received nothing
+    (the reference's ``ppermute`` gives zeros there, which its callers
+    never keep).  All of the round's sends and receives are one
+    ``batch_isend_irecv``; the leaves of ``x`` go as one message where
+    they share a dtype, else one each with its own tag."""
+    idx = mesh.axis_index(axis)
+    group = mesh.group(axis)
+    leaves, rebuild = _flat(x)
+    bufs, unpack = _pack(leaves)
+    ops, recv = [], None
+    for src, dst in perm:
+        if src == idx:
+            ops += [dist.P2POp(dist.isend, buf, mesh.peer(axis, dst), group,
+                               tag)
+                    for tag, buf in enumerate(bufs)]
+        if dst == idx:
+            recv = [torch.empty_like(buf) for buf in bufs]
+            ops += [dist.P2POp(dist.irecv, buf, mesh.peer(axis, src), group,
+                               tag)
+                    for tag, buf in enumerate(recv)]
+    if ops:
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+    return None if recv is None else rebuild(unpack(recv))
+
+
+# ---------------------------------------------------------------- schedules
+
+def tree_broadcast(x, mesh, axis: str, root: int = 0):
+    """Binomial-tree one-to-many multicast (Gleam in-fabric forwarding).
+
+    Round j: ranks [0, 2^j) forward to ranks [2^j, 2^{j+1}) (rank space
+    rotated so ``root`` is rank 0).  log2(n) rounds; each value crosses
+    each link once.
+    """
+    n = mesh.shape[axis]
+    if n == 1:
+        return x
+    rank = (mesh.axis_index(axis) - root) % n
+    for j in range(_log2(n)):
+        half = 2 ** j
+        perm = [((r + root) % n, (r + half + root) % n) for r in range(half)]
+        recv = ppermute(x, mesh, axis, perm)
+        if half <= rank < 2 * half:
+            x = recv
+    return x
+
+
+def unicast_broadcast(x, mesh, axis: str, root: int = 0):
+    """'Multiple unicasts' baseline: the root sends to every receiver in
+    turn (n - 1 serialised rounds; the sender's link is the bottleneck)."""
+    n = mesh.shape[axis]
+    if n == 1:
+        return x
+    idx = mesh.axis_index(axis)
+    for t in range(1, n):
+        dst = (root + t) % n
+        recv = ppermute(x, mesh, axis, [(root, dst)])
+        if idx == dst:
+            x = recv
+    return x
+
+
+def ring_broadcast(x, mesh, axis: str, root: int = 0, chunks: int = 1):
+    """Overlay-multicast baseline: store and forward around a ring.  In
+    round t every rank sends its value to the next, and rank t + 1 keeps
+    what it received.  ``chunks > 1`` splits every leaf along its first
+    dim (``tensor_split``, numpy's ``array_split``) and sends the chunks
+    one after another, as the reference does."""
+    n = mesh.shape[axis]
+    if n == 1:
+        return x
+    rank = (mesh.axis_index(axis) - root) % n
+    perm = [((r + root) % n, (r + 1 + root) % n) for r in range(n - 1)]
+
+    def fwd_rounds(val):
+        for t in range(n - 1):
+            recv = ppermute(val, mesh, axis, perm)
+            if rank == t + 1:
+                val = recv
+        return val
+
+    if chunks <= 1:
+        return fwd_rounds(x)
+    leaves, rebuild = _flat(x)
+    split = [torch.tensor_split(leaf, chunks) for leaf in leaves]
+    outs = [_flat(fwd_rounds(rebuild([s[c] for s in split])))[0]
+            for c in range(chunks)]
+    return rebuild([torch.cat([o[i] for o in outs])
+                    for i in range(len(leaves))])
+
+
+def tree_reduce(x, mesh, axis: str, combine: Callable, root: int = 0):
+    """Binomial-tree many-to-one aggregation (Algorithm 2/3 generalised).
+
+    Mirror of ``tree_broadcast``: round j, ranks [2^j, 2^{j+1}) send to
+    ranks [0, 2^j), which combine ``combine(own, received)``.  After
+    log2(n) rounds the root holds the whole reduction; other ranks hold
+    partials.
+    """
+    n = mesh.shape[axis]
+    if n == 1:
+        return x
+    rank = (mesh.axis_index(axis) - root) % n
+    for j in reversed(range(_log2(n))):
+        half = 2 ** j
+        perm = [((r + half + root) % n, (r + root) % n) for r in range(half)]
+        recv = ppermute(x, mesh, axis, perm)
+        if rank < half:
+            x = combine(x, recv)
+    return x
+
+
+def butterfly_allreduce(x, mesh, axis: str, combine: Callable):
+    """Recursive-doubling allreduce with any associative combine: log2(n)
+    full-exchange rounds (reduce and multicast fused)."""
+    n = mesh.shape[axis]
+    for j in range(_log2(n)) if n > 1 else []:
+        mask = 2 ** j
+        recv = ppermute(x, mesh, axis, [(i, i ^ mask) for i in range(n)])
+        x = combine(x, recv)
+    return x
+
+
+def tree_allreduce(x, mesh, axis: str, combine: Callable, root: int = 0):
+    """Gleam round trip: many-to-one aggregation, then one-to-many
+    multicast of the result."""
+    x = tree_reduce(x, mesh, axis, combine, root)
+    return tree_broadcast(x, mesh, axis, root)
+
+
+# ---------------------------------------------------------------- library
+
+def _reduce(x, mesh, axes, op):
+    out = None
+    for ax in axes:
+        if mesh.shape[ax] > 1:
+            if out is None:
+                out = x.clone()
+            dist.all_reduce(out, op=op, group=mesh.group(ax))
+    return x if out is None else out
+
+
+def psum(x, mesh, axes: Sequence[str]):
+    """The sum of ``x`` over the mesh axes ``axes`` (the reference's ``psum``): a
+    library all-reduce on each axis of more than one rank."""
+    return _reduce(x, mesh, axes, dist.ReduceOp.SUM)
+
+
+def pmax(x, mesh, axes: Sequence[str]):
+    """The elementwise max over ``axes`` (the reference's ``pmax``)."""
+    return _reduce(x, mesh, axes, dist.ReduceOp.MAX)
+
+
+def all_gather(x, mesh, axes: Sequence[str], dim: int):
+    """The blocks of ``x`` along ``dim`` from every rank of ``axes``,
+    concatenated in block order (the reference's tiled ``all_gather``).
+    The first axis is the major one, as in a ``PartitionSpec`` entry
+    that names several axes; axes of size 1 are skipped."""
+    for ax in reversed(tuple(axes)):
+        n = mesh.shape[ax]
+        if n == 1:
+            continue
+        x = x.contiguous()
+        parts = [torch.empty_like(x) for _ in range(n)]
+        dist.all_gather(parts, x, group=mesh.group(ax))
+        x = torch.cat(parts, dim=dim)
+    return x
+
+
+# ---------------------------------------------------------------- combines
+
+def _softmax_merge(a, b):
+    """Associative merge of split-KV softmax partials (m, l, acc)."""
+    m_a, l_a, acc_a = a
+    m_b, l_b, acc_b = b
+    m = torch.maximum(m_a, m_b)
+    sa = torch.exp(m_a - m)
+    sb = torch.exp(m_b - m)
+    l = l_a * sa + l_b * sb
+    acc = acc_a * sa[..., None] + acc_b * sb[..., None]
+    return m, l, acc
+
+
+def _add(a, b):
+    return _tree_map(torch.add, a, b)
+
+
+def softmax_combine(parts, mesh, axis_names: Sequence[str],
+                    schedule: str = "xla"):
+    """Merge (m, l, acc) decode-attention partials across the seq-shard
+    axes ``axis_names``.
+
+    schedule:
+      "xla"        — the library's all-reduce (max of m, then sums of the
+                     rescaled l and acc), the reference's pmax / psum;
+      "gleam_tree" — the explicit butterfly aggregation tree of
+                     point-to-point rounds (the paper's in-fabric
+                     feedback aggregation, adapted).
+    Any other schedule is taken as "xla", as the reference takes it.  Both
+    are exact up to floating-point rounding (the merge is associative).
+    """
+    m, l, acc = parts
+    if schedule == "gleam_tree":
+        for ax in axis_names:
+            m, l, acc = butterfly_allreduce((m, l, acc), mesh, ax,
+                                            _softmax_merge)
+        return m, l, acc
+    m_g = pmax(m, mesh, axis_names)
+    scale = torch.exp(m - m_g)
+    l_s, acc_s = l * scale, acc * scale[..., None]
+    # l and acc summed by one all-reduce (the reference's two psums)
+    both = psum(torch.cat([l_s.reshape(-1), acc_s.reshape(-1)]), mesh,
+                axis_names)
+    return m_g, both[:l_s.numel()].view_as(l_s), \
+        both[l_s.numel():].view_as(acc_s)
+
+
+def allreduce_sum(x, mesh, axis_names: Sequence[str], schedule: str = "xla"):
+    """Gradient-sync allreduce with a selectable schedule (data-parallel
+    sync): ``xla`` / ``psum`` the library's all-reduce, ``gleam_tree`` the
+    butterfly, ``ring`` and ``unicast`` a tree reduce followed by the
+    ring or unicast broadcast (the overlay baselines)."""
+    if schedule in ("xla", "psum"):
+        return _tree_map(lambda a: psum(a, mesh, axis_names), x)
+    for ax in axis_names:
+        if schedule == "gleam_tree":
+            x = butterfly_allreduce(x, mesh, ax, _add)
+        elif schedule == "ring":
+            x = tree_reduce(x, mesh, ax, _add)
+            x = ring_broadcast(x, mesh, ax)
+        elif schedule == "unicast":
+            x = tree_reduce(x, mesh, ax, _add)
+            x = unicast_broadcast(x, mesh, ax)
+        else:
+            raise ValueError(schedule)
+    return x

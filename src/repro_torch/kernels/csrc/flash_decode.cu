@@ -262,12 +262,13 @@ __host__ __device__ inline int mma_ld(int D) { return ((D + 15) & ~15) + 8; }
 size_t mma_stage_bytes(int D) { return 2 * (size_t)kMmaTile * mma_ld(D) * sizeof(bf16); }
 
 // grid (splits, KVH * head groups, B), the splits of each (group, row) one
-// cluster.  DMAX: D rounded up to 64, 128 or 256.
-template <int DMAX>
+// cluster.  DMAX: D rounded up to 64, 128 or 256; TO: out's type, bf16 or
+// (for a caller that merges partials of its own) float.
+template <int DMAX, typename TO>
 __global__ void __launch_bounds__(kThreads)
 flash_decode_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  const bf16* __restrict__ v, const int* __restrict__ kv_len, int S, int H,
-                 int KVH, int D, int stages, float scale, bf16* __restrict__ out,
+                 int KVH, int D, int stages, float scale, TO* __restrict__ out,
                  float* __restrict__ m_out,
                  float* __restrict__ l_out) {
   const int rep = H / KVH, groups = gridDim.y / KVH;
@@ -464,7 +465,7 @@ flash_decode_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
       mine[nh + r] = L;
     }
   }
-  merge_splits<bf16>(mine, nh, D, bh0, out, m_out, l_out);
+  merge_splits<TO>(mine, nh, D, bh0, out, m_out, l_out);
 }
 
 // ------------------------------------------------------------ FMA variant
@@ -642,15 +643,22 @@ int launch_clusters(void (*kernel)(Params...), const Args& a, int groups, size_t
   return (int)(err != cudaSuccess ? err : cudaGetLastError());
 }
 
-template <int DMAX>
+template <int DMAX, typename TO>
 int launch_mma(const Args& a) {
   const int rep = a.H / a.KVH, groups = (rep + kMmaHeads - 1) / kMmaHeads;
   const int stages = ring_stages(mma_stage_bytes(a.D));
   const size_t smem = (size_t)kMmaHeads * mma_ld(a.D) * sizeof(bf16) + stages * mma_stage_bytes(a.D);
-  return launch_clusters(flash_decode_mma<DMAX>, a, a.KVH * groups, smem,
+  return launch_clusters(flash_decode_mma<DMAX, TO>, a, a.KVH * groups, smem,
                          static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
                          static_cast<const bf16*>(a.v), a.kv_len, a.S, a.H, a.KVH, a.D, stages,
-                         a.scale, static_cast<bf16*>(a.out), a.m_out, a.l_out);
+                         a.scale, static_cast<TO*>(a.out), a.m_out, a.l_out);
+}
+
+template <typename TO>
+int launch_mma_d(const Args& a) {
+  if (a.D <= 64) return launch_mma<64, TO>(a);
+  if (a.D <= 128) return launch_mma<128, TO>(a);
+  return launch_mma<256, TO>(a);
 }
 
 template <typename TQ, typename TKV>
@@ -670,26 +678,26 @@ int launch_simt(const Args& a) {
 
 extern "C" {
 
-// dtype codes: 0 = float32, 1 = bfloat16.  q and out share q's dtype,
-// k and v the cache's; bf16 q on a bf16 cache takes the tensor-core
+// dtype codes: 0 = float32, 1 = bfloat16.  k and v share the cache's
+// dtype; out has q's, except that bf16 q on a bf16 cache may write a
+// float32 out (out_dtype 0: its last rounding left to a caller that
+// merges partials).  bf16 q on a bf16 cache takes the tensor-core
 // variant, every other pair the FMA variant.  Shapes: q, out (B, H, D);
 // k, v (B, S, KVH, D); kv_len (B,) int32; m_out, l_out (B, H).  Every
 // tensor is contiguous; D is a multiple of 8, at most 256, with
 // rep * D <= 2048; 1 <= n_split <= 8 (one cluster of splits).
-int flash_decode(int q_dtype, int kv_dtype, const void* q, const void* k, const void* v,
-                 const int* kv_len, int B, int S, int H, int KVH, int D, int n_split,
-                 float scale, void* out, float* m_out, float* l_out, void* stream) {
+int flash_decode(int q_dtype, int kv_dtype, int out_dtype, const void* q, const void* k,
+                 const void* v, const int* kv_len, int B, int S, int H, int KVH, int D,
+                 int n_split, float scale, void* out, float* m_out, float* l_out, void* stream) {
   if (KVH < 1 || H % KVH != 0 || D % 8 != 0 || D > 256 || (H / KVH) * D > kThreads * kMaxAcc ||
       n_split < 1 || n_split > kMaxSplits)
     return (int)cudaErrorInvalidValue;
   if (B == 0 || H == 0) return (int)cudaGetLastError();
   const Args a{q, k, v, kv_len, B, S, H, KVH, D, n_split, scale, out, m_out, l_out,
                (cudaStream_t)stream};
-  if (q_dtype == 1 && kv_dtype == 1) {
-    if (D <= 64) return launch_mma<64>(a);
-    if (D <= 128) return launch_mma<128>(a);
-    return launch_mma<256>(a);
-  }
+  if (q_dtype == 1 && kv_dtype == 1)
+    return out_dtype == 0 ? launch_mma_d<float>(a) : launch_mma_d<bf16>(a);
+  if (out_dtype != q_dtype) return (int)cudaErrorInvalidValue;
   if (q_dtype == 0 && kv_dtype == 0) return launch_simt<float, float>(a);
   if (q_dtype == 0 && kv_dtype == 1) return launch_simt<float, bf16>(a);
   if (q_dtype == 1 && kv_dtype == 0) return launch_simt<bf16, float>(a);

@@ -132,15 +132,24 @@ def _check(q, k, v, kv_len):
                              "16-byte aligned")
 
 
-def flash_decode(q, k, v, kv_len):
+def flash_decode(q, k, v, kv_len, out_dtype=None):
     """q (B, H, D); k, v (B, S, KVH, D); kv_len (B,) int32.
 
-    Returns ``(out (B, H, D) in q's dtype, m (B, H) f32, l (B, H) f32)``:
+    Returns ``(out (B, H, D) in out_dtype, m (B, H) f32, l (B, H) f32)``:
     ``out`` normalised, ``(m, l)`` the softmax statistics for combining
-    partials across shards (``acc = out * l``).
+    partials across shards (``acc = out * l``).  ``out_dtype`` is q's
+    dtype by default; bf16 q on a bf16 cache may ask for a float32
+    ``out``, the sum before its last rounding, for a caller that merges
+    the partials of several calls and rounds once.
     """
+    out_dtype = q.dtype if out_dtype is None else out_dtype
+    if out_dtype != q.dtype and not (
+            q.dtype == k.dtype == torch.bfloat16
+            and out_dtype == torch.float32):
+        raise ValueError(f"flash_decode: a {out_dtype} out takes bf16 q on "
+                         f"a bf16 cache, got {q.dtype} q, {k.dtype} cache")
     if not on_card(q):
-        return ref.decode_reference(q, k, v, kv_len)
+        return ref.decode_reference(q, k, v, kv_len, out_dtype)
     from repro_torch.kernels import build
     dev = q.device
     q_code, kv_code, kind, splits, scale = _plan(
@@ -148,9 +157,10 @@ def flash_decode(q, k, v, kv_len):
         _sm_count(dev.index))
     _check(q, k, v, kv_len)
     b, h, d = q.shape
-    out = torch.empty_like(q)
+    out = torch.empty_like(q, dtype=out_dtype)
     m, l = torch.empty((2, b, h), dtype=torch.float32, device=dev).unbind(0)
-    args = (q_code, kv_code, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+    args = (q_code, kv_code, _DTYPE_CODE[out_dtype], q.data_ptr(),
+            k.data_ptr(), v.data_ptr(),
             kv_len.data_ptr(), b, k.shape[1], h, k.shape[2], d, splits,
             scale, out.data_ptr(), m.data_ptr(), l.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)

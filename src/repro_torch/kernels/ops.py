@@ -27,12 +27,13 @@ def flash_attention(q, k, v, *, causal=True, window=0):
                                    v.contiguous(), causal, window)
 
 
-def flash_decode(q, k, v, kv_len):
+def flash_decode(q, k, v, kv_len, out_dtype=None):
     """Split-KV decode.  q (B, H, D); k, v (B, S, KVH, D); kv_len (B,)
-    integers.  Returns ``(out, m, l)`` — see ``kernels/flash_decode.py``."""
+    integers.  Returns ``(out, m, l)`` — see ``kernels/flash_decode.py``
+    (``out_dtype``: a float32 ``out`` of bf16 q on a bf16 cache)."""
     if kv_len.dtype != torch.int32 or kv_len.device != q.device:
         kv_len = kv_len.to(q.device, torch.int32)
-    return fd.flash_decode(q, k, v, kv_len)
+    return fd.flash_decode(q, k, v, kv_len, out_dtype)
 
 
 def ssd_scan(x, dt, a, B_, C_, *, chunk=128, y_dtype=None):

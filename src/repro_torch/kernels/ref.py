@@ -158,12 +158,13 @@ def loss_factors_reference(flow_links, rates, active, cap, q, wsq, wnd, ecn,
 NEG_INF = -1e30
 
 
-def decode_reference(q, k, v, kv_len):
+def decode_reference(q, k, v, kv_len, out_dtype=None):
     """Single-query GQA attention over a KV cache, with its statistics.
 
     q (B, H, D); k, v (B, S, KVH, D); kv_len (B,) valid prefix lengths.
     Returns ``(out, m, l)`` as the flash-decode kernel does: ``out`` in
-    q's dtype, ``m`` the f32 max of the valid logits ``q.k / sqrt(D)``,
+    ``out_dtype`` (q's by default), ``m`` the f32 max of the valid logits
+    ``q.k / sqrt(D)``,
     ``l = sum exp(s - m)`` over the valid keys, ``out = acc / max(l,
     1e-30)``.  A row with ``kv_len = 0`` gives out 0, m -1e30, l 0.
     """
@@ -180,8 +181,9 @@ def decode_reference(q, k, v, kv_len):
     l = p.sum(-1)
     acc = torch.einsum("bkrs,bskd->bkrd", p, v.float())
     out = acc / torch.clamp(l, min=1e-30)[..., None]
-    return (out.reshape(b, h, d).to(q.dtype), m.reshape(b, h),
-            l.reshape(b, h))
+    return (out.reshape(b, h, d).to(q.dtype if out_dtype is None
+                                     else out_dtype),
+            m.reshape(b, h), l.reshape(b, h))
 
 
 #: query rows the plain attention takes at a time

@@ -20,8 +20,21 @@ The port of the reference package's ``launch/steps.py`` on one device.
   is what serving needs to start decoding (a (B, S, V) logits buffer
   would be pointless).
 
-The serve step, the sharded input specs and the dry-run lowering belong
-to later slices (ROADMAP queue 1 item 8).
+- ``make_serve_step(cfg, mesh, batch_shardable)`` returns
+  ``serve_step(params, caches, tokens, step)``: one ``decode_forward``
+  on ``mesh`` (``launch/mesh.Mesh``), every tensor this rank's block.
+  ``serve_plan`` is the reference's decode plan choice: pure tensor
+  parallelism (``INFERENCE_RULES``) when the bf16 parameters over the
+  model axis fit the memory budget, else ``DEFAULT_RULES`` (FSDP
+  gathers a step); the step carries it (``serve_step.plan``) so that
+  callers shard the parameters as it reads them.
+- ``input_specs(cfg, shape_name, mesh)`` gives the shape and dtype of
+  this rank's block of every input of a cell's step, without
+  allocating anything.
+
+The dry-run lowering (``lowering_spec``, ``lower_cell``) lowers through
+XLA in the reference and waits for the port's dry-run slice (ROADMAP
+queue 1 item 8).
 """
 from __future__ import annotations
 
@@ -31,9 +44,13 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
+from repro_torch.launch.mesh import abstract_mesh
 from repro_torch.models import model as mdl
-from repro_torch.models.blocks import tree_leaves, tree_map
+from repro_torch.models.blocks import (count_params, param_specs,
+                                       tree_leaves, tree_map)
 from repro_torch.optim import adamw
+from repro_torch.parallel.sharding import (DEFAULT_RULES, INFERENCE_RULES,
+                                           ShardingPlan, block_shape)
 
 #: the reference's (arch x shape) cells, as data: sequence, batch and
 #: step kind of each
@@ -188,3 +205,122 @@ def make_train_step(cfg: ArchConfig, opt_cfg=None, accum_steps: int = 1, *,
         return params, opt_state, {**metrics, **opt_metrics}
 
     return train_step
+
+
+# ---------------------------------------------------------------- serve
+
+#: The share of one card's memory the bf16 parameters of one model-axis
+#: shard may take before the decode plan falls back to FSDP sharding: the
+#: reference allows 8e9 bytes of a 16 GB accelerator, a half.
+DECODE_WEIGHT_SHARE = 0.5
+#: The memory of the card the port is built for (an H100, 80 GB), which
+#: sizes the budget where the mesh is abstract or on the CPU.
+CARD_BYTES = 80e9
+
+
+def decode_budget(mesh) -> float:
+    """Bytes of bf16 parameters one model-axis shard may hold under the
+    pure tensor-parallel plan: ``DECODE_WEIGHT_SHARE`` of the memory
+    ``torch.cuda.get_device_properties`` reports for the mesh's card, of
+    ``CARD_BYTES`` off the card."""
+    dev = getattr(mesh, "device", None)
+    total = (torch.cuda.get_device_properties(dev).total_memory
+             if dev is not None and dev.type == "cuda" else CARD_BYTES)
+    return DECODE_WEIGHT_SHARE * total
+
+
+def serve_plan(cfg: ArchConfig, mesh):
+    """``(cfg, plan)`` of the decode step, the reference's choice: when
+    the bf16 parameters over the model-axis size fit ``decode_budget``,
+    the inference plan (weights replicated over the batch axes, no
+    per-step gathers) and ``fsdp_weights`` off; else the default plan
+    (FSDP over the batch axes, its weights gathered every step)."""
+    n_params = count_params(mdl.model_defs(cfg))
+    if n_params * 2 / mesh.shape["model"] <= decode_budget(mesh):
+        return (cfg.replace(fsdp_weights=False),
+                ShardingPlan(mesh, rules=INFERENCE_RULES))
+    return cfg, ShardingPlan(mesh, rules=DEFAULT_RULES)
+
+
+def make_serve_step(cfg: ArchConfig, mesh, batch_shardable: bool):
+    """``serve_step(params, caches, tokens, step) -> (logits, caches)``:
+    one decode step on ``mesh``'s rank (its device), through
+    ``models/model.decode_forward``.  The parameters are this rank's
+    blocks under ``serve_step.plan`` (``blocks.shard_params`` /
+    ``init_sharded_params``), bf16 as the reference's decode lowering
+    takes them; the caches from ``init_caches(mesh=, batch_shardable=)``.
+    On a mesh of more than one rank only dense and sliding-window models
+    decode (ROADMAP queue 1 item 8 for the others): raises for them."""
+    if not mdl._on_one_device(mesh) and not mdl.mesh_supported(cfg):
+        raise NotImplementedError(
+            f"{cfg.name}: the serve step on a mesh of more than one rank "
+            f"takes dense and sliding-window models; MoE, Mamba-2, hybrid, "
+            f"encoder-decoder and VLM models come later (ROADMAP queue 1 "
+            f"item 8)")
+    cfg, plan = serve_plan(cfg, mesh)
+
+    def serve_step(params, caches, tokens, step):
+        return mdl.decode_forward(params, caches, tokens, step, cfg,
+                                  mesh=mesh, batch_shardable=batch_shardable,
+                                  plan=plan, device=mesh.device)
+
+    serve_step.cfg, serve_step.plan = cfg, plan
+    return serve_step
+
+
+def batch_shardable(mesh, batch: int) -> bool:
+    """Whether ``batch`` rows split over the mesh's batch axes (of more
+    than one rank in all)."""
+    n = 1
+    for a in mdl.BATCH_AXES:
+        if a in mesh.axis_names:
+            n *= mesh.shape[a]
+    return batch % n == 0 and n > 1
+
+
+def _blocks(structs, specs, mesh):
+    return tree_map(lambda ts, sp: TensorSpec(
+        block_shape(ts.shape, sp, mesh), ts.dtype), structs, specs)
+
+
+def input_specs(cfg: ArchConfig, shape_name: str, mesh=None) -> tuple:
+    """The shape and dtype of this rank's block of every input of the
+    cell's step (``TensorSpec`` trees), the reference's ``input_specs``
+    with the reference's shardings applied, nothing allocated: ``(params,
+    opt_state, batch)`` for a train cell (float32 parameters and AdamW
+    moments), ``(params, batch)`` for prefill, ``(params, caches, tokens,
+    step)`` for decode (bf16 parameters under ``serve_plan``, bf16 caches
+    under ``models/model.cache_specs``).  ``mesh`` (an abstract one will
+    do) defaults to (1, 1)."""
+    mesh = mesh or abstract_mesh((1, 1), ("data", "model"))
+    info = SHAPE_TABLE[shape_name]
+    seq, batch, kind = info["seq"], info["batch"], info["kind"]
+    defs = mdl.model_defs(cfg)
+    bspec = mdl._bspec(mesh)
+
+    def params(dtype, plan):
+        return _blocks(tree_map(lambda d: TensorSpec(d.shape, dtype), defs),
+                       param_specs(defs, plan), mesh)
+
+    def batch_blocks(structs):
+        return {k: TensorSpec(block_shape(
+            v.shape, (bspec,) + (None,) * (len(v.shape) - 1), mesh), v.dtype)
+            for k, v in structs.items()}
+    if kind == "train":
+        p = params(torch.float32, ShardingPlan(mesh))
+        opt = {"m": p, "v": p, "step": TensorSpec((), torch.int32)}
+        return p, opt, batch_blocks(batch_structs(cfg, seq, batch,
+                                                  train=True))
+    if kind == "prefill":
+        return (params(torch.float32, ShardingPlan(mesh)),
+                batch_blocks(batch_structs(cfg, seq, batch, train=False)))
+    cfg, plan = serve_plan(cfg, mesh)
+    shardable = batch_shardable(mesh, batch)
+    caches = mdl._map_structs(
+        lambda sd, sp: TensorSpec(block_shape(sd[0], sp, mesh), sd[1]),
+        mdl.cache_structs(cfg, batch, seq),
+        mdl.cache_specs(cfg, batch, seq, mesh, shardable))
+    tokens = TensorSpec(block_shape(
+        (batch, 1), (bspec if shardable else None, None), mesh), torch.int32)
+    return (params(torch.bfloat16, plan), caches, tokens,
+            TensorSpec((), torch.int32))

@@ -34,12 +34,35 @@ min(p + 1, window))``, so the kernel attends that prefix (the
 reference's sharded-branch mask; its single-shard mask is a fault,
 ROADMAP queue 3).  A request's position in the encoder-decoder's
 sinusoidal encoding is its own row's (the reference broadcasts one
-position to the batch: queue 3).  The multi-device
-split-KV branches (``softmax_combine``) are not ported: the port serves on
-one card.
+position to the batch: queue 3).
+
+On a mesh of ranks (``launch/mesh.Mesh``, through
+``launch/steps.make_serve_step``) ``decode_forward`` runs the decode step
+of a dense or sliding-window model SPMD, each rank on its own blocks of
+the parameters (as a ``parallel/sharding.ShardingPlan`` places them) and
+of the caches (``cache_specs``: the batch over the batch axes when it
+shards, the cache's sequence over ``model`` and, when the batch does not
+shard, over the batch axes too).  The KV cache is split along its
+sequence: each rank runs the flash-decode kernel on its own block, and
+``core/collectives.softmax_combine`` merges the partial statistics (m,
+l, acc) over the sequence axes with ``cfg.collective_schedule`` (the
+Gleam aggregation tree for ``gleam_tree``).  Where the reference leaves
+the rest to GSPMD, the port places the communication itself, with the
+library's collectives: dims of a weight sharded over the batch axes
+(FSDP) are all-gathered before use; outputs of a product whose weight is
+sharded over ``model`` stay sharded until a whole tensor is needed (the
+new token's k and v before the cache write, q before the attention
+core, the logits at the end, all-gathered over ``model``); products that
+contract a sharded dim (``wo`` over heads, the MLP's down projection)
+all-reduce their partial sums over ``model``; the embedding is a masked
+lookup in the rank's rows of the table, summed over the axes that split
+them.  On ``mesh=None`` or a (1, 1) mesh it is the one-device path, bit
+for bit.  MoE, Mamba-2, hybrid, encoder-decoder and VLM decoding on a
+mesh of more than one rank raise (ROADMAP queue 1 item 8).
 """
 from __future__ import annotations
 
+import math
 from typing import Any
 
 import numpy as np
@@ -52,11 +75,16 @@ from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
+from repro_torch.core import collectives as coll
+from repro_torch.kernels import ops
 from repro_torch.models.blocks import (ParamDef, init_params, mlp_defs,
-                                       rms_norm, rope, sinusoidal_at,
-                                       sinusoidal_positions, stack_defs,
-                                       swiglu, tree_leaves, tree_map,
-                                       unflatten)
+                                       param_specs, rms_norm, rope, silu,
+                                       sinusoidal_at, sinusoidal_positions,
+                                       stack_defs, swiglu, tree_leaves,
+                                       tree_map, unflatten)
+from repro_torch.parallel import sharding as shd
+
+BATCH_AXES = ("pod", "data")
 
 # ================================================================ defs
 
@@ -180,7 +208,33 @@ def cache_len(cfg, seq_len):
     return min(seq_len, cfg.window) if cfg.window else seq_len
 
 
-def init_caches(cfg, batch, seq_len, *, dtype=torch.bfloat16, device="cuda"):
+def cache_structs(cfg, batch, seq_len, *, dtype=torch.bfloat16):
+    """``(shape, dtype)`` of every leaf of ``init_caches``' tree, nothing
+    allocated (the reference's ``init_caches(abstract=True)``)."""
+    sub = {}
+    for i, (mixer, _) in enumerate(cfg.pattern):
+        if mixer == "attn":
+            shape = (cfg.n_blocks, batch, cache_len(cfg, seq_len),
+                     cfg.n_kv_heads, cfg.hd)
+            sub[f"sub{i}"] = {"k": (shape, dtype), "v": (shape, dtype)}
+        else:
+            d_in, h, p, n, k = ssm_mod.ssm_dims(cfg)
+            sub[f"sub{i}"] = {
+                "conv": ((cfg.n_blocks, batch, k - 1, d_in + 2 * n), dtype),
+                "state": ((cfg.n_blocks, batch, h, n, p), torch.float32)}
+    caches = {"layers": sub}
+    if cfg.enc_layers > 0:
+        enc_len = max(seq_len // max(cfg.audio_stride, 1), 8)
+        caches["memory"] = ((batch, enc_len, cfg.d_model), dtype)
+    return caches
+
+
+def _is_struct(x):
+    return isinstance(x, tuple) and len(x) == 2 and isinstance(x[0], tuple)
+
+
+def init_caches(cfg, batch, seq_len, *, mesh=None, batch_shardable=True,
+                dtype=torch.bfloat16, device="cuda"):
     """Per-layer decode caches stacked over n_blocks, zero-filled, the
     reference's tree: ``{"layers": {"sub<i>": ...}}`` with ``k``, ``v``
     (n_blocks, B, cache_len, KVH, hd) for an attention sublayer and
@@ -188,28 +242,24 @@ def init_caches(cfg, batch, seq_len, *, dtype=torch.bfloat16, device="cuda"):
     N, P) float32 for a Mamba-2 one; plus ``memory`` (B, max(seq_len //
     audio_stride, 8), d_model) for an encoder-decoder (the encoder's
     output, zero until a caller fills it).  Every leaf but the state is
-    in ``dtype``, bf16 by default as in the reference."""
+    in ``dtype``, bf16 by default as in the reference.  On a ``mesh``
+    each leaf is this rank's block of it (``cache_specs``)."""
     dev = resolve_device(device)
+    structs = cache_structs(cfg, batch, seq_len, dtype=dtype)
+    if _on_one_device(mesh):
+        return _map_structs(lambda sd: torch.zeros(
+            sd[0], dtype=sd[1], device=dev), structs)
+    specs = cache_specs(cfg, batch, seq_len, mesh, batch_shardable)
+    return _map_structs(lambda sd, sp: torch.zeros(
+        shd.block_shape(sd[0], sp, mesh), dtype=sd[1], device=dev),
+        structs, specs)
 
-    def zeros(shape, leaf_dtype=dtype):
-        return torch.zeros(shape, dtype=leaf_dtype, device=dev)
-    sub = {}
-    for i, (mixer, _) in enumerate(cfg.pattern):
-        if mixer == "attn":
-            shape = (cfg.n_blocks, batch, cache_len(cfg, seq_len),
-                     cfg.n_kv_heads, cfg.hd)
-            sub[f"sub{i}"] = {"k": zeros(shape), "v": zeros(shape)}
-        else:
-            d_in, h, p, n, k = ssm_mod.ssm_dims(cfg)
-            sub[f"sub{i}"] = {
-                "conv": zeros((cfg.n_blocks, batch, k - 1, d_in + 2 * n)),
-                "state": zeros((cfg.n_blocks, batch, h, n, p),
-                               torch.float32)}
-    caches = {"layers": sub}
-    if cfg.enc_layers > 0:
-        enc_len = max(seq_len // max(cfg.audio_stride, 1), 8)
-        caches["memory"] = zeros((batch, enc_len, cfg.d_model))
-    return caches
+
+def _map_structs(fn, tree, other=None):
+    if _is_struct(tree):
+        return fn(tree) if other is None else fn(tree, other)
+    return {k: _map_structs(fn, v, None if other is None else other[k])
+            for k, v in tree.items()}
 
 
 def cache_insert(kc, vc, k_new, v_new, pos):
@@ -328,8 +378,23 @@ def _kv_slots(cfg, caches):
     return None, False
 
 
+def _steps(step, b, n_slots, rolling):
+    """The host-side positions as an array, checked: a scalar or (b,),
+    inside a linear cache of ``n_slots``."""
+    steps = np.asarray(step.cpu() if torch.is_tensor(step) else step)
+    if steps.ndim not in (0, 1) or (steps.ndim == 1 and steps.shape != (b,)):
+        raise ValueError(f"step must be a scalar or ({b},), got "
+                         f"{steps.shape}")
+    if (steps < 0).any() or (n_slots is not None and not rolling
+                             and (steps >= n_slots).any()):
+        raise IndexError(f"decode positions {steps} outside the "
+                         f"{n_slots}-slot cache")
+    return steps
+
+
 @torch.no_grad()
-def decode_forward(params, caches, tokens, step, cfg, *, device="cuda"):
+def decode_forward(params, caches, tokens, step, cfg, *, mesh=None,
+                   batch_shardable=True, plan=None, device="cuda"):
     """Single-token serve forward: (B, 1) tokens -> (B, 1, V) f32 logits.
 
     ``params`` is ``Model.params``; ``caches`` comes from
@@ -340,20 +405,25 @@ def decode_forward(params, caches, tokens, step, cfg, *, device="cuda"):
     rolling buffer (sliding window) and a model without attention take
     any position.  Everything runs on ``device``, where the parameters
     and caches must be.
+
+    On a ``mesh`` of more than one rank every tensor is this rank's
+    block: the parameters as ``plan`` (``ShardingPlan(mesh)`` by
+    default) places them (``blocks.shard_params``), the caches
+    (``init_caches(mesh=, batch_shardable=)``), the tokens' rows and the
+    returned logits' rows (the batch's block over the batch axes when
+    ``batch_shardable``, else every row), the logits whole over the
+    vocabulary.  ``step`` is the same on every rank; per-row positions
+    need a cache whose sequence is not split.
     """
     dev = resolve_device(device)
     _check_on(dev, {"params": params, "caches": caches}, "decode_forward")
+    if not _on_one_device(mesh):
+        return _decode_forward_mesh(params, caches, tokens, step, cfg, mesh,
+                                    batch_shardable, plan, dev)
     cd = getattr(torch, cfg.compute_dtype)
-    steps = np.asarray(step.cpu() if torch.is_tensor(step) else step)
     b = tokens.shape[0]
-    if steps.ndim not in (0, 1) or (steps.ndim == 1 and steps.shape != (b,)):
-        raise ValueError(f"step must be a scalar or ({b},), got "
-                         f"{steps.shape}")
     n_slots, rolling = _kv_slots(cfg, caches)
-    if (steps < 0).any() or (n_slots is not None and not rolling
-                             and (steps >= n_slots).any()):
-        raise IndexError(f"decode positions {steps} outside the "
-                         f"{n_slots}-slot cache")
+    steps = _steps(step, b, n_slots, rolling)
     if steps.ndim == 1:
         positions = torch.tensor(steps, dtype=torch.long, device=dev)[:, None]
         slot = positions[:, 0] % n_slots if n_slots else None
@@ -372,6 +442,317 @@ def decode_forward(params, caches, tokens, step, cfg, *, device="cuda"):
                           kv_len, cfg, memory)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = torch.einsum("bsd,dv->bsv", x.to(cd), params["lm_head"].to(cd))
+    return logits.float(), caches
+
+
+# ================================================================ mesh
+
+def _on_one_device(mesh) -> bool:
+    return mesh is None or all(n == 1 for n in mesh.dims)
+
+
+def _bspec(mesh):
+    """The batch axes of more than one rank, as a spec entry."""
+    bs = tuple(a for a in BATCH_AXES if a in mesh.axis_names
+               and mesh.shape[a] > 1)
+    return bs if len(bs) > 1 else (bs[0] if bs else None)
+
+
+def _seq_axes(mesh, batch_shardable):
+    """Mesh axes available to shard the KV-cache sequence dim."""
+    axes = []
+    for a in mesh.axis_names:
+        if mesh.shape[a] <= 1:
+            continue
+        if a == "model":
+            axes.append(a)
+        elif a in BATCH_AXES and not batch_shardable:
+            axes.append(a)
+    return tuple(axes)
+
+
+def kv_cache_spec(mesh, batch_shardable: bool) -> tuple:
+    """The spec of a (B, S, KVH, hd) KV cache: the batch over the batch
+    axes when it shards, the sequence over ``_seq_axes``."""
+    bspec = _bspec(mesh) if batch_shardable else None
+    seq = _seq_axes(mesh, batch_shardable)
+    seq = seq if len(seq) > 1 else (seq[0] if seq else None)
+    return (bspec, seq, None, None)
+
+
+def cache_specs(cfg, batch, seq_len, mesh, batch_shardable):
+    """The spec of every leaf of ``init_caches``' tree."""
+    kvspec = kv_cache_spec(mesh, batch_shardable)
+    bspec = _bspec(mesh) if batch_shardable else None
+
+    def model_ok(n):
+        return "model" if (mesh.shape["model"] > 1
+                           and n % mesh.shape["model"] == 0) else None
+    sub = {}
+    for i, (m, _) in enumerate(cfg.pattern):
+        if m == "attn":
+            sp = (None, *kvspec)
+            sub[f"sub{i}"] = {"k": sp, "v": sp}
+        else:
+            _, h, _, _, _ = ssm_mod.ssm_dims(cfg)
+            sub[f"sub{i}"] = {"conv": (None, bspec, None, None),
+                              "state": (None, bspec, model_ok(h), None,
+                                        None)}
+    specs = {"layers": sub}
+    if cfg.enc_layers > 0:
+        specs["memory"] = (bspec, None, None)
+    return specs
+
+
+def mesh_supported(cfg) -> bool:
+    """Whether the port decodes ``cfg`` on a mesh of more than one rank:
+    dense and sliding-window models (attention and an MLP in every
+    sublayer, no encoder, no vision prefix)."""
+    return (all(p == ("attn", "mlp") for p in cfg.pattern)
+            and cfg.enc_layers == 0 and cfg.vision_prefix == 0)
+
+
+def _fsdp_whole(t, spec, mesh):
+    """``t`` whole along every dim the spec splits over the batch axes
+    (the FSDP per-step gathers); model-axis dims stay split."""
+    for d in range(t.dim()):
+        axes = shd.entry_axes(spec, d)
+        if axes and all(a in BATCH_AXES for a in axes):
+            t = coll.all_gather(t, mesh, axes, d)
+        elif any(a in BATCH_AXES for a in axes):
+            raise ValueError(f"dim {d} of spec {spec} mixes batch and model "
+                             f"axes")
+    return t
+
+
+def _embed_mesh(table, tokens, cfg, cd, mesh, spec, batch_axes):
+    """The embedding rows of this rank's tokens: a masked lookup in the
+    rank's block of the table's rows, summed over the axes that split
+    them (exact: one row is nonzero).  With ``cfg.embed_impl == "psum"``
+    the rows are split over ``model`` too, the reference's mask + psum;
+    tokens split over an axis that also splits the table are gathered
+    over it first and the rank's rows taken back after the sum."""
+    axes = shd.entry_axes(spec, 0)
+    m = mesh.shape.get("model", 1)
+    if (cfg.embed_impl == "psum" and m > 1 and "model" not in axes
+            and table.shape[0] % m == 0):
+        index, _ = shd.block(mesh, ("model",))
+        rows = table.shape[0] // m
+        table = table.narrow(0, index * rows, rows)
+        axes = axes + ("model",)
+    axes = tuple(a for a in axes if mesh.shape[a] > 1)
+    if not axes:
+        return table[tokens].to(cd)
+    index, _ = shd.block(mesh, axes)
+    v_local = table.shape[0]
+    shared = tuple(a for a in batch_axes if a in axes)
+    toks = coll.all_gather(tokens, mesh, shared, 0)
+    loc = toks - index * v_local
+    ok = (loc >= 0) & (loc < v_local)
+    rows = table.to(cd)[torch.clamp(loc, 0, v_local - 1)]
+    rows = coll.psum(torch.where(ok[..., None], rows, 0), mesh, axes)
+    if shared:
+        own, _ = shd.block(mesh, shared)
+        rows = rows.narrow(0, own * tokens.shape[0], tokens.shape[0])
+    return rows
+
+
+def split_kv_attention(q, kc, vc, step, cfg, mesh, seq_axes):
+    """Split-KV decode attention on this rank's sequence block of the
+    cache: the flash-decode kernel over the block's valid prefix
+    (``clip(min(step + 1, window or inf) - base, 0, s_local)``, ``base``
+    the block's first global slot), its ``(out, m, l)`` turned into
+    ``acc = out * l`` and merged over ``seq_axes`` by ``softmax_combine``
+    with ``cfg.collective_schedule``; ``out = acc / max(l, 1e-30)``.  q
+    (B, 1, H, hd) -> (B, 1, H, hd) in q's dtype, the same on every rank
+    of the sequence axes.  A block with no valid key gives m -1e30 and l
+    0, which the merge scales to nothing.
+
+    The kernel returns ``out`` in float32 (at least; the tensor-core
+    variant writes it so for bf16 q on a bf16 cache): a bf16 ``out`` would
+    be rounded once per block and again after the merge, where the
+    one-device path rounds once.  The merge is the profiler range
+    ``softmax_combine``."""
+    index, _ = shd.block(mesh, seq_axes)
+    s_local = kc.shape[1]
+    limit = min(step + 1, cfg.window) if cfg.window else step + 1
+    n_valid = max(0, min(limit - index * s_local, s_local))
+    kv_len = torch.full((q.shape[0],), n_valid, dtype=torch.int32,
+                        device=q.device)
+    dtype, wide = q.dtype, torch.promote_types(q.dtype, torch.float32)
+    if q.dtype != kc.dtype:
+        q = q.to(wide)              # the FMA variant: its out is q's dtype
+    out, m, l = ops.flash_decode(q[:, 0].contiguous(), kc.contiguous(),
+                                 vc.contiguous(), kv_len, wide)
+    acc = out * l[..., None]
+    with torch.profiler.record_function("softmax_combine"):
+        m, l, acc = coll.softmax_combine((m, l, acc), mesh, seq_axes,
+                                         schedule=cfg.collective_schedule)
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    return out.to(dtype)[:, None]
+
+
+def _attn_mesh(p, sp, x, cache, positions, insert, core, cfg, mesh):
+    """The attention sublayer of a decode step on this rank's blocks
+    (``sp`` their specs)."""
+    cd = getattr(torch, cfg.compute_dtype)
+
+    def w(name):
+        return _fsdp_whole(p[name].to(cd), sp[name], mesh)
+    h = rms_norm(x, p["norm"], cfg.norm_eps).to(cd)
+    q = torch.einsum("bsd,dhk->bshk", h, w("wq"))
+    k = torch.einsum("bsd,dhk->bshk", h, w("wk"))
+    v = torch.einsum("bsd,dhk->bshk", h, w("wv"))
+    if cfg.qkv_bias:
+        q = q + p["bq"].to(cd)
+        k = k + p["bk"].to(cd)
+        v = v + p["bv"].to(cd)
+    if cfg.use_rope:
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
+    q, k, v = _gather_heads((q, k, v), (shd.entry_axes(sp["wq"], 1),)
+                            + (shd.entry_axes(sp["wk"], 1),) * 2, mesh)
+    kc, vc = insert(cache["k"], cache["v"], k, v)
+    o = core(q, kc, vc)
+    head_axes = shd.entry_axes(sp["wo"], 0)
+    if head_axes:
+        index, count = shd.block(mesh, head_axes)
+        n = o.shape[2] // count
+        o = o.narrow(2, index * n, n)
+    if not _split(mesh, head_axes):
+        return x + torch.einsum("bshk,hkd->bsd", o.to(cd), w("wo"))
+    part = _wide_mm(o.to(cd).flatten(2), w("wo").flatten(0, 1))
+    return x + coll.psum(part, mesh, head_axes).to(cd)
+
+
+def _gather_heads(parts, axes, mesh):
+    """Each (B, 1, n_i, hd) block of ``parts`` whole along its heads, the
+    blocks all-gathered over their axes: one collective for all of them
+    where they share the axes (q, k and v under every plan that splits
+    both), one each otherwise."""
+    if len(set(axes)) > 1 or not _split(mesh, axes[0]):
+        return tuple(coll.all_gather(t, mesh, ax, 2)
+                     for t, ax in zip(parts, axes))
+    sizes = [t.shape[2] for t in parts]
+    whole = coll.all_gather(torch.cat(parts, 2), mesh, axes[0], 2)
+    b, s, _, d = whole.shape
+    blocks = whole.view(b, s, -1, sum(sizes), d).split(sizes, 3)
+    return tuple(t.reshape(b, s, -1, d) for t in blocks)
+
+
+def _split(mesh, axes) -> bool:
+    return any(mesh.shape[a] > 1 for a in axes)
+
+
+def _wide_mm(a, b):
+    """``a (..., K) @ b (K, N)`` with the products summed, and the result
+    kept, in float32 (at least): the partial sums of a product whose
+    contracted dim is split over ranks.  The all-reduce adds them in
+    float32 and the sum is rounded to the compute dtype once, where the
+    one-device product rounds once; a bf16 partial would round once more
+    on every rank, and those roundings move bf16 logits by several ulps
+    (on the CPU the mesh's bf16 logits are the one device's bits without
+    them).  On the card cuBLAS writes the float32 result itself
+    (``torch.mm(out_dtype=)``)."""
+    wide = torch.promote_types(a.dtype, torch.float32)
+    a2 = a.reshape(-1, a.shape[-1])
+    if a2.is_cuda and a2.dtype != wide:
+        out = torch.mm(a2, b, out_dtype=wide)
+    else:
+        out = a2.to(wide) @ b.to(wide)
+    return out.reshape(*a.shape[:-1], b.shape[-1])
+
+
+def _mlp_mesh(p, sp, x, cfg, mesh):
+    """The MLP sublayer on this rank's blocks: the down projection's
+    partial sums all-reduced over the axes that split ``d_ff``."""
+    cd = getattr(torch, cfg.compute_dtype)
+    h = rms_norm(x, p["norm"], cfg.norm_eps).to(cd)
+    wi, wg, wo = (_fsdp_whole(p[n].to(cd), sp[n], mesh)
+                  for n in ("wi", "wg", "wo"))
+    axes = shd.entry_axes(sp["wo"], 0)
+    if not _split(mesh, axes):
+        return x + swiglu(h, wi, wg, wo, cd)
+    part = _wide_mm(silu(h @ wg) * (h @ wi), wo)
+    return x + coll.psum(part, mesh, axes).to(cd)
+
+
+def _decode_forward_mesh(params, caches, tokens, step, cfg, mesh,
+                         batch_shardable, plan, dev):
+    if not mesh_supported(cfg):
+        raise NotImplementedError(
+            f"{cfg.name}: decoding on a mesh of more than one rank takes "
+            f"dense and sliding-window models; MoE, Mamba-2, hybrid, "
+            f"encoder-decoder and VLM models come later (ROADMAP queue 1 "
+            f"item 8)")
+    if mesh.device != dev:
+        raise ValueError(f"decode_forward on {dev}, the mesh's rank is on "
+                         f"{mesh.device}")
+    plan = plan if plan is not None else shd.ShardingPlan(mesh)
+    specs = param_specs(model_defs(cfg), plan)
+    cd = getattr(torch, cfg.compute_dtype)
+    b = tokens.shape[0]
+    seq_axes = _seq_axes(mesh, batch_shardable)
+    batch_axes = tuple(a for a in BATCH_AXES if batch_shardable
+                       and a in mesh.axis_names and mesh.shape[a] > 1)
+    n_local = caches["layers"]["sub0"]["k"].shape[2]
+    n_slots = n_local * math.prod(mesh.shape[a] for a in seq_axes)
+    if cfg.window and n_slots > cfg.window:
+        raise ValueError(f"a {n_slots}-slot cache is longer than the window "
+                         f"{cfg.window}; windowed caches are rolling buffers "
+                         f"of at most the window")
+    rolling = bool(cfg.window) and n_slots >= cfg.window
+    steps = _steps(step, b, n_slots, rolling)
+    if steps.ndim == 1:
+        if seq_axes:
+            raise ValueError("per-row decode positions need a KV cache "
+                             "whose sequence is not split over the mesh")
+        positions = torch.tensor(steps, dtype=torch.long,
+                                 device=dev)[:, None]
+        slot = positions[:, 0] % n_slots
+        kv_len = torch.clamp(positions[:, 0] + 1,
+                             max=n_slots).to(torch.int32)
+    else:
+        s = int(steps)
+        positions = torch.full((b, 1), s, dtype=torch.long, device=dev)
+        slot = s % n_slots
+        kv_len = torch.full((b,), min(s + 1, n_slots), dtype=torch.int32,
+                            device=dev)
+    if seq_axes:
+        index, _ = shd.block(mesh, seq_axes)
+        owner, local = divmod(slot, n_local)
+
+        def insert(kc, vc, k, v):
+            if owner == index:
+                return cache_insert(kc, vc, k, v, local)
+            return kc, vc
+
+        def core(q, kc, vc):
+            return split_kv_attention(q, kc, vc, s, cfg, mesh, seq_axes)
+    else:
+        def insert(kc, vc, k, v):
+            return cache_insert(kc, vc, k, v, slot)
+
+        def core(q, kc, vc):
+            return decode_attn_core(q, kc, vc, kv_len, cfg)
+    tokens = torch.as_tensor(tokens).to(dev)
+    x = _embed_mesh(params["embed"], tokens, cfg, cd, mesh, specs["embed"],
+                    batch_axes)
+    bspec = specs["blocks"]["sub0"]
+    layer_specs = {part: tree_map(lambda sp: sp[1:], bspec[part])
+                   for part in ("mixer", "ffn")}
+    layer = caches["layers"]["sub0"]
+    for i, bp in enumerate(block_layers(params["blocks"])):
+        sub = bp["sub0"]
+        cache = {name: t[i] for name, t in layer.items()}
+        x = _attn_mesh(sub["mixer"], layer_specs["mixer"], x, cache,
+                       positions, insert, core, cfg, mesh)
+        x = _mlp_mesh(sub["ffn"], layer_specs["ffn"], x, cfg, mesh)
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    head = _fsdp_whole(params["lm_head"].to(cd), specs["lm_head"], mesh)
+    logits = torch.einsum("bsd,dv->bsv", x.to(cd), head)
+    logits = coll.all_gather(logits, mesh,
+                             shd.entry_axes(specs["lm_head"], 1), 2)
     return logits.float(), caches
 
 

@@ -34,6 +34,9 @@ from repro.models import moe as ref_moe
 from repro_torch.configs import base as port_base
 from repro_torch.convert import params_from_reference
 from repro_torch.models import model as port_model
+from repro_torch.models.blocks import tree_leaves
+
+import _torch_mesh_cases as mesh_cases
 
 def to_np(x):
     return np.asarray(jnp.asarray(x).astype(jnp.float32)) \
@@ -48,14 +51,33 @@ def ref_params(arch):
                                   jax.random.PRNGKey(0))
 
 
-def ported(arch, compute_dtype="bfloat16"):
-    """Reference config, params (seed 0) and the port's config and Model
-    loaded with them, at the smoke config in ``compute_dtype``."""
+def drawn_params(arch, seed):
+    """Every leaf of ``arch``'s smoke parameters drawn from
+    ``default_rng(seed)`` (``_torch_mesh_cases.drawn_params``: a leaf the
+    init sets to a constant c — the q/k/v biases, the norm scales,
+    Mamba-2's ``dt_bias``, ``A_log`` and ``D`` — becomes c + 0.1 N(0, 1),
+    every other leaf N(0, 1) times its init's scale), as a reference tree,
+    which both packages load.  (At c + 0.3 N one of jamba's smoke chunks
+    passes the decay sum at which the reference's ``ssd_chunked``
+    gradient turns NaN, ROADMAP queue 3.)"""
+    defs = port_model.model_defs(port_base.get_config(arch, smoke=True))
+    drawn = iter(mesh_cases.drawn_params(list(tree_leaves(defs)),
+                                         seed).values())
+    # the reference's tree (pytree order is the sorted order drawn in)
+    return jax.tree.map(lambda d: jnp.asarray(next(drawn)),
+                        ref_model.model_defs(ref_base.get_config(
+                            arch, smoke=True)), is_leaf=ref_blocks.is_def)
+
+
+def ported(arch, compute_dtype="bfloat16", params=None):
+    """Reference config, params (seed 0 unless ``params``, a reference
+    tree) and the port's config and Model loaded with them, at the smoke
+    config in ``compute_dtype``."""
     cfg = ref_base.get_config(arch, smoke=True).replace(
         compute_dtype=compute_dtype)
     pcfg = port_base.get_config(arch, smoke=True).replace(
         compute_dtype=compute_dtype)
-    params = ref_params(arch)
+    params = ref_params(arch) if params is None else params
     model = port_model.Model(pcfg, device="cpu")
     model.load_state_dict(params_from_reference(
         jax.tree.map(np.asarray, params)))

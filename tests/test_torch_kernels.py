@@ -610,7 +610,8 @@ def test_flash_decode_dispatch_matches_its_ctypes_signature(monkeypatch):
         out, m, l = ops.flash_decode(q, k, v,
                                      torch.ones(8, dtype=torch.int32))
         assert len(calls) == 1 and len(calls[0]) == n_args
-        assert calls[0][11] == fd.n_splits(8, 8, 512, 132) == 5
+        assert calls[0][12] == fd.n_splits(8, 8, 512, 132) == 5
+        assert calls[0][2] == calls[0][0]           # out in q's dtype
         assert made == [(8, 32, 64), (2, 8, 32)]  # out; m and l
         assert out.shape == q.shape and out.dtype == q_dt
         assert m.shape == l.shape == (8, 32) and m.dtype == torch.float32
@@ -618,6 +619,17 @@ def test_flash_decode_dispatch_matches_its_ctypes_signature(monkeypatch):
                                f"flash_decode_{want}": 1,
                                **{f"flash_decode_{o}": 0 for o in
                                   {"mma", "simt"} - {want}}}
+    # bf16 q on a bf16 cache may ask the tensor-core variant for a
+    # float32 out; no other pair may change out's dtype
+    q = torch.zeros((8, 32, 64), dtype=bf16)
+    k = torch.zeros((8, 512, 8, 64), dtype=bf16)
+    calls.clear()
+    out, _, _ = ops.flash_decode(q, k, k.clone(),
+                                 torch.ones(8, dtype=torch.int32), f32)
+    assert out.dtype == f32 and calls[0][:3] == (1, 1, 0)
+    with pytest.raises(ValueError, match="out"):
+        ops.flash_decode(q.float(), k, k.clone(),
+                         torch.ones(8, dtype=torch.int32), bf16)
 
 
 def test_flash_decode_plain_path_launches_nothing():
@@ -670,6 +682,47 @@ def test_flash_decode_edge_cases_match_reference_oracle(case):
                                rtol=2e-5, atol=2e-5)
     assert (got[0].numpy()[~full] == 0).all()
     assert (got[2].numpy()[full] > 0).all()
+
+
+def test_flash_decode_float32_out_is_the_unrounded_sum():
+    """A float32 out of bf16 q on a bf16 cache (the mesh path's, whose
+    merge rounds once) is the plain version's float32 sum: rounded to bf16
+    it is the default out bit for bit, and it is closer to float64 than
+    that out; m and l are the same."""
+    q, k, v, kv_len = decode_problem(GRANITE_CASE)
+    q, k, v = (torch.from_numpy(a).bfloat16() for a in (q, k, v))
+    kv_len = torch.from_numpy(kv_len)
+    wide = ops.flash_decode(q, k, v, kv_len, torch.float32)
+    narrow = ops.flash_decode(q, k, v, kv_len)
+    assert wide[0].dtype == torch.float32
+    assert torch.equal(wide[0].bfloat16(), narrow[0])
+    assert torch.equal(wide[1], narrow[1]) and torch.equal(wide[2],
+                                                           narrow[2])
+    exact = ref.decode_reference(q.double(), k.double(), v.double(),
+                                 kv_len)[0]
+    assert (wide[0].double() - exact).abs().max() < \
+        (narrow[0].double() - exact).abs().max()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", [GRANITE_CASE] + DECODE_EDGE_CASES)
+def test_cuda_flash_decode_float32_out_matches_plain_on_card(case):
+    """The tensor-core variant's float32 out against the plain version's
+    float32 sum, within the bf16 tolerance; its bf16 rounding within one
+    ulp of the default out; m and l identical to the default call's."""
+    _card()
+    q, k, v, kv_len = (torch.from_numpy(a).cuda()
+                       for a in decode_problem(case, seed=5))
+    q, k, v = q.bfloat16(), k.bfloat16(), v.bfloat16()
+    got = ops.flash_decode(q, k, v, kv_len, torch.float32)
+    base = ops.flash_decode(q, k, v, kv_len)
+    want = ref.decode_reference(q, k, v, kv_len, torch.float32)
+    assert got[0].dtype == torch.float32
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w.float(), rtol=2e-2, atol=2e-2)
+    assert torch.equal(got[1], base[1]) and torch.equal(got[2], base[2])
+    torch.testing.assert_close(got[0].bfloat16().float(), base[0].float(),
+                               rtol=2 ** -7, atol=2 ** -7)
 
 
 @pytest.mark.gpu

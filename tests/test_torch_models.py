@@ -32,10 +32,10 @@ from repro_torch.launch import steps as port_steps
 from repro_torch.models import model as port_model
 from repro_torch.runtime import train as port_train
 
-from _torch_parity import op_by_op, ported
+from _torch_parity import drawn_params, op_by_op, ported
 from _torch_parity import to_np as _np
 
-DENSE = ("granite_3_2b", "llama3_2_3b")
+DENSE = ("granite_3_2b", "llama3_2_3b", "qwen1_5_110b")
 #: every architecture whose reference decodes with per-row positions
 #: (whisper's reference takes one position for the batch: queue 3)
 DECODE = DENSE + ("h2o_danube_3_4b", "mamba2_370m", "mixtral_8x7b",
@@ -258,8 +258,22 @@ def test_decode_forward_matches_reference(arch, compute_dtype):
     fuses.  Caches: ``assert_caches_close``.  Positions stay inside
     danube's window of 32 (past it, see ``tests/test_torch_decode.py``).
     """
+    decode_parity(*ported(arch, compute_dtype), compute_dtype)
+
+
+@pytest.mark.parametrize("compute_dtype", sorted(DECODE_TOL))
+def test_decode_forward_matches_reference_at_drawn_leaves(compute_dtype):
+    """qwen1.5's eight decode steps with every leaf drawn
+    (``drawn_params``): at seed-0 leaves its q/k/v biases are 0, so only
+    drawn leaves test them."""
+    params = drawn_params("qwen1_5_110b", 5)
+    assert float(jnp.abs(params["blocks"]["sub0"]["mixer"]["bk"]).min()) > 0
+    decode_parity(*ported("qwen1_5_110b", compute_dtype, params),
+                  compute_dtype)
+
+
+def decode_parity(cfg, pcfg, params, model, compute_dtype):
     tol = DECODE_TOL[compute_dtype]
-    cfg, pcfg, params, model = ported(arch, compute_dtype)
     mesh = single_device_mesh()
     b, s = 3, 32
     rc = ref_model.init_caches(cfg, b, s)

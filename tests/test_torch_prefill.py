@@ -58,13 +58,14 @@ from repro_torch.models import model as port_model
 from repro_torch.models import ssm as port_ssm
 from repro_torch.runtime import train as port_train
 
-from _torch_parity import (batch_arrays, op_by_op, port_batch, ported,
-                           ref_batch, ref_params, run_ref)
+from _torch_parity import (batch_arrays, drawn_params, op_by_op,
+                           port_batch, ported, ref_batch, ref_params,
+                           run_ref)
 from _torch_parity import to_np as _np
 
 SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "src")
-PREFILL = ("granite_3_2b", "h2o_danube_3_4b", "mamba2_370m",
+PREFILL = ("granite_3_2b", "qwen1_5_110b", "h2o_danube_3_4b", "mamba2_370m",
            "mixtral_8x7b", "qwen3_moe_235b_a22b", "jamba_v0_1_52b",
            "whisper_medium", "internvl2_26b")
 #: (compute dtype, tolerance): f32 under jit, bf16 op by op
@@ -183,7 +184,8 @@ def test_ssm_pieces_match_reference():
 #: 8 of vision prefix and 56 tokens; qwen3 at 96 and whisper at 272 (68
 #: encoder frames) take the reference's chunked branch (module
 #: docstring); jamba in ``test_hybrid_prefill_matches_reference``
-PREFILL_POINTS = [("granite_3_2b", 2, 64), ("h2o_danube_3_4b", 2, 64),
+PREFILL_POINTS = [("granite_3_2b", 2, 64), ("qwen1_5_110b", 2, 64),
+                  ("h2o_danube_3_4b", 2, 64),
                   ("h2o_danube_3_4b", 2, 96), ("mamba2_370m", 2, 64),
                   ("mixtral_8x7b", 2, 64), ("qwen3_moe_235b_a22b", 2, 96),
                   ("whisper_medium", 2, 272), ("internvl2_26b", 2, 64)]
@@ -201,6 +203,25 @@ def test_prefill_step_matches_reference(point, compute_dtype):
     got = port_steps.make_prefill_step(pcfg, device="cpu")(
         model.params, port_batch(batch))
     assert got.shape == (b, 1, cfg.vocab_size) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=tol,
+                               atol=tol)
+
+
+@pytest.mark.parametrize("compute_dtype", sorted(TOL))
+def test_prefill_step_matches_reference_at_drawn_leaves(compute_dtype):
+    """qwen1.5's prefill step with every leaf drawn (``drawn_params``):
+    its q/k/v biases are 0 at seed-0 leaves.  96 positions take the
+    reference's chunked branch: at 64 its ``dense_attention`` rounds P to
+    bf16 (ROADMAP queue 3), which at these leaves puts 8.6% of the bf16
+    logits outside the band (0.094 at most)."""
+    tol = TOL[compute_dtype]
+    cfg, pcfg, params, model = ported(
+        "qwen1_5_110b", compute_dtype, drawn_params("qwen1_5_110b", 6))
+    batch = batch_arrays(cfg, 2, 96, seed=2)
+    want = run_ref(ref_steps.make_prefill_step(cfg, single_device_mesh()),
+                   compute_dtype, params, ref_batch(batch))
+    got = port_steps.make_prefill_step(pcfg, device="cpu")(
+        model.params, port_batch(batch))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=tol,
                                atol=tol)
 

@@ -57,6 +57,8 @@ from repro_torch.models import moe as port_moe
 from repro_torch.optim import adamw
 from repro_torch.runtime import train as port_train
 
+from _torch_parity import drawn_params
+
 SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "src")
 TRAIN = port_base.ARCH_IDS
@@ -285,28 +287,6 @@ def check_loss_and_gradients(cfg, want_total, want_m, want, metrics, grads,
             name, d_ref, d_port, scale)
         assert d_port <= ORACLE_FACTOR * max(
             d_ref, np.finfo(np.float32).eps * scale), (name, d_port, d_ref)
-
-
-def drawn_params(arch, seed):
-    """Every leaf of ``arch``'s smoke parameters drawn from
-    ``default_rng(seed)``: a leaf the init sets to a constant c (the q/k/v
-    biases, the norm scales, Mamba-2's ``dt_bias``, ``A_log`` and ``D``)
-    becomes c + 0.1 N(0, 1), every other leaf N(0, 1) times its init's
-    scale.  A reference tree, which both packages load.  (At c + 0.3 N
-    one of jamba's smoke chunks passes the decay sum at which the
-    reference's ``ssd_chunked`` gradient turns NaN, ROADMAP queue 3.)"""
-    cfg = ref_base.get_config(arch, smoke=True)
-    rng = np.random.default_rng(seed)
-
-    def draw(d):
-        x = rng.standard_normal(d.shape).astype(np.float32)
-        if d.init in ("zeros", "ones"):
-            return jnp.asarray(float(d.init == "ones") + 0.1 * x)
-        fan_in = d.shape[-2] if len(d.shape) >= 2 else d.shape[-1]
-        std = d.scale if d.scale is not None else 1.0 / np.sqrt(fan_in)
-        return jnp.asarray(x * np.float32(std))
-    return jax.tree.map(draw, ref_model.model_defs(cfg),
-                        is_leaf=ref_blocks.is_def)
 
 
 #: one configuration of each family at drawn leaves: qwen1.5 and whisper
