@@ -251,12 +251,7 @@ def make_serve_step(cfg: ArchConfig, mesh, batch_shardable: bool):
     takes them; the caches from ``init_caches(mesh=, batch_shardable=)``.
     On a mesh of more than one rank only dense and sliding-window models
     decode (ROADMAP queue 1 item 8 for the others): raises for them."""
-    if not mdl._on_one_device(mesh) and not mdl.mesh_supported(cfg):
-        raise NotImplementedError(
-            f"{cfg.name}: the serve step on a mesh of more than one rank "
-            f"takes dense and sliding-window models; MoE, Mamba-2, hybrid, "
-            f"encoder-decoder and VLM models come later (ROADMAP queue 1 "
-            f"item 8)")
+    mdl.check_mesh_supported(cfg, mesh)
     cfg, plan = serve_plan(cfg, mesh)
 
     def serve_step(params, caches, tokens, step):

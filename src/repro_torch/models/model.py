@@ -56,8 +56,9 @@ core, the logits at the end, all-gathered over ``model``); products that
 contract a sharded dim (``wo`` over heads, the MLP's down projection)
 all-reduce their partial sums over ``model``; the embedding is a masked
 lookup in the rank's rows of the table, summed over the axes that split
-them.  On ``mesh=None`` or a (1, 1) mesh it is the one-device path, bit
-for bit.  MoE, Mamba-2, hybrid, encoder-decoder and VLM decoding on a
+them.  One code path serves both: on ``mesh=None`` or a (1, 1) mesh
+every collective is on an axis of one rank and does nothing, so it is
+the one-device path bit for bit.  MoE, Mamba-2, hybrid, encoder-decoder and VLM decoding on a
 mesh of more than one rank raise (ROADMAP queue 1 item 8).
 """
 from __future__ import annotations
@@ -191,12 +192,30 @@ def _register(module: nn.Module, tree: dict) -> None:
 
 # ================================================================ decode
 
-def _project_qkv(p, x, cfg, cd, prefix=""):
+def _weight(p, name, cd, sp=None, mesh=None):
+    """``p[name]`` in the compute dtype; on a mesh (``sp`` the specs of
+    this rank's blocks) whole along every dim its spec splits over the
+    batch axes (``_fsdp_whole``)."""
+    w = p[name].to(cd)
+    return _fsdp_whole(w, sp[name], mesh) if sp else w
+
+
+def _axes(sp, name, dim):
+    """The mesh axes that split dim ``dim`` of ``name`` (none off a
+    mesh)."""
+    return shd.entry_axes(sp[name], dim) if sp else ()
+
+
+def _project_qkv(p, x, cfg, cd, prefix="", sp=None, mesh=None):
     """q, k, v of ``x`` through ``wq``/``wk``/``wv`` (``xwq``... with
-    prefix "x", the cross-attention's, which have no bias)."""
-    q = torch.einsum("bsd,dhk->bshk", x, p[prefix + "wq"].to(cd))
-    k = torch.einsum("bsd,dhk->bshk", x, p[prefix + "wk"].to(cd))
-    v = torch.einsum("bsd,dhk->bshk", x, p[prefix + "wv"].to(cd))
+    prefix "x", the cross-attention's, which have no bias); on a mesh
+    this rank's heads of them."""
+    q = torch.einsum("bsd,dhk->bshk", x, _weight(p, prefix + "wq", cd, sp,
+                                                 mesh))
+    k = torch.einsum("bsd,dhk->bshk", x, _weight(p, prefix + "wk", cd, sp,
+                                                 mesh))
+    v = torch.einsum("bsd,dhk->bshk", x, _weight(p, prefix + "wv", cd, sp,
+                                                 mesh))
     if cfg.qkv_bias and prefix == "":
         q = q + p["bq"].to(cd)
         k = k + p["bk"].to(cd)
@@ -297,34 +316,55 @@ def _cross(p, x, memory, cfg, cd, core):
     return x + torch.einsum("bshk,hkd->bsd", ox.to(cd), p["xwo"].to(cd))
 
 
-def attn_decode_apply(p, x, cache, slot, positions, kv_len, cfg,
-                      memory=None):
+def attn_decode_apply(p, x, cache, positions, insert, core, cfg,
+                      memory=None, *, sp=None, mesh=None):
     """The attention sublayer of one decode step (self-attention, then
-    cross-attention over ``memory`` when given); updates ``cache``."""
+    cross-attention over ``memory`` when given): ``insert(kc, vc, k, v)``
+    writes the new token's k and v into ``cache``, ``core(q, kc, vc)``
+    attends.  On a mesh ``p`` holds this rank's blocks (``sp`` their
+    specs): q, k and v are gathered whole over the heads before the
+    write, and the partial sums of ``wo`` over its heads all-reduced."""
     cd = getattr(torch, cfg.compute_dtype)
     h = rms_norm(x, p["norm"], cfg.norm_eps).to(cd)
-    q, k, v = _project_qkv(p, h, cfg, cd)
+    q, k, v = _project_qkv(p, h, cfg, cd, sp=sp, mesh=mesh)
     if cfg.use_rope:
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
-    kc, vc = cache_insert(cache["k"], cache["v"], k, v, slot)
-    o = decode_attn_core(q, kc, vc, kv_len, cfg)
-    x = x + torch.einsum("bshk,hkd->bsd", o.to(cd), p["wo"].to(cd))
+    q, k, v = _gather_heads((q, k, v), (_axes(sp, "wq", 1),)
+                            + (_axes(sp, "wk", 1),) * 2, mesh)
+    kc, vc = insert(cache["k"], cache["v"], k, v)
+    o = core(q, kc, vc)
+    wo, axes = _weight(p, "wo", cd, sp, mesh), _axes(sp, "wo", 0)
+    if not _split(mesh, axes):
+        x = x + torch.einsum("bshk,hkd->bsd", o.to(cd), wo)
+    else:
+        index, count = shd.block(mesh, axes)
+        n = o.shape[2] // count
+        part = _wide_mm(o.narrow(2, index * n, n).to(cd).flatten(2),
+                        wo.flatten(0, 1))
+        x = x + coll.psum(part, mesh, axes).to(cd)
     if memory is not None:
         x = _cross(p, x, memory, cfg, cd, attn.cross_attention)
     return x
 
 
-def ffn_apply(p, x, kind, cfg, decode=False):
+def ffn_apply(p, x, kind, cfg, decode=False, *, sp=None, mesh=None):
     """The ffn sublayer: an MLP, a MoE (``models/moe.py``; its decode
     path when ``decode``) or nothing (``kind`` None).  Returns ``(x,
-    aux)``, aux the MoE router loss (0.0 otherwise)."""
+    aux)``, aux the MoE router loss (0.0 otherwise).  On a mesh the MLP
+    runs on this rank's blocks (``sp`` their specs), the partial sums of
+    its down projection all-reduced over the axes that split ``d_ff``."""
     if kind is None:
         return x, 0.0
     cd = getattr(torch, cfg.compute_dtype)
     h = rms_norm(x, p["norm"], cfg.norm_eps).to(cd)
     if kind == "mlp":
-        return x + swiglu(h, p["wi"], p["wg"], p["wo"], cd), 0.0
+        wi, wg, wo = (_weight(p, n, cd, sp, mesh) for n in ("wi", "wg", "wo"))
+        axes = _axes(sp, "wo", 0)
+        if not _split(mesh, axes):
+            return x + swiglu(h, wi, wg, wo, cd), 0.0
+        part = _wide_mm(silu(h @ wg) * (h @ wi), wo)
+        return x + coll.psum(part, mesh, axes).to(cd), 0.0
     y, aux = moe_mod.moe_apply(p, h, cfg, decode=decode)
     return x + y, aux
 
@@ -333,18 +373,23 @@ def _mixer_params(p):
     return {k: v for k, v in p.items() if k != "norm"}
 
 
-def run_blocks_decode(blocks, caches, x, slot, positions, kv_len, cfg,
-                      memory=None):
+def run_blocks_decode(blocks, caches, x, positions, insert, core, cfg,
+                      memory=None, specs=None, mesh=None):
     """One decode step through the stacked blocks, a Python loop in place
-    of the reference's scan; the caches are updated in place."""
+    of the reference's scan; the caches are updated in place (``insert``
+    and ``core`` as ``attn_decode_apply`` takes them).  On a mesh
+    ``specs`` are those of this rank's blocks of ``blocks``."""
+    layer_specs = tree_map(lambda sp: sp[1:], specs) if specs else {}
     for i, bp in enumerate(block_layers(blocks)):
         for j, (mixer, ffn) in enumerate(cfg.pattern):
             sub = bp[f"sub{j}"]
+            sp = layer_specs.get(f"sub{j}", {})
             layer = caches["layers"][f"sub{j}"]
             cache = {name: t[i] for name, t in layer.items()}
             if mixer == "attn":
-                x = attn_decode_apply(sub["mixer"], x, cache, slot,
-                                      positions, kv_len, cfg, memory)
+                x = attn_decode_apply(sub["mixer"], x, cache, positions,
+                                      insert, core, cfg, memory,
+                                      sp=sp.get("mixer"), mesh=mesh)
             else:
                 hm = rms_norm(x, sub["mixer"]["norm"], cfg.norm_eps)
                 y, new = ssm_mod.ssm_decode_step(_mixer_params(sub["mixer"]),
@@ -352,13 +397,45 @@ def run_blocks_decode(blocks, caches, x, slot, positions, kv_len, cfg,
                 for name, t in new.items():
                     cache[name].copy_(t)
                 x = x + y
-            x, _ = ffn_apply(sub.get("ffn"), x, ffn, cfg, decode=True)
+            x, _ = ffn_apply(sub.get("ffn"), x, ffn, cfg, decode=True,
+                             sp=sp.get("ffn"), mesh=mesh)
     return x
 
 
-def embed_tokens(params, tokens, cfg, cd):
-    """Token embedding lookup (the reference's gather branch)."""
-    return params["embed"][tokens].to(cd)
+def embed_tokens(params, tokens, cfg, cd, *, mesh=None, spec=(),
+                 batch_axes=()):
+    """Token embedding lookup (the reference's gather branch).  On a mesh
+    (``spec`` that of this rank's block of the table) a masked lookup in
+    the rank's rows of the table, summed over the axes that split them
+    (exact: one row is nonzero).  With ``cfg.embed_impl == "psum"`` the
+    rows are split over ``model`` too, the reference's mask + psum;
+    tokens split over an axis that also splits the table (``batch_axes``,
+    those that split the batch) are gathered over it first and the rank's
+    rows taken back after the sum."""
+    table = params["embed"]
+    axes = shd.entry_axes(spec, 0)
+    m = mesh.shape.get("model", 1) if mesh is not None else 1
+    if (cfg.embed_impl == "psum" and m > 1 and "model" not in axes
+            and table.shape[0] % m == 0):
+        index, _ = shd.block(mesh, ("model",))
+        rows = table.shape[0] // m
+        table = table.narrow(0, index * rows, rows)
+        axes = axes + ("model",)
+    axes = tuple(a for a in axes if mesh.shape[a] > 1)
+    if not axes:
+        return table[tokens].to(cd)
+    index, _ = shd.block(mesh, axes)
+    v_local = table.shape[0]
+    shared = tuple(a for a in batch_axes if a in axes)
+    toks = coll.all_gather(tokens, mesh, shared, 0)
+    loc = toks - index * v_local
+    ok = (loc >= 0) & (loc < v_local)
+    rows = table.to(cd)[torch.clamp(loc, 0, v_local - 1)]
+    rows = coll.psum(torch.where(ok[..., None], rows, 0), mesh, axes)
+    if shared:
+        own, _ = shd.block(mesh, shared)
+        rows = rows.narrow(0, own * tokens.shape[0], tokens.shape[0])
+    return rows
 
 
 def _check_on(dev, tree, what):
@@ -406,25 +483,46 @@ def decode_forward(params, caches, tokens, step, cfg, *, mesh=None,
     any position.  Everything runs on ``device``, where the parameters
     and caches must be.
 
-    On a ``mesh`` of more than one rank every tensor is this rank's
-    block: the parameters as ``plan`` (``ShardingPlan(mesh)`` by
-    default) places them (``blocks.shard_params``), the caches
-    (``init_caches(mesh=, batch_shardable=)``), the tokens' rows and the
-    returned logits' rows (the batch's block over the batch axes when
-    ``batch_shardable``, else every row), the logits whole over the
-    vocabulary.  ``step`` is the same on every rank; per-row positions
-    need a cache whose sequence is not split.
+    On a ``mesh`` every tensor is this rank's block: the parameters as
+    ``plan`` places them (``blocks.shard_params``; a mesh of more than
+    one rank needs it, ``launch/steps.make_serve_step`` passes its own),
+    the caches (``init_caches(mesh=, batch_shardable=)``), the tokens'
+    rows and the returned logits' rows (the batch's block over the batch
+    axes when ``batch_shardable``, else every row), the logits whole over
+    the vocabulary.  ``step`` is the same on every rank; per-row
+    positions need a cache whose sequence is not split.  A (1, 1) mesh
+    runs the same code as ``mesh=None``: every collective on an axis of
+    one rank does nothing.
     """
     dev = resolve_device(device)
     _check_on(dev, {"params": params, "caches": caches}, "decode_forward")
     if not _on_one_device(mesh):
-        return _decode_forward_mesh(params, caches, tokens, step, cfg, mesh,
-                                    batch_shardable, plan, dev)
+        check_mesh_supported(cfg, mesh)
+        if plan is None:
+            raise ValueError("decode_forward on a mesh of more than one rank "
+                             "needs the plan that placed the parameters")
+        if mesh.device != dev:
+            raise ValueError(f"decode_forward on {dev}, the mesh's rank is "
+                             f"on {mesh.device}")
+    specs = (param_specs(model_defs(cfg), plan) if plan is not None
+             else None)
     cd = getattr(torch, cfg.compute_dtype)
     b = tokens.shape[0]
-    n_slots, rolling = _kv_slots(cfg, caches)
+    seq_axes = _seq_axes(mesh, batch_shardable) if mesh is not None else ()
+    n_local, _ = _kv_slots(cfg, caches)
+    n_slots = (n_local * math.prod(mesh.shape[a] for a in seq_axes)
+               if n_local else None)
+    if seq_axes and cfg.window and n_slots > cfg.window:
+        raise ValueError(f"a {n_slots}-slot cache is longer than the window "
+                         f"{cfg.window}; windowed caches are rolling buffers "
+                         f"of at most the window")
+    rolling = bool(cfg.window) and n_slots is not None \
+        and n_slots >= cfg.window
     steps = _steps(step, b, n_slots, rolling)
     if steps.ndim == 1:
+        if seq_axes:
+            raise ValueError("per-row decode positions need a KV cache "
+                             "whose sequence is not split over the mesh")
         positions = torch.tensor(steps, dtype=torch.long, device=dev)[:, None]
         slot = positions[:, 0] % n_slots if n_slots else None
     else:
@@ -433,15 +531,41 @@ def decode_forward(params, caches, tokens, step, cfg, *, mesh=None,
         slot = int(steps) % n_slots if n_slots else None
     kv_len = (torch.clamp(positions[:, 0] + 1, max=n_slots).to(torch.int32)
               if n_slots else None)
+    if seq_axes:
+        index, _ = shd.block(mesh, seq_axes)
+        owner, local = divmod(slot, n_local)
+
+        def insert(kc, vc, k, v):
+            if owner == index:
+                return cache_insert(kc, vc, k, v, local)
+            return kc, vc
+
+        def core(q, kc, vc):
+            return split_kv_attention(q, kc, vc, int(steps), cfg, mesh,
+                                      seq_axes)
+    else:
+        def insert(kc, vc, k, v):
+            return cache_insert(kc, vc, k, v, slot)
+
+        def core(q, kc, vc):
+            return decode_attn_core(q, kc, vc, kv_len, cfg)
     tokens = torch.as_tensor(tokens).to(dev)
-    x = embed_tokens(params, tokens, cfg, cd)
+    batch_axes = tuple(a for a in BATCH_AXES if batch_shardable
+                       and mesh is not None and a in mesh.axis_names
+                       and mesh.shape[a] > 1)
+    x = embed_tokens(params, tokens, cfg, cd, mesh=mesh,
+                     spec=specs["embed"] if specs else (),
+                     batch_axes=batch_axes)
     memory = caches.get("memory")
     if not cfg.use_rope and cfg.enc_layers > 0:
         x = x + sinusoidal_at(positions, cfg.d_model).to(cd)
-    x = run_blocks_decode(params["blocks"], caches, x, slot, positions,
-                          kv_len, cfg, memory)
+    x = run_blocks_decode(params["blocks"], caches, x, positions, insert,
+                          core, cfg, memory,
+                          specs["blocks"] if specs else None, mesh)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    logits = torch.einsum("bsd,dv->bsv", x.to(cd), params["lm_head"].to(cd))
+    logits = torch.einsum("bsd,dv->bsv", x.to(cd),
+                          _weight(params, "lm_head", cd, specs, mesh))
+    logits = coll.all_gather(logits, mesh, _axes(specs, "lm_head", 1), 2)
     return logits.float(), caches
 
 
@@ -504,12 +628,18 @@ def cache_specs(cfg, batch, seq_len, mesh, batch_shardable):
     return specs
 
 
-def mesh_supported(cfg) -> bool:
-    """Whether the port decodes ``cfg`` on a mesh of more than one rank:
-    dense and sliding-window models (attention and an MLP in every
-    sublayer, no encoder, no vision prefix)."""
-    return (all(p == ("attn", "mlp") for p in cfg.pattern)
-            and cfg.enc_layers == 0 and cfg.vision_prefix == 0)
+def check_mesh_supported(cfg, mesh) -> None:
+    """Raise for a model the port does not yet decode on ``mesh`` of more
+    than one rank: only dense and sliding-window models (attention and an
+    MLP in every sublayer, no encoder, no vision prefix) do."""
+    if _on_one_device(mesh) or (
+            all(p == ("attn", "mlp") for p in cfg.pattern)
+            and cfg.enc_layers == 0 and cfg.vision_prefix == 0):
+        return
+    raise NotImplementedError(
+        f"{cfg.name}: decoding on a mesh of more than one rank takes dense "
+        f"and sliding-window models; MoE, Mamba-2, hybrid, encoder-decoder "
+        f"and VLM models come later (ROADMAP queue 1 item 8)")
 
 
 def _fsdp_whole(t, spec, mesh):
@@ -523,38 +653,6 @@ def _fsdp_whole(t, spec, mesh):
             raise ValueError(f"dim {d} of spec {spec} mixes batch and model "
                              f"axes")
     return t
-
-
-def _embed_mesh(table, tokens, cfg, cd, mesh, spec, batch_axes):
-    """The embedding rows of this rank's tokens: a masked lookup in the
-    rank's block of the table's rows, summed over the axes that split
-    them (exact: one row is nonzero).  With ``cfg.embed_impl == "psum"``
-    the rows are split over ``model`` too, the reference's mask + psum;
-    tokens split over an axis that also splits the table are gathered
-    over it first and the rank's rows taken back after the sum."""
-    axes = shd.entry_axes(spec, 0)
-    m = mesh.shape.get("model", 1)
-    if (cfg.embed_impl == "psum" and m > 1 and "model" not in axes
-            and table.shape[0] % m == 0):
-        index, _ = shd.block(mesh, ("model",))
-        rows = table.shape[0] // m
-        table = table.narrow(0, index * rows, rows)
-        axes = axes + ("model",)
-    axes = tuple(a for a in axes if mesh.shape[a] > 1)
-    if not axes:
-        return table[tokens].to(cd)
-    index, _ = shd.block(mesh, axes)
-    v_local = table.shape[0]
-    shared = tuple(a for a in batch_axes if a in axes)
-    toks = coll.all_gather(tokens, mesh, shared, 0)
-    loc = toks - index * v_local
-    ok = (loc >= 0) & (loc < v_local)
-    rows = table.to(cd)[torch.clamp(loc, 0, v_local - 1)]
-    rows = coll.psum(torch.where(ok[..., None], rows, 0), mesh, axes)
-    if shared:
-        own, _ = shd.block(mesh, shared)
-        rows = rows.narrow(0, own * tokens.shape[0], tokens.shape[0])
-    return rows
 
 
 def split_kv_attention(q, kc, vc, step, cfg, mesh, seq_axes):
@@ -590,39 +688,6 @@ def split_kv_attention(q, kc, vc, step, cfg, mesh, seq_axes):
                                          schedule=cfg.collective_schedule)
     out = acc / torch.clamp(l, min=1e-30)[..., None]
     return out.to(dtype)[:, None]
-
-
-def _attn_mesh(p, sp, x, cache, positions, insert, core, cfg, mesh):
-    """The attention sublayer of a decode step on this rank's blocks
-    (``sp`` their specs)."""
-    cd = getattr(torch, cfg.compute_dtype)
-
-    def w(name):
-        return _fsdp_whole(p[name].to(cd), sp[name], mesh)
-    h = rms_norm(x, p["norm"], cfg.norm_eps).to(cd)
-    q = torch.einsum("bsd,dhk->bshk", h, w("wq"))
-    k = torch.einsum("bsd,dhk->bshk", h, w("wk"))
-    v = torch.einsum("bsd,dhk->bshk", h, w("wv"))
-    if cfg.qkv_bias:
-        q = q + p["bq"].to(cd)
-        k = k + p["bk"].to(cd)
-        v = v + p["bv"].to(cd)
-    if cfg.use_rope:
-        q = rope(q, positions, cfg.rope_theta)
-        k = rope(k, positions, cfg.rope_theta)
-    q, k, v = _gather_heads((q, k, v), (shd.entry_axes(sp["wq"], 1),)
-                            + (shd.entry_axes(sp["wk"], 1),) * 2, mesh)
-    kc, vc = insert(cache["k"], cache["v"], k, v)
-    o = core(q, kc, vc)
-    head_axes = shd.entry_axes(sp["wo"], 0)
-    if head_axes:
-        index, count = shd.block(mesh, head_axes)
-        n = o.shape[2] // count
-        o = o.narrow(2, index * n, n)
-    if not _split(mesh, head_axes):
-        return x + torch.einsum("bshk,hkd->bsd", o.to(cd), w("wo"))
-    part = _wide_mm(o.to(cd).flatten(2), w("wo").flatten(0, 1))
-    return x + coll.psum(part, mesh, head_axes).to(cd)
 
 
 def _gather_heads(parts, axes, mesh):
@@ -661,99 +726,6 @@ def _wide_mm(a, b):
     else:
         out = a2.to(wide) @ b.to(wide)
     return out.reshape(*a.shape[:-1], b.shape[-1])
-
-
-def _mlp_mesh(p, sp, x, cfg, mesh):
-    """The MLP sublayer on this rank's blocks: the down projection's
-    partial sums all-reduced over the axes that split ``d_ff``."""
-    cd = getattr(torch, cfg.compute_dtype)
-    h = rms_norm(x, p["norm"], cfg.norm_eps).to(cd)
-    wi, wg, wo = (_fsdp_whole(p[n].to(cd), sp[n], mesh)
-                  for n in ("wi", "wg", "wo"))
-    axes = shd.entry_axes(sp["wo"], 0)
-    if not _split(mesh, axes):
-        return x + swiglu(h, wi, wg, wo, cd)
-    part = _wide_mm(silu(h @ wg) * (h @ wi), wo)
-    return x + coll.psum(part, mesh, axes).to(cd)
-
-
-def _decode_forward_mesh(params, caches, tokens, step, cfg, mesh,
-                         batch_shardable, plan, dev):
-    if not mesh_supported(cfg):
-        raise NotImplementedError(
-            f"{cfg.name}: decoding on a mesh of more than one rank takes "
-            f"dense and sliding-window models; MoE, Mamba-2, hybrid, "
-            f"encoder-decoder and VLM models come later (ROADMAP queue 1 "
-            f"item 8)")
-    if mesh.device != dev:
-        raise ValueError(f"decode_forward on {dev}, the mesh's rank is on "
-                         f"{mesh.device}")
-    plan = plan if plan is not None else shd.ShardingPlan(mesh)
-    specs = param_specs(model_defs(cfg), plan)
-    cd = getattr(torch, cfg.compute_dtype)
-    b = tokens.shape[0]
-    seq_axes = _seq_axes(mesh, batch_shardable)
-    batch_axes = tuple(a for a in BATCH_AXES if batch_shardable
-                       and a in mesh.axis_names and mesh.shape[a] > 1)
-    n_local = caches["layers"]["sub0"]["k"].shape[2]
-    n_slots = n_local * math.prod(mesh.shape[a] for a in seq_axes)
-    if cfg.window and n_slots > cfg.window:
-        raise ValueError(f"a {n_slots}-slot cache is longer than the window "
-                         f"{cfg.window}; windowed caches are rolling buffers "
-                         f"of at most the window")
-    rolling = bool(cfg.window) and n_slots >= cfg.window
-    steps = _steps(step, b, n_slots, rolling)
-    if steps.ndim == 1:
-        if seq_axes:
-            raise ValueError("per-row decode positions need a KV cache "
-                             "whose sequence is not split over the mesh")
-        positions = torch.tensor(steps, dtype=torch.long,
-                                 device=dev)[:, None]
-        slot = positions[:, 0] % n_slots
-        kv_len = torch.clamp(positions[:, 0] + 1,
-                             max=n_slots).to(torch.int32)
-    else:
-        s = int(steps)
-        positions = torch.full((b, 1), s, dtype=torch.long, device=dev)
-        slot = s % n_slots
-        kv_len = torch.full((b,), min(s + 1, n_slots), dtype=torch.int32,
-                            device=dev)
-    if seq_axes:
-        index, _ = shd.block(mesh, seq_axes)
-        owner, local = divmod(slot, n_local)
-
-        def insert(kc, vc, k, v):
-            if owner == index:
-                return cache_insert(kc, vc, k, v, local)
-            return kc, vc
-
-        def core(q, kc, vc):
-            return split_kv_attention(q, kc, vc, s, cfg, mesh, seq_axes)
-    else:
-        def insert(kc, vc, k, v):
-            return cache_insert(kc, vc, k, v, slot)
-
-        def core(q, kc, vc):
-            return decode_attn_core(q, kc, vc, kv_len, cfg)
-    tokens = torch.as_tensor(tokens).to(dev)
-    x = _embed_mesh(params["embed"], tokens, cfg, cd, mesh, specs["embed"],
-                    batch_axes)
-    bspec = specs["blocks"]["sub0"]
-    layer_specs = {part: tree_map(lambda sp: sp[1:], bspec[part])
-                   for part in ("mixer", "ffn")}
-    layer = caches["layers"]["sub0"]
-    for i, bp in enumerate(block_layers(params["blocks"])):
-        sub = bp["sub0"]
-        cache = {name: t[i] for name, t in layer.items()}
-        x = _attn_mesh(sub["mixer"], layer_specs["mixer"], x, cache,
-                       positions, insert, core, cfg, mesh)
-        x = _mlp_mesh(sub["ffn"], layer_specs["ffn"], x, cfg, mesh)
-    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    head = _fsdp_whole(params["lm_head"].to(cd), specs["lm_head"], mesh)
-    logits = torch.einsum("bsd,dv->bsv", x.to(cd), head)
-    logits = coll.all_gather(logits, mesh,
-                             shd.entry_axes(specs["lm_head"], 1), 2)
-    return logits.float(), caches
 
 
 # ================================================================ forward

@@ -708,8 +708,10 @@ def test_flash_decode_float32_out_is_the_unrounded_sum():
 @pytest.mark.parametrize("case", [GRANITE_CASE] + DECODE_EDGE_CASES)
 def test_cuda_flash_decode_float32_out_matches_plain_on_card(case):
     """The tensor-core variant's float32 out against the plain version's
-    float32 sum, within the bf16 tolerance; its bf16 rounding within one
-    ulp of the default out; m and l identical to the default call's."""
+    float32 sum, within the float32 tolerance (the kernel rounds nothing
+    to bf16 there, and the bf16 band is as wide as a long row's values);
+    its bf16 rounding within one ulp of the default out; m and l
+    identical to the default call's."""
     _card()
     q, k, v, kv_len = (torch.from_numpy(a).cuda()
                        for a in decode_problem(case, seed=5))
@@ -718,8 +720,9 @@ def test_cuda_flash_decode_float32_out_matches_plain_on_card(case):
     base = ops.flash_decode(q, k, v, kv_len)
     want = ref.decode_reference(q, k, v, kv_len, torch.float32)
     assert got[0].dtype == torch.float32
+    tol = DECODE_DTYPES["float32"][2]
     for g, w in zip(got, want):
-        torch.testing.assert_close(g, w.float(), rtol=2e-2, atol=2e-2)
+        torch.testing.assert_close(g, w.float(), rtol=tol, atol=tol)
     assert torch.equal(got[1], base[1]) and torch.equal(got[2], base[2])
     torch.testing.assert_close(got[0].bfloat16().float(), base[0].float(),
                                rtol=2 ** -7, atol=2 ** -7)
