@@ -35,6 +35,14 @@ version on the card:
    - cross: the granite smoke config in float32 (TF32 off) served on the
      card and on the CPU with the same weights: identical greedy tokens,
      per-step logits within 1e-3;
+   - mesh: ``launch/steps.make_serve_step`` on ``single_device_mesh``
+     with the serve phases' weights (granite, and mixtral_8x7b and
+     jamba_v0_1_52b at 8 layers) against ``decode_forward`` without a
+     mesh, 16 steps: bit-identical logits and caches, ``flash_decode``
+     once per attention layer and step; mixtral's layer 0 MoE run as 4
+     ranks' expert blocks on the one card, their sum within the band of
+     the whole layer (bf16 and float32); the split-KV merge emulated on
+     the card (``mesh split`` rows);
    - prefill: ``launch/steps.make_prefill_step`` at full width on seed-0
      weights, bf16 compute, prompts from ``default_rng(0)``: granite_3_2b
      4 x 4096 (40 ``flash_attention`` launches, every one of them the
@@ -271,6 +279,13 @@ DECODE_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 #: serve phase's granite weights, 4 rows, a 32,768-slot bf16 cache filled
 #: from the seed below ``start``, 16 steps from it
 MESH = dict(batch=4, seq=32768, start=8184, steps=16)
+#: the serve phases whose 8-layer weights the mesh phase also runs
+#: (mixtral's 4,096-slot rolling buffer past its window, jamba's Mamba-2
+#: conv windows and states beside its one attention layer), and the
+#: emulated expert-parallel check: mixtral's layer 0 MoE sublayer at
+#: decode_32k's batch, each of 4 ranks' 2 experts run on the one card
+MESH_FAMILIES = ("serve_mixtral", "serve_jamba")
+EXPERT_PARALLEL = dict(batch=128, ranks=4)
 #: the split-KV check: (name, B, S, H, KVH, D) of granite's and qwen1.5's
 #: decode layers, each row's valid prefix (inside block 0, on a block
 #: boundary, at the last slot, inside a middle block), block counts
@@ -953,11 +968,21 @@ def run_serve(rec, serve=SERVE, cross=CROSS, families=SERVE_FAMILIES,
     for label, arch, layers, requests, pool, max_new, max_seq in families:
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
+        model = None
+        if label in MESH_FAMILIES:
+            model = Model(get_config(arch).replace(n_layers=layers), seed=0,
+                          device=device)
         row, _ = serve_phase(label, dict(
             arch=arch, smoke=False, layers=layers, requests=requests,
             pool=pool, max_new=max_new, max_seq=max_seq,
-            profile=SERVE_FAMILY_PROFILE), rec, device)
+            profile=SERVE_FAMILY_PROFILE), rec, device, model=model)
         out[label] = {k: v for k, v in row.items() if k != "tokens"}
+        if model is not None:
+            mesh = mesh_phase(model, device, label=f"mesh_{arch}")
+            if model.cfg.pattern[0][1] == "moe":
+                mesh["expert_parallel"] = expert_parallel(model, device)
+            out[f"mesh_{arch}"] = mesh
+            del model
     torch.cuda.empty_cache()
 
     prev_tf32 = torch.backends.cuda.matmul.allow_tf32, \
@@ -998,27 +1023,35 @@ def run_serve(rec, serve=SERVE, cross=CROSS, families=SERVE_FAMILIES,
     return out
 
 
-def mesh_phase(model, device="cuda", spec=MESH):
-    """``launch/steps.make_serve_step`` on ``single_device_mesh`` with the
+def mesh_phase(model, device="cuda", spec=MESH, label="mesh"):
+    """``launch/steps.make_serve_step`` on ``single_device_mesh`` with a
     serve phase's weights against ``decode_forward`` without a mesh, the
-    same caches (filled from the seed below ``start``) and tokens:
-    bit-identical logits and caches; the step's launches counted alone.
-    The mesh step runs the mesh code of every sublayer (the plan's specs,
-    the FSDP gathers, the heads' gather, the embedding's and the
-    projections' branches), each collective on an axis of one rank."""
+    same caches (every k and v filled from the seed below ``start``, or
+    all of a rolling buffer, every Mamba-2 conv window and state) and
+    tokens: bit-identical logits and caches; the step's launches counted
+    alone.  The mesh step runs the mesh code of every sublayer (the
+    plan's specs, the FSDP gathers, the heads' gather, the embedding's
+    and the projections' branches, the MoE's and the Mamba-2 step's),
+    each collective on an axis of one rank."""
     from repro_torch.launch.mesh import single_device_mesh
     from repro_torch.launch.steps import make_serve_step
     from repro_torch.models import model as mdl
+    from repro_torch.models.blocks import tree_leaves
     cfg, b = model.cfg, spec["batch"]
     step = make_serve_step(cfg, single_device_mesh(device), False)
     caches = [mdl.init_caches(cfg, b, spec["seq"], device=device)
               for _ in range(2)]
     gen = torch.Generator(device=device).manual_seed(0)
-    for c in caches[0]["layers"]["sub0"].values():
-        c[:, :, :spec["start"]] = torch.randn(
-            c[:, :, :spec["start"]].shape, generator=gen, device=device)
-    for name, c in caches[1]["layers"]["sub0"].items():
-        c.copy_(caches[0]["layers"]["sub0"][name])
+    for name, c in tree_leaves(caches[0]):
+        if name.endswith((".k", ".v")):
+            n = min(spec["start"], c.shape[2])
+            c[:, :, :n] = torch.randn(c[:, :, :n].shape, generator=gen,
+                                      device=device)
+        else:
+            c.copy_(torch.randn(c.shape, generator=gen, device=device))
+    for (_, a), (_, c) in zip(tree_leaves(caches[0]),
+                              tree_leaves(caches[1])):
+        c.copy_(a)
     toks = torch.from_numpy(np.random.default_rng(0).integers(
         0, cfg.vocab_size, (spec["steps"], b, 1))).to(device)
     got, want = [], []
@@ -1036,30 +1069,80 @@ def mesh_phase(model, device="cuda", spec=MESH):
                                        spec["start"] + i, cfg,
                                        device=device)[0])
     same = all(torch.equal(a, w) for a, w in zip(got, want)) and all(
-        torch.equal(caches[0]["layers"]["sub0"][n],
-                    caches[1]["layers"]["sub0"][n]) for n in ("k", "v"))
+        torch.equal(a, c) for (_, a), (_, c) in zip(
+            tree_leaves(caches[0]), tree_leaves(caches[1])))
     finite = all(bool(torch.isfinite(a).all()) for a in got)
     per_step = path_launches(cfg, decode=True)["flash_decode"]
-    row = {"arch": cfg.name, "batch": b, "seq": spec["seq"],
-           "start": spec["start"], "steps": spec["steps"],
+    row = {"arch": cfg.name, "n_layers": cfg.n_layers, "batch": b,
+           "seq": spec["seq"], "start": spec["start"],
+           "steps": spec["steps"],
            "plan": "inference" if not step.cfg.fsdp_weights else "default",
            "ms_per_step": wall / spec["steps"] * 1e3,
            "identical_to_decode_forward": same, "logits_finite": finite,
            "launches": launches}
-    log(f"[paths] mesh: make_serve_step on single_device_mesh, "
-        f"{cfg.name} {b} x {spec['seq']} slots, {spec['steps']} steps from "
-        f"{spec['start']}: {row['ms_per_step']:.3f} ms/step, identical to "
-        f"decode_forward {same}, finite {finite}, launches {launches}")
+    log(f"[paths] {label}: make_serve_step on single_device_mesh, "
+        f"{cfg.name} ({cfg.n_layers} layers) {b} x {spec['seq']} slots, "
+        f"{spec['steps']} steps from {spec['start']}: "
+        f"{row['ms_per_step']:.3f} ms/step, identical to decode_forward "
+        f"{same}, finite {finite}, launches {launches}")
     want_launches = spec["steps"] * per_step
     if not same or not finite:
-        fail(f"mesh: identical {same}, finite {finite}")
+        fail(f"{label}: identical {same}, finite {finite}")
     if launches["flash_decode_mma"] != want_launches \
             or launches["flash_decode"] != want_launches:
-        fail(f"mesh: flash_decode launched {launches['flash_decode']} times "
-             f"({launches['flash_decode_mma']} mma), not {want_launches}")
+        fail(f"{label}: flash_decode launched {launches['flash_decode']} "
+             f"times ({launches['flash_decode_mma']} mma), not "
+             f"{want_launches}")
     del caches
     torch.cuda.empty_cache()
     return row
+
+
+def expert_parallel(model, device="cuda", spec=EXPERT_PARALLEL):
+    """The mesh path's expert-parallel MoE decode emulated on one card:
+    layer 0's MoE sublayer of ``model`` (mixtral at full width) on
+    ``batch`` rows, each of ``ranks`` ranks' experts run through
+    ``models/moe.expert_block`` (the ``"ep"`` body with the rank's index:
+    ids shifted to its experts, foreign ones to the sentinel, its own
+    capacity) and the ranks' outputs added in float32 and rounded once,
+    as the mesh path's combine adds them; held to ``moe_decode`` on the
+    whole layer, bf16 within the 2e-2 band and float32 within its
+    tolerance (``DECODE_TOL``)."""
+    from repro_torch.models import moe
+    base, n = model.cfg, spec["ranks"]
+    p = {k: v[0] for k, v in model.params["blocks"]["sub0"]["ffn"].items()
+         if k != "norm"}
+    gen = torch.Generator(device=device).manual_seed(1)
+    x = torch.randn(spec["batch"], 1, base.d_model, generator=gen,
+                    device=device)
+    e_local = base.n_experts // n
+    rows = []
+    for dt in ("bfloat16", "float32"):
+        cfg = base.replace(compute_dtype=dt)
+        xd = x.to(getattr(torch, dt))
+        want, _ = moe.moe_decode(p, xd, cfg)
+        x2 = xd.reshape(-1, cfg.d_model)
+        gates, ids, _ = moe._router(x2, p["router"], cfg.top_k)
+        parts = [moe.expert_block(
+            {k: p[k][r * e_local:(r + 1) * e_local]
+             for k in ("we_i", "we_g", "we_o")}, x2, gates, ids, cfg,
+            rank=r, n_ranks=n) for r in range(n)]
+        got = sum(t.float() for t in parts).to(xd.dtype).reshape(want.shape)
+        tol = DECODE_TOL[xd.dtype]
+        err = float((got.float() - want.float()).abs().max())
+        ok = bool(torch.allclose(got.float(), want.float(), rtol=tol,
+                                 atol=tol) and torch.isfinite(got).all())
+        rows.append({"dtype": dt, "batch": spec["batch"], "ranks": n,
+                     "experts_per_rank": e_local, "max_abs_diff": err,
+                     "max_abs": float(want.float().abs().max()), "tol": tol,
+                     "ok": ok})
+        log(f"[paths] expert_parallel: {base.name} layer 0 MoE, "
+            f"{spec['batch']} rows, {n} ranks x {e_local} experts emulated "
+            f"on one card, {dt}: max |sum of ranks - whole| {err!r} "
+            f"(tol {tol}), ok {ok}")
+        if not ok:
+            fail(f"expert_parallel {dt}: {err} (tol {tol})")
+    return rows
 
 
 def butterfly_merge(parts, merge):

@@ -22,19 +22,21 @@ The port of the reference package's ``launch/steps.py`` on one device.
 
 - ``make_serve_step(cfg, mesh, batch_shardable)`` returns
   ``serve_step(params, caches, tokens, step)``: one ``decode_forward``
-  on ``mesh`` (``launch/mesh.Mesh``), every tensor this rank's block.
-  ``serve_plan`` is the reference's decode plan choice: pure tensor
-  parallelism (``INFERENCE_RULES``) when the bf16 parameters over the
-  model axis fit the memory budget, else ``DEFAULT_RULES`` (FSDP
-  gathers a step); the step carries it (``serve_step.plan``) so that
-  callers shard the parameters as it reads them.
+  on ``mesh`` (``launch/mesh.Mesh``), every tensor this rank's block,
+  for every configuration.  ``serve_plan`` is the reference's decode
+  plan choice: pure tensor parallelism (``INFERENCE_RULES``) when the
+  bf16 parameters (all the experts of a MoE) over the model axis fit
+  the memory budget, else ``DEFAULT_RULES`` (FSDP gathers a step); the
+  step carries it (``serve_step.plan``) so that callers shard the
+  parameters as it reads them.
 - ``input_specs(cfg, shape_name, mesh)`` gives the shape and dtype of
   this rank's block of every input of a cell's step, without
   allocating anything.
 
 The dry-run lowering (``lowering_spec``, ``lower_cell``) lowers through
 XLA in the reference and waits for the port's dry-run slice (ROADMAP
-queue 1 item 8).
+queue 1 item 8, after prefill and training on a mesh and the ``Server``
+on a mesh).
 """
 from __future__ import annotations
 
@@ -249,9 +251,11 @@ def make_serve_step(cfg: ArchConfig, mesh, batch_shardable: bool):
     blocks under ``serve_step.plan`` (``blocks.shard_params`` /
     ``init_sharded_params``), bf16 as the reference's decode lowering
     takes them; the caches from ``init_caches(mesh=, batch_shardable=)``.
-    On a mesh of more than one rank only dense and sliding-window models
-    decode (ROADMAP queue 1 item 8 for the others): raises for them."""
-    mdl.check_mesh_supported(cfg, mesh)
+    Every configuration decodes on any mesh: dense, sliding-window, MoE
+    (experts over ``model``, ``models/moe.expert_mode``), Mamba-2 and the
+    hybrid (heads over ``model``), the encoder-decoder (its memory a
+    cache leaf) and the VLM (a dense decoder once its prefix is
+    cached)."""
     cfg, plan = serve_plan(cfg, mesh)
 
     def serve_step(params, caches, tokens, step):

@@ -15,8 +15,8 @@ The port of the reference package's ``models/attention.py``:
   encoder memory: ``flash_decode`` over the whole memory for one query,
   ``flash_attention(causal=False)`` for more.
 
-The sequence-parallel ``q_offset`` branch of ``attention`` belongs to the
-multi-device layer (ROADMAP queue 1 item 8).
+The sequence-parallel ``q_offset`` branch of ``attention`` belongs to
+prefill and training on a mesh (ROADMAP queue 1 item 8).
 
 Shapes: q (B, Sq, H, hd); k, v (B, Skv, KVH, hd); H = KVH * rep (GQA).
 """

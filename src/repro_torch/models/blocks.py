@@ -20,6 +20,7 @@ import math
 
 import torch
 
+from repro_torch.device import resolve_device
 from repro_torch.parallel.sharding import block_shape, shard
 
 
@@ -182,6 +183,25 @@ def swiglu(x, wi, wg, wo, compute_dtype):
     return h @ wo.to(cd)
 
 
+def wide_mm(a, b):
+    """``a (..., K) @ b (K, N)`` with the products summed, and the result
+    kept, in float32 (at least): the partial sums of a product whose
+    contracted dim is split over ranks.  The all-reduce adds them in
+    float32 and the sum is rounded to the compute dtype once, where the
+    one-device product rounds once; a bf16 partial would round once more
+    on every rank, and those roundings move bf16 logits by several ulps
+    (on the CPU the mesh's bf16 logits are the one device's bits without
+    them).  On the card cuBLAS writes the float32 result itself
+    (``torch.mm(out_dtype=)``)."""
+    wide = torch.promote_types(a.dtype, torch.float32)
+    a2 = a.reshape(-1, a.shape[-1])
+    if a2.is_cuda and a2.dtype != wide:
+        out = torch.mm(a2, b, out_dtype=wide)
+    else:
+        out = a2.to(wide) @ b.to(wide)
+    return out.reshape(*a.shape[:-1], b.shape[-1])
+
+
 def mlp_defs(d_model, d_ff):
     return {
         "wi": ParamDef((d_model, d_ff), ("embed", "mlp")),
@@ -231,5 +251,8 @@ def sinusoidal_at(positions, d_model):
     return pe
 
 
-def sinusoidal_positions(seq_len, d_model, *, device="cpu"):
-    return sinusoidal_at(torch.arange(seq_len, device=device), d_model)
+def sinusoidal_positions(seq_len, d_model, *, device="cuda"):
+    """``sinusoidal_at`` of positions ``0 .. seq_len - 1`` on ``device``
+    (the card unless the caller asks for the CPU)."""
+    return sinusoidal_at(torch.arange(seq_len, device=resolve_device(device)),
+                         d_model)

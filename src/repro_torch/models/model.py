@@ -38,12 +38,14 @@ position to the batch: queue 3).
 
 On a mesh of ranks (``launch/mesh.Mesh``, through
 ``launch/steps.make_serve_step``) ``decode_forward`` runs the decode step
-of a dense or sliding-window model SPMD, each rank on its own blocks of
-the parameters (as a ``parallel/sharding.ShardingPlan`` places them) and
-of the caches (``cache_specs``: the batch over the batch axes when it
-shards, the cache's sequence over ``model`` and, when the batch does not
-shard, over the batch axes too).  The KV cache is split along its
-sequence: each rank runs the flash-decode kernel on its own block, and
+of every configuration SPMD, each rank on its own blocks of the
+parameters (as a ``parallel/sharding.ShardingPlan`` places them) and of
+the caches (``cache_specs``: the batch over the batch axes when it
+shards, the KV cache's sequence over ``model`` and, when the batch does
+not shard, over the batch axes too; a Mamba-2 state over ``model`` on
+its heads, its conv window and the encoder memory whole over ``model``).
+The KV cache is split along its sequence: each rank runs the
+flash-decode kernel on its own block, and
 ``core/collectives.softmax_combine`` merges the partial statistics (m,
 l, acc) over the sequence axes with ``cfg.collective_schedule`` (the
 Gleam aggregation tree for ``gleam_tree``).  Where the reference leaves
@@ -52,14 +54,18 @@ library's collectives: dims of a weight sharded over the batch axes
 (FSDP) are all-gathered before use; outputs of a product whose weight is
 sharded over ``model`` stay sharded until a whole tensor is needed (the
 new token's k and v before the cache write, q before the attention
-core, the logits at the end, all-gathered over ``model``); products that
-contract a sharded dim (``wo`` over heads, the MLP's down projection)
-all-reduce their partial sums over ``model``; the embedding is a masked
-lookup in the rank's rows of the table, summed over the axes that split
-them.  One code path serves both: on ``mesh=None`` or a (1, 1) mesh
-every collective is on an axis of one rank and does nothing, so it is
-the one-device path bit for bit.  MoE, Mamba-2, hybrid, encoder-decoder and VLM decoding on a
-mesh of more than one rank raise (ROADMAP queue 1 item 8).
+core, a Mamba-2 layer's new conv column before its write, the logits at
+the end, all-gathered over ``model``); products that contract a sharded
+dim (``wo`` over heads, the cross-attention's ``xwo``, the MLP's down
+projection, a Mamba-2 layer's ``wo``) all-reduce their partial sums over
+``model``, and the gated norm of a Mamba-2 layer its sum of squares; the
+MoE runs each rank's experts and adds their outputs over ``model``
+(``models/moe.moe_decode``); the embedding is a masked lookup in the
+rank's rows of the table, summed over the axes that split them.  One
+code path serves both: on ``mesh=None`` or a (1, 1) mesh every
+collective is on an axis of one rank and does nothing, so it is the
+one-device path bit for bit.  Prefill and training on a mesh are not
+ported (ROADMAP queue 1 item 8).
 """
 from __future__ import annotations
 
@@ -82,10 +88,10 @@ from repro_torch.models.blocks import (ParamDef, init_params, mlp_defs,
                                        param_specs, rms_norm, rope, silu,
                                        sinusoidal_at, sinusoidal_positions,
                                        stack_defs, swiglu, tree_leaves,
-                                       tree_map, unflatten)
+                                       tree_map, unflatten, wide_mm)
 from repro_torch.parallel import sharding as shd
 
-BATCH_AXES = ("pod", "data")
+BATCH_AXES = shd.BATCH_AXES
 
 # ================================================================ defs
 
@@ -195,9 +201,9 @@ def _register(module: nn.Module, tree: dict) -> None:
 def _weight(p, name, cd, sp=None, mesh=None):
     """``p[name]`` in the compute dtype; on a mesh (``sp`` the specs of
     this rank's blocks) whole along every dim its spec splits over the
-    batch axes (``_fsdp_whole``)."""
+    batch axes (``sharding.fsdp_whole``)."""
     w = p[name].to(cd)
-    return _fsdp_whole(w, sp[name], mesh) if sp else w
+    return shd.fsdp_whole(w, sp[name], mesh) if sp else w
 
 
 def _axes(sp, name, dim):
@@ -303,17 +309,27 @@ def decode_attn_core(q, kc, vc, kv_len, cfg):
     return attn.decode_attention(q, kc, vc, kv_len=kv_len, window=cfg.window)
 
 
-def _cross(p, x, memory, cfg, cd, core):
+def _cross(p, x, memory, cfg, cd, core, sp=None, mesh=None):
     """The cross-attention of an encoder-decoder's sublayer: q from x
     through ``xnorm``/``xwq``, k and v from the encoder memory, ``core``
-    the attention itself."""
+    the attention itself.  On a mesh (``sp`` the specs of this rank's
+    blocks) it runs on the rank's heads of ``xwq`` / ``xwk`` / ``xwv``
+    over the rank's rows of the memory, and ``xwo``'s partial sums are
+    all-reduced."""
     hx = rms_norm(x, p["xnorm"], cfg.norm_eps).to(cd)
-    qx = torch.einsum("bsd,dhk->bshk", hx, p["xwq"].to(cd))
+    qx = torch.einsum("bsd,dhk->bshk", hx, _weight(p, "xwq", cd, sp, mesh))
     mem = memory.to(cd)
-    kx = torch.einsum("bsd,dhk->bshk", mem, p["xwk"].to(cd))
-    vx = torch.einsum("bsd,dhk->bshk", mem, p["xwv"].to(cd))
+    kx = torch.einsum("bsd,dhk->bshk", mem, _weight(p, "xwk", cd, sp, mesh))
+    vx = torch.einsum("bsd,dhk->bshk", mem, _weight(p, "xwv", cd, sp, mesh))
+    if _axes(sp, "xwq", 1) != _axes(sp, "xwk", 1):
+        raise ValueError(f"{cfg.name}: the plan splits the cross-attention's "
+                         f"q heads and kv heads differently")
     ox = core(qx, kx, vx)
-    return x + torch.einsum("bshk,hkd->bsd", ox.to(cd), p["xwo"].to(cd))
+    wo, axes = _weight(p, "xwo", cd, sp, mesh), _axes(sp, "xwo", 0)
+    if not _split(mesh, axes):
+        return x + torch.einsum("bshk,hkd->bsd", ox.to(cd), wo)
+    part = wide_mm(ox.to(cd).flatten(2), wo.flatten(0, 1))
+    return x + coll.psum(part, mesh, axes).to(cd)
 
 
 def attn_decode_apply(p, x, cache, positions, insert, core, cfg,
@@ -340,20 +356,23 @@ def attn_decode_apply(p, x, cache, positions, insert, core, cfg,
     else:
         index, count = shd.block(mesh, axes)
         n = o.shape[2] // count
-        part = _wide_mm(o.narrow(2, index * n, n).to(cd).flatten(2),
+        part = wide_mm(o.narrow(2, index * n, n).to(cd).flatten(2),
                         wo.flatten(0, 1))
         x = x + coll.psum(part, mesh, axes).to(cd)
     if memory is not None:
-        x = _cross(p, x, memory, cfg, cd, attn.cross_attention)
+        x = _cross(p, x, memory, cfg, cd, attn.cross_attention, sp, mesh)
     return x
 
 
-def ffn_apply(p, x, kind, cfg, decode=False, *, sp=None, mesh=None):
+def ffn_apply(p, x, kind, cfg, decode=False, *, sp=None, mesh=None,
+              batch_axes=()):
     """The ffn sublayer: an MLP, a MoE (``models/moe.py``; its decode
     path when ``decode``) or nothing (``kind`` None).  Returns ``(x,
     aux)``, aux the MoE router loss (0.0 otherwise).  On a mesh the MLP
     runs on this rank's blocks (``sp`` their specs), the partial sums of
-    its down projection all-reduced over the axes that split ``d_ff``."""
+    its down projection all-reduced over the axes that split ``d_ff``;
+    the MoE on the rank's experts (``moe.moe_decode``; ``batch_axes`` the
+    axes that split x's rows)."""
     if kind is None:
         return x, 0.0
     cd = getattr(torch, cfg.compute_dtype)
@@ -363,9 +382,10 @@ def ffn_apply(p, x, kind, cfg, decode=False, *, sp=None, mesh=None):
         axes = _axes(sp, "wo", 0)
         if not _split(mesh, axes):
             return x + swiglu(h, wi, wg, wo, cd), 0.0
-        part = _wide_mm(silu(h @ wg) * (h @ wi), wo)
+        part = wide_mm(silu(h @ wg) * (h @ wi), wo)
         return x + coll.psum(part, mesh, axes).to(cd), 0.0
-    y, aux = moe_mod.moe_apply(p, h, cfg, decode=decode)
+    y, aux = moe_mod.moe_apply(p, h, cfg, decode=decode, sp=sp, mesh=mesh,
+                               batch_axes=batch_axes)
     return x + y, aux
 
 
@@ -374,11 +394,13 @@ def _mixer_params(p):
 
 
 def run_blocks_decode(blocks, caches, x, positions, insert, core, cfg,
-                      memory=None, specs=None, mesh=None):
+                      memory=None, specs=None, mesh=None, batch_axes=()):
     """One decode step through the stacked blocks, a Python loop in place
     of the reference's scan; the caches are updated in place (``insert``
-    and ``core`` as ``attn_decode_apply`` takes them).  On a mesh
-    ``specs`` are those of this rank's blocks of ``blocks``."""
+    and ``core`` as ``attn_decode_apply`` takes them; a Mamba-2 layer's
+    conv window and state written back).  On a mesh ``specs`` are those
+    of this rank's blocks of ``blocks`` and of ``caches``, and
+    ``batch_axes`` the axes that split x's rows."""
     layer_specs = tree_map(lambda sp: sp[1:], specs) if specs else {}
     for i, bp in enumerate(block_layers(blocks)):
         for j, (mixer, ffn) in enumerate(cfg.pattern):
@@ -392,13 +414,16 @@ def run_blocks_decode(blocks, caches, x, positions, insert, core, cfg,
                                       sp=sp.get("mixer"), mesh=mesh)
             else:
                 hm = rms_norm(x, sub["mixer"]["norm"], cfg.norm_eps)
-                y, new = ssm_mod.ssm_decode_step(_mixer_params(sub["mixer"]),
-                                                 hm, cache, cfg)
+                msp = sp.get("mixer")
+                y, new = ssm_mod.ssm_decode_step(
+                    _mixer_params(sub["mixer"]), hm, cache, cfg,
+                    sp=_mixer_params(msp) if msp else None, mesh=mesh)
                 for name, t in new.items():
                     cache[name].copy_(t)
                 x = x + y
             x, _ = ffn_apply(sub.get("ffn"), x, ffn, cfg, decode=True,
-                             sp=sp.get("ffn"), mesh=mesh)
+                             sp=sp.get("ffn"), mesh=mesh,
+                             batch_axes=batch_axes)
     return x
 
 
@@ -490,14 +515,13 @@ def decode_forward(params, caches, tokens, step, cfg, *, mesh=None,
     rows and the returned logits' rows (the batch's block over the batch
     axes when ``batch_shardable``, else every row), the logits whole over
     the vocabulary.  ``step`` is the same on every rank; per-row
-    positions need a cache whose sequence is not split.  A (1, 1) mesh
+    positions need a KV cache whose sequence is not split.  A (1, 1) mesh
     runs the same code as ``mesh=None``: every collective on an axis of
     one rank does nothing.
     """
     dev = resolve_device(device)
     _check_on(dev, {"params": params, "caches": caches}, "decode_forward")
     if not _on_one_device(mesh):
-        check_mesh_supported(cfg, mesh)
         if plan is None:
             raise ValueError("decode_forward on a mesh of more than one rank "
                              "needs the plan that placed the parameters")
@@ -520,7 +544,7 @@ def decode_forward(params, caches, tokens, step, cfg, *, mesh=None,
         and n_slots >= cfg.window
     steps = _steps(step, b, n_slots, rolling)
     if steps.ndim == 1:
-        if seq_axes:
+        if seq_axes and n_local:
             raise ValueError("per-row decode positions need a KV cache "
                              "whose sequence is not split over the mesh")
         positions = torch.tensor(steps, dtype=torch.long, device=dev)[:, None]
@@ -531,7 +555,7 @@ def decode_forward(params, caches, tokens, step, cfg, *, mesh=None,
         slot = int(steps) % n_slots if n_slots else None
     kv_len = (torch.clamp(positions[:, 0] + 1, max=n_slots).to(torch.int32)
               if n_slots else None)
-    if seq_axes:
+    if seq_axes and n_local:
         index, _ = shd.block(mesh, seq_axes)
         owner, local = divmod(slot, n_local)
 
@@ -561,7 +585,8 @@ def decode_forward(params, caches, tokens, step, cfg, *, mesh=None,
         x = x + sinusoidal_at(positions, cfg.d_model).to(cd)
     x = run_blocks_decode(params["blocks"], caches, x, positions, insert,
                           core, cfg, memory,
-                          specs["blocks"] if specs else None, mesh)
+                          specs["blocks"] if specs else None, mesh,
+                          batch_axes)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = torch.einsum("bsd,dv->bsv", x.to(cd),
                           _weight(params, "lm_head", cd, specs, mesh))
@@ -628,33 +653,6 @@ def cache_specs(cfg, batch, seq_len, mesh, batch_shardable):
     return specs
 
 
-def check_mesh_supported(cfg, mesh) -> None:
-    """Raise for a model the port does not yet decode on ``mesh`` of more
-    than one rank: only dense and sliding-window models (attention and an
-    MLP in every sublayer, no encoder, no vision prefix) do."""
-    if _on_one_device(mesh) or (
-            all(p == ("attn", "mlp") for p in cfg.pattern)
-            and cfg.enc_layers == 0 and cfg.vision_prefix == 0):
-        return
-    raise NotImplementedError(
-        f"{cfg.name}: decoding on a mesh of more than one rank takes dense "
-        f"and sliding-window models; MoE, Mamba-2, hybrid, encoder-decoder "
-        f"and VLM models come later (ROADMAP queue 1 item 8)")
-
-
-def _fsdp_whole(t, spec, mesh):
-    """``t`` whole along every dim the spec splits over the batch axes
-    (the FSDP per-step gathers); model-axis dims stay split."""
-    for d in range(t.dim()):
-        axes = shd.entry_axes(spec, d)
-        if axes and all(a in BATCH_AXES for a in axes):
-            t = coll.all_gather(t, mesh, axes, d)
-        elif any(a in BATCH_AXES for a in axes):
-            raise ValueError(f"dim {d} of spec {spec} mixes batch and model "
-                             f"axes")
-    return t
-
-
 def split_kv_attention(q, kc, vc, step, cfg, mesh, seq_axes):
     """Split-KV decode attention on this rank's sequence block of the
     cache: the flash-decode kernel over the block's valid prefix
@@ -707,25 +705,6 @@ def _gather_heads(parts, axes, mesh):
 
 def _split(mesh, axes) -> bool:
     return any(mesh.shape[a] > 1 for a in axes)
-
-
-def _wide_mm(a, b):
-    """``a (..., K) @ b (K, N)`` with the products summed, and the result
-    kept, in float32 (at least): the partial sums of a product whose
-    contracted dim is split over ranks.  The all-reduce adds them in
-    float32 and the sum is rounded to the compute dtype once, where the
-    one-device product rounds once; a bf16 partial would round once more
-    on every rank, and those roundings move bf16 logits by several ulps
-    (on the CPU the mesh's bf16 logits are the one device's bits without
-    them).  On the card cuBLAS writes the float32 result itself
-    (``torch.mm(out_dtype=)``)."""
-    wide = torch.promote_types(a.dtype, torch.float32)
-    a2 = a.reshape(-1, a.shape[-1])
-    if a2.is_cuda and a2.dtype != wide:
-        out = torch.mm(a2, b, out_dtype=wide)
-    else:
-        out = a2.to(wide) @ b.to(wide)
-    return out.reshape(*a.shape[:-1], b.shape[-1])
 
 
 # ================================================================ forward

@@ -1,12 +1,11 @@
 """Mixture-of-Experts ffn: top-k routing, capacity-bucketed experts.
 
-The port of the reference package's ``models/moe.py`` on one device.  The
-reference runs ``moe_train`` and ``moe_decode`` under ``shard_map`` with
-experts sharded over the "model" axis ("ep"); on one device that axis has
-size 1, every expert is local (``e_local = n_experts``) and its
-all_to_alls and psums are identities, so what is left is plain tensor
-code, here plain PyTorch (the reference's is jnp; no kernel of the
-reference computes it):
+The port of the reference package's ``models/moe.py``.  The reference
+runs ``moe_train`` and ``moe_decode`` under ``shard_map`` over the
+"model" axis; on one device that axis has size 1, every expert is local
+(``e_local = n_experts``) and its all_to_alls and psums are identities,
+so what is left is plain tensor code, here plain PyTorch (the
+reference's is jnp; no kernel of the reference computes it):
 
 - ``_router``: float32 router logits, softmax, top-k (equal
   probabilities to the lower expert id first, as the reference's top-k
@@ -21,6 +20,24 @@ reference computes it):
   rows sent, ``cap_e = _cap(cap, E, 1)``, gates applied after the
   return), each summing a token's k contributions in k order in the
   compute dtype, as the reference's scatter-add does on the CPU.
+
+``moe_decode`` also runs on a mesh of ranks (``launch/mesh.Mesh``), each
+rank on its blocks of the experts as the sharding plan places them
+(``expert_mode``, ``_specs``): in ``"ep"`` mode (the model axis divides
+the experts) a rank runs its ``n_experts / model`` experts on every
+token of its batch block, expert ids shifted by ``rank * e_local`` and
+foreign ones sent to the sentinel, with ``cap_e = _cap(T k, e_local, 2
+cf)``; in ``"etp"`` mode every expert runs on the rank's slice of
+``moe_d_ff``.  The rank's outputs, in the compute dtype, are added over
+"model" in float32 and rounded once: the reference's ``psum`` of its
+bf16 ``out``, which XLA adds so (the paper's many-to-one aggregation;
+the profiler range ``moe_combine``).  An ``embed`` dim split over the
+batch axes (FSDP) is gathered first, as the reference's ``_gather``
+does.  The batch goes over the batch axes that divide it
+(``_batch_spec``), rows whole on a rank taken to its block and gathered
+back.  ``moe_train``'s expert-parallel
+``all_to_all`` dispatch is not ported (prefill and training on a mesh,
+ROADMAP queue 1 item 8).
 
 The capacity drops are part of the result.  Under autograd (training)
 the gradient reaches the gates (the top-k probabilities renormalised),
@@ -38,7 +55,16 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core import collectives as coll
 from repro_torch.models.blocks import ParamDef, silu
+from repro_torch.parallel import sharding as shd
+
+
+def expert_mode(cfg, model_axis_size: int) -> str:
+    """``"ep"`` where the model axis divides the experts (experts split
+    over it), else ``"etp"`` (every expert on every rank, its ``moe_d_ff``
+    split)."""
+    return "ep" if cfg.n_experts % model_axis_size == 0 else "etp"
 
 
 def moe_defs(cfg):
@@ -49,6 +75,47 @@ def moe_defs(cfg):
         "we_g": ParamDef((e, d, f), ("experts", "embed", "mlp")),
         "we_o": ParamDef((e, f, d), ("experts", "mlp", "embed")),
     }
+
+
+def _fsdp_axes(mesh, enabled: bool = True):
+    """The batch axes of more than one rank: those an FSDP weight's
+    ``embed`` dim is split over."""
+    if not enabled:
+        return ()
+    return tuple(a for a in shd.BATCH_AXES if a in mesh.axis_names
+                 and mesh.shape[a] > 1)
+
+
+def _entry(axes):
+    return axes if len(axes) > 1 else (axes[0] if axes else None)
+
+
+def _trim(spec):
+    spec = list(spec)
+    while spec and spec[-1] is None:
+        spec.pop()
+    return tuple(spec)
+
+
+def _specs(cfg, mesh):
+    """``(mode, router, we_i / we_g, we_o)`` specs, the reference's
+    ``shard_map`` in-specs (trailing whole dims dropped, as
+    ``ShardingPlan.spec`` drops them)."""
+    fspec = _entry(_fsdp_axes(mesh, cfg.fsdp_weights))
+    mode = expert_mode(cfg, mesh.shape["model"])
+    if mode == "ep":
+        ig, o = ("model", fspec, None), ("model", None, fspec)
+    else:
+        ig, o = (None, fspec, "model"), (None, "model", fspec)
+    return mode, (), _trim(ig), _trim(o)
+
+
+def _batch_spec(mesh, batch_axes, batch: int) -> tuple:
+    """The batch axes of more than one rank the batch splits over: none
+    where ``batch`` does not divide their product."""
+    bs = tuple(a for a in batch_axes if a in mesh.axis_names
+               and mesh.shape[a] > 1)
+    return bs if batch % math.prod(mesh.shape[a] for a in bs) == 0 else ()
 
 
 def _top_k(probs, k):
@@ -125,28 +192,90 @@ def moe_train(p, x, cfg):
     return _combine(y, k).reshape(b, s, d).to(x.dtype), aux
 
 
-def moe_decode(p, x, cfg):
-    """Few-token step.  x (B, S, D) -> (y (B, S, D), aux)."""
+def expert_block(p, x2, gates, ids, cfg, *, rank=0, n_ranks=1):
+    """The decode body of one rank: the k contributions of each of the T
+    rows of ``x2`` (T, D) that its experts ``p["we_*"]`` (whole ``embed``
+    dims) compute, weighted by ``gates`` and summed per row (T, D) in the
+    compute dtype.  In ``"ep"`` mode ``p`` holds experts ``rank *
+    e_local`` onward and an id outside them goes to the sentinel; in
+    ``"etp"`` mode (``n_ranks`` not dividing the experts) every expert's
+    ``moe_d_ff`` slice, and the result is the rank's partial sum.  On one
+    device (``rank`` 0 of 1) it is the whole MoE output."""
     cd = getattr(torch, cfg.compute_dtype)
-    b, s, d = x.shape
-    k, e = cfg.top_k, cfg.n_experts
-    x2 = x.reshape(b * s, d)
-    gates, ids, aux = _router(x2, p["router"], k)
+    k = cfg.top_k
+    e_local = p["we_i"].shape[0]
+    if expert_mode(cfg, n_ranks) == "ep":
+        lids = ids - rank * e_local
+        lids = torch.where((lids >= 0) & (lids < e_local), lids, e_local)
+    else:
+        lids = ids
     n = ids.numel()
-    tok = torch.arange(n, device=x.device) // k
-    y = _bucket_ffn(x2[tok], ids.reshape(-1), e,
-                    _cap(n, e, cfg.capacity_factor * 2),
+    tok = torch.arange(n, device=x2.device) // k
+    y = _bucket_ffn(x2[tok], lids.reshape(-1), e_local,
+                    _cap(n, e_local, cfg.capacity_factor * 2),
                     p["we_i"], p["we_g"], p["we_o"], cd)
     y = y * gates.reshape(-1, 1).to(y.dtype)
-    return _combine(y, k).reshape(b, s, d).to(x.dtype), aux
+    return _combine(y, k)
 
 
-def moe_apply(p, x, cfg, decode=False):
+def moe_decode(p, x, cfg, *, sp=None, mesh=None, batch_axes=()):
+    """Few-token step.  x (B, S, D) -> (y (B, S, D), aux).  On a mesh
+    ``p`` holds this rank's blocks (``sp`` their specs), ``x`` this
+    rank's rows (split over ``batch_axes``, whole where that is empty);
+    y is the same on every rank of "model"."""
+    b, s, d = x.shape
+    x2 = x.reshape(b * s, d)
+    if mesh is None or all(n == 1 for n in mesh.dims):
+        gates, ids, aux = _router(x2, p["router"], cfg.top_k)
+        out = expert_block(p, x2, gates, ids, cfg)
+        return out.reshape(b, s, d).to(x.dtype), aux
+    m = mesh.shape["model"]
+    mode, _, ig, o = _specs(cfg, mesh)
+    if m > 1 and "model" not in shd.entry_axes(sp["we_i"],
+                                               0 if mode == "ep" else 2):
+        raise ValueError(f"{cfg.name}: the plan places the experts as "
+                         f"{sp['we_i']}, {mode!r} mode needs {ig}")
+    rows = _batch_spec(mesh, shd.BATCH_AXES, b * math.prod(
+        mesh.shape[a] for a in batch_axes))
+    if tuple(batch_axes) not in ((), rows):
+        raise ValueError(f"rows split over {batch_axes}, the MoE splits "
+                         f"them over {rows}")
+    split = rows if not batch_axes else ()
+    if split:                       # this rank's block of whole rows
+        index, count = shd.block(mesh, split)
+        x2 = x2.narrow(0, index * (b * s // count), b * s // count)
+    gates, ids, aux = _router(x2, p["router"], cfg.top_k)
+    w = {n: shd.fsdp_whole(p[n], sp[n], mesh)
+         for n in ("we_i", "we_g", "we_o")}
+    out = expert_block(w, x2, gates, ids, cfg, rank=mesh.axis_index("model"),
+                       n_ranks=m)
+    # the many-to-one combine: the ranks' outputs in the compute dtype,
+    # added in float32 (at least) and rounded once, as the reference's
+    # psum of its bf16 out adds them
+    wide = torch.promote_types(out.dtype, torch.float32)
+    with torch.profiler.record_function("moe_combine"):
+        out = coll.psum(out.to(wide), mesh, ("model",)).to(out.dtype)
+    axes = ("model",) + _fsdp_axes(mesh)
+    aux = coll.psum(aux, mesh, axes) / math.prod(mesh.shape[a] for a in axes)
+    out = coll.all_gather(out, mesh, split, 0)
+    return out.reshape(b, s, d).to(x.dtype), aux
+
+
+def moe_apply(p, x, cfg, decode=False, *, sp=None, mesh=None,
+              batch_axes=()):
     """``moe_decode`` for a decode step, else ``moe_train`` (on one device
-    the reference's sequence-divisibility test always holds)."""
+    the reference's sequence-divisibility test always holds).  On a mesh
+    (``sp``, ``mesh``, ``batch_axes`` as ``moe_decode`` takes them) only
+    the decode step runs."""
     if cfg.moe_impl != "bucket":
         raise NotImplementedError(
             f"{cfg.name}: moe_impl {cfg.moe_impl!r} is not ported; the "
             f"port groups experts by capacity buckets only (ROADMAP queue "
             f"1 item 7)")
-    return (moe_decode if decode else moe_train)(p, x, cfg)
+    if decode:
+        return moe_decode(p, x, cfg, sp=sp, mesh=mesh, batch_axes=batch_axes)
+    if mesh is not None and any(n > 1 for n in mesh.dims):
+        raise NotImplementedError(
+            f"{cfg.name}: moe_train on a mesh of more than one rank is not "
+            f"ported (ROADMAP queue 1 item 8)")
+    return moe_train(p, x, cfg)

@@ -9,16 +9,20 @@ on a CUDA tensor, its plain version on a CPU tensor, differentiable on
 both.  B and C are one group (G = 1) shared by every head.  The
 single-token decode step (``ssm_decode_init``, ``ssm_decode_step``) is
 plain PyTorch, as the reference's is jnp: a (B, H, N, P) state update a
-token, which no kernel of the reference computes.
+token, which no kernel of the reference computes.  It also runs on a
+mesh of ranks, each on its block of the heads (``ssm_decode_step``).
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core import collectives as coll
+from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import ssd_chunked  # noqa: F401 (the oracle)
-from repro_torch.models.blocks import ParamDef, rms_norm, silu
+from repro_torch.models.blocks import ParamDef, rms_norm, silu, wide_mm
+from repro_torch.parallel import sharding as shd
 
 
 def ssm_dims(cfg):
@@ -89,10 +93,12 @@ def ssm_apply(p, x, cfg, *, chunk=256):
     return y @ p["wo"].to(cd), state
 
 
-def ssm_decode_init(cfg, batch, dtype=torch.float32, *, device="cpu"):
-    """Zero caches of one Mamba-2 layer: the last K - 1 conv inputs
-    ``conv`` (B, K - 1, d_in + 2N) in ``dtype`` and the state ``state``
-    (B, H, N, P) in float32."""
+def ssm_decode_init(cfg, batch, dtype=torch.float32, *, device="cuda"):
+    """Zero caches of one Mamba-2 layer on ``device`` (the card unless the
+    caller asks for the CPU): the last K - 1 conv inputs ``conv`` (B,
+    K - 1, d_in + 2N) in ``dtype`` and the state ``state`` (B, H, N, P)
+    in float32."""
+    device = resolve_device(device)
     d_in, h, p, n, k = ssm_dims(cfg)
     return {"conv": torch.zeros((batch, k - 1, d_in + 2 * n), dtype=dtype,
                                 device=device),
@@ -100,38 +106,82 @@ def ssm_decode_init(cfg, batch, dtype=torch.float32, *, device="cpu"):
                                  device=device)}
 
 
-def ssm_decode_step(p, x, cache, cfg):
+def _gated_norm(y, scale, eps, mesh, axes, width):
+    """``rms_norm`` of a row whose ``width`` channels are split over
+    ``axes``: the sum of squares of the rank's block all-reduced in
+    float32 (at least) before the scale, so every rank divides by the
+    whole row's mean square."""
+    dt = y.dtype
+    yf = y.to(torch.promote_types(dt, torch.float32))
+    ss = coll.psum((yf * yf).sum(-1, keepdim=True), mesh, axes)
+    yf = yf * torch.rsqrt(ss / width + eps)
+    return (yf * scale.to(yf.dtype)).to(dt)
+
+
+def ssm_decode_step(p, x, cache, cfg, *, sp=None, mesh=None):
     """Single-token step.  x (B, 1, D) -> (y (B, 1, D), new cache), the
     reference's arithmetic op by op: the conv window and its product in
     the compute dtype (the product summed over the K taps in float32 and
     rounded once, as a dot), dt, the decay and the state in float32.
     The new cache is returned as new tensors; the caller writes it back.
+
+    On a mesh ``p`` holds this rank's blocks (``sp`` their specs): its
+    block of heads (``ssm_heads``) and of their channels (``ssm_inner``:
+    ``wz``, ``wx``, ``conv_x``, ``gnorm``, ``wo``), ``wB``, ``wC`` and the
+    B / C taps whole, dims split over the batch axes gathered first
+    (FSDP).  The state is the rank's heads; the conv cache stays whole on
+    every rank, as the reference's is, so the new column of the window is
+    gathered over the heads' axes before the write.  The gated norm's sum
+    of squares is all-reduced over them (``_gated_norm``) and ``wo``'s
+    partial sums are added in float32 by an all-reduce.  A plan must split
+    the channels as it splits the heads.
     """
     cd = getattr(torch, cfg.compute_dtype)
     acc = torch.promote_types(cd, torch.float32)
     d_in, h, hp, n, k = ssm_dims(cfg)
+    axes = ()
+    if sp:
+        axes = shd.entry_axes(sp["wx"], 1)
+        if axes != shd.entry_axes(sp["wdt"], 1):
+            raise ValueError(f"{cfg.name}: the plan splits the SSM channels "
+                             f"over {axes}, its heads otherwise")
+        p = {name: shd.fsdp_whole(t, sp[name], mesh) for name, t in p.items()}
+    index, count = shd.block(mesh, axes) if axes else (0, 1)
+    d_loc, h_loc = d_in // count, h // count
+    if cache["state"].shape[1] != h_loc:
+        raise ValueError(f"a state of {cache['state'].shape[1]} heads, the "
+                         f"rank's weights hold {h_loc}")
     xt = x[:, 0].to(cd)                                   # (B, D)
     z = xt @ p["wz"].to(cd)
-    xbc = torch.cat([xt @ p["wx"].to(cd), xt @ p["wB"].to(cd),
-                     xt @ p["wC"].to(cd)], dim=-1)       # (B, d_in + 2N)
+    xin = xt @ p["wx"].to(cd)
+    bc = torch.cat([xt @ p["wB"].to(cd), xt @ p["wC"].to(cd)], dim=-1)
+    xbc = torch.cat([coll.all_gather(xin, mesh, axes, 1), bc],
+                    dim=-1)                               # (B, d_in + 2N)
     dt_raw = xt @ p["wdt"].to(cd)
     conv_w = torch.cat([p["conv_x"], p["conv_B"], p["conv_C"]],
-                       dim=1).to(cd)                     # (K, d_in + 2N)
+                       dim=1).to(cd)                     # (K, d_loc + 2N)
     window = torch.cat([cache["conv"].to(cd), xbc[:, None]], dim=1)
-    conv_out = silu(torch.einsum("bkc,kc->bc", window.to(acc),
+    mine = window if count == 1 else torch.cat(
+        [window[..., index * d_loc:(index + 1) * d_loc],
+         window[..., d_in:]], dim=-1)
+    conv_out = silu(torch.einsum("bkc,kc->bc", mine.to(acc),
                                  conv_w.to(acc)).to(cd))
-    xin = conv_out[:, :d_in]
-    B_ = conv_out[:, d_in:d_in + n].to(acc)
-    C_ = conv_out[:, d_in + n:].to(acc)
+    xin = conv_out[:, :d_loc]
+    B_ = conv_out[:, d_loc:d_loc + n].to(acc)
+    C_ = conv_out[:, d_loc + n:].to(acc)
     dt = F.softplus(dt_raw.to(acc) + p["dt_bias"].to(acc))   # (B, H)
     a = -torch.exp(p["A_log"].to(acc)) * dt
-    xh = xin.reshape(-1, h, hp).to(acc)
+    xh = xin.reshape(-1, h_loc, hp).to(acc)
     state = cache["state"] * torch.exp(a)[..., None, None] + torch.einsum(
         "bn,bh,bhp->bhnp", B_, dt, xh)
     y = torch.einsum("bn,bhnp->bhp", C_, state)
     y = y + p["D"].to(acc)[:, None] * xh
-    y = rms_norm(y.reshape(-1, d_in).to(cd) * silu(z), p["gnorm"],
-                 cfg.norm_eps)
-    out = (y @ p["wo"].to(cd))[:, None]
-    return out, {"conv": window[:, 1:].to(cache["conv"].dtype),
-                 "state": state}
+    y = y.reshape(-1, d_loc).to(cd) * silu(z)
+    if count == 1:
+        y = rms_norm(y, p["gnorm"], cfg.norm_eps)
+        out = y @ p["wo"].to(cd)
+    else:
+        y = _gated_norm(y, p["gnorm"], cfg.norm_eps, mesh, axes, d_in)
+        out = coll.psum(wide_mm(y, p["wo"].to(cd)), mesh, axes).to(cd)
+    return out[:, None], {"conv": window[:, 1:].to(cache["conv"].dtype),
+                          "state": state}

@@ -30,6 +30,9 @@ import torch
 
 from repro_torch.core import collectives as coll
 
+#: the mesh axes a batch (and an FSDP weight's ``embed`` dim) splits over
+BATCH_AXES = ("pod", "data")
+
 # Logical axis -> ordered candidate mesh-axis tuples.  Each candidate is a
 # tuple of mesh axes (a logical dim may be sharded by several mesh axes at
 # once, e.g. batch over (pod, data)).  First candidate whose axes are all
@@ -215,4 +218,17 @@ def gather(t, spec: tuple, mesh):
     (library all-gathers along each sharded dim)."""
     for d in range(t.dim()):
         t = coll.all_gather(t, mesh, entry_axes(spec, d), d)
+    return t
+
+
+def fsdp_whole(t, spec: tuple, mesh):
+    """``t`` whole along every dim the spec splits over the batch axes
+    (the FSDP per-step gathers); model-axis dims stay split."""
+    for d in range(t.dim()):
+        axes = entry_axes(spec, d)
+        if axes and all(a in BATCH_AXES for a in axes):
+            t = coll.all_gather(t, mesh, axes, d)
+        elif any(a in BATCH_AXES for a in axes):
+            raise ValueError(f"dim {d} of spec {spec} mixes batch and model "
+                             f"axes")
     return t

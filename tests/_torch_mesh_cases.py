@@ -151,8 +151,9 @@ def serve_inputs(arch, cfg, seed=0):
 
 
 #: (arch, cell, mesh) whose ``input_specs`` blocks are held to the
-#: reference's: every step kind, the SSM and encoder-decoder caches, and
-#: both decode plans (where the two budgets choose alike)
+#: reference's: every step kind, the SSM and encoder-decoder caches, every
+#: family's decode cell, and both decode plans (where the two budgets
+#: choose alike: on (1, 4) no batch axis splits a weight under either)
 INPUT_SPEC_CELLS = (
     ("granite_3_2b", "train_4k", (2, 4)),
     ("granite_3_2b", "prefill_32k", (2, 4)),
@@ -164,4 +165,98 @@ INPUT_SPEC_CELLS = (
     ("mamba2_370m", "decode_32k", (2, 4)),
     ("whisper_medium", "decode_32k", (2, 2)),
     ("internvl2_26b", "prefill_32k", (1, 4)),
+    ("mixtral_8x7b", "decode_32k", (1, 4)),
+    ("qwen3_moe_235b_a22b", "decode_32k", (2, 4)),
+    ("jamba_v0_1_52b", "decode_32k", (1, 4)),
+    ("internvl2_26b", "decode_32k", (1, 4)),
 )
+
+
+# ------------------------------------------------------------ families
+
+#: the families of ``tests/test_torch_mesh_families.py``
+FAMILY_ARCHES = ("mixtral_8x7b", "qwen3_moe_235b_a22b", "mamba2_370m",
+                 "jamba_v0_1_52b", "whisper_medium", "internvl2_26b")
+#: first position of the three steps: mixtral's 32-slot rolling buffer is
+#: past its window; every other cache holds 21 valid slots before it
+FAMILY_START = {"mixtral_8x7b": 45, "qwen3_moe_235b_a22b": 21,
+                "mamba2_370m": 21, "jamba_v0_1_52b": 21,
+                "whisper_medium": 21, "internvl2_26b": 21}
+
+
+def family_cases():
+    """``(key, arch, shape, batch_shardable, schedule, dtype)``: every
+    family on (1, 4) (the sequence over ``model``) and (2, 2) (the batch
+    over ``data``) in float32 and bf16 under ``xla``; (1, 4) under
+    ``gleam_tree`` in float32; (2, 2) with whole rows (the MoE takes its
+    batch block) for mixtral and jamba; and mixtral and jamba on (1, 8),
+    where 4 experts on 8 ranks run in ``"etp"`` mode."""
+    out = []
+    for arch in FAMILY_ARCHES:
+        for (shape, bs), dt in itertools.product(
+                (((1, 4), False), ((2, 2), True)), DTYPES):
+            out.append((arch, shape, bs, "xla", dt))
+        out.append((arch, (1, 4), False, "gleam_tree", "float32"))
+    for arch in ("mixtral_8x7b", "jamba_v0_1_52b"):
+        out.append((arch, (2, 2), False, "xla", "float32"))
+        out += [(arch, (1, 8), False, "xla", dt) for dt in DTYPES]
+    return [(family_key(c),) + c for c in out]
+
+
+def family_key(case):
+    arch, shape, bs, sched, dt = case
+    return (f"{arch}/{shape[0]}x{shape[1]}/{'bs' if bs else 'seq'}/{sched}/"
+            f"{dt}")
+
+
+def family_inputs(cfg, structs, start, seed=0):
+    """Whole caches ``{"c:<dotted leaf>": float32 array}`` for the cache
+    tree ``structs`` (``{dotted leaf: shape}``): every attention
+    sublayer's k and v N(0, 1) below ``start`` (all of a rolling buffer),
+    each Mamba-2 conv window and state N(0, 1), the encoder memory N(0,
+    1); and the tokens of the three steps (steps, B, 1)."""
+    rng = np.random.default_rng(seed + 2)
+    out = {}
+    for name, shape in sorted(structs.items()):
+        a = rng.standard_normal(shape).astype(np.float32)
+        if name.endswith((".k", ".v")):
+            fill = min(start, shape[2])
+            a[:, :, fill:] = 0
+        out[f"c:{name}"] = a
+    out["tokens"] = rng.integers(0, cfg.vocab_size,
+                                 (SERVE_STEPS, SERVE_BATCH, 1)).astype(
+                                     np.int32)
+    return out
+
+
+#: (mesh shape, batch_shardable) of the sublayer pieces; mixtral and
+#: jamba also run on (1, 8) ("etp")
+PIECE_MESHES = (((1, 4), False), ((2, 2), True))
+
+
+def piece_parts(pattern):
+    """``(sublayer index, "mixer" or "ffn", kind)`` of the first sublayer
+    of each kind in a block's pattern."""
+    seen, out = set(), []
+    for j, (mixer, ffn) in enumerate(pattern):
+        for part, kind in (("mixer", mixer), ("ffn", ffn)):
+            if kind and kind not in seen:
+                seen.add(kind)
+                out.append((j, part, kind))
+    return out
+
+
+def piece_cases(patterns):
+    """``(key, arch, shape, batch_shardable, j, part, kind)`` of every
+    family's sublayer kinds on ``PIECE_MESHES`` (and (1, 8) for mixtral
+    and jamba); ``patterns`` maps an arch to its smoke pattern."""
+    out = []
+    for arch in FAMILY_ARCHES:
+        meshes = PIECE_MESHES + ((((1, 8), False),) if arch in (
+            "mixtral_8x7b", "jamba_v0_1_52b") else ())
+        for (shape, bs) in meshes:
+            for j, part, kind in piece_parts(patterns[arch]):
+                key = (f"{arch}/{shape[0]}x{shape[1]}/{'bs' if bs else 'seq'}"
+                       f"/sub{j}/{kind}")
+                out.append((key, arch, shape, bs, j, part, kind))
+    return out

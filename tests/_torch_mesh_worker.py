@@ -145,6 +145,176 @@ def job_serve(rank, world, workdir):
     return out
 
 
+def job_families(rank, world, workdir):
+    """Each family case of this world (4 ranks: (1, 4) and (2, 2); 8:
+    (1, 8)): three steps through ``make_serve_step`` from caches filled
+    whole and cut to the rank's blocks, the logits of every step and
+    every final cache leaf gathered whole (``serve``); and the sublayer
+    pieces of ``_family_pieces`` (``pieces``)."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch import steps as port_steps
+    from repro_torch.models import model as mdl
+    from repro_torch.models.blocks import shard_params, tree_leaves, unflatten
+    from repro_torch.parallel import sharding as shd
+    meshes, out = {}, {}
+    for key, arch, shape, bs, sched, dt in cases.family_cases():
+        if shape[0] * shape[1] != world:
+            continue
+        if shape not in meshes:
+            meshes[shape] = make_mesh(shape, ("data", "model"), device="cpu")
+        mesh = meshes[shape]
+        cfg = get_config(arch, smoke=True).replace(compute_dtype=dt,
+                                                   collective_schedule=sched)
+        data = np.load(os.path.join(workdir, f"family_{arch}.npz"))
+        step_fn = port_steps.make_serve_step(cfg, mesh, bs)
+        whole = unflatten({k[2:]: torch.from_numpy(data[k]) for k in data
+                           if k.startswith("p:")})
+        params = shard_params(whole, mdl.model_defs(cfg), step_fn.plan, mesh)
+        cdt = getattr(torch, dt)
+        caches = mdl.init_caches(step_fn.cfg, cases.SERVE_BATCH,
+                                 cases.SERVE_SEQ, mesh=mesh,
+                                 batch_shardable=bs, dtype=cdt, device="cpu")
+        specs = dict(tree_leaves(mdl.cache_specs(
+            cfg, cases.SERVE_BATCH, cases.SERVE_SEQ, mesh, bs)))
+        leaves = dict(tree_leaves(caches))
+        for name, t in leaves.items():
+            t.copy_(shd.shard(torch.from_numpy(data[f"c:{name}"]).to(t.dtype),
+                              specs[name], mesh))
+        tok_spec = (mdl._bspec(mesh) if bs else None, None)
+        logits = []
+        for i in range(cases.SERVE_STEPS):
+            tok = shd.shard(torch.from_numpy(data["tokens"][i]).long(),
+                            tok_spec, mesh)
+            got, caches = step_fn(params, caches, tok,
+                                  cases.FAMILY_START[arch] + i)
+            logits.append(shd.gather(got, tok_spec + (None,), mesh).numpy())
+        out[key] = {"logits": np.stack(logits),
+                    "plan": "default" if step_fn.cfg.fsdp_weights
+                    else "inference",
+                    **{f"c:{n}": shd.gather(t, specs[n], mesh).float().numpy()
+                       for n, t in tree_leaves(caches)}}
+    return {"serve": out, "pieces": _family_pieces(world, workdir)}
+
+
+def _family_pieces(world, workdir):
+    """Each family's sublayer kinds of block 0 in float32 on this world's
+    meshes: the rank's blocks (split-KV attention with the owner's write,
+    the cross-attention, the Mamba-2 step on its heads, the MLP, the MoE)
+    against the whole sublayer on this rank, on the same input and
+    caches.  Every rank returns, for the output and every new cache leaf,
+    max |mesh - whole| over 1e-5 (1 + max |whole|): a sublayer sums
+    terms on the scale of its largest output, so its float32 rounding is
+    on that scale (``tools/chip_mesh.py``'s band of a sublayer)."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch import steps as port_steps
+    from repro_torch.models import model as mdl
+    from repro_torch.models import ssm as ssm_mod
+    from repro_torch.models.blocks import (param_specs, rms_norm,
+                                           shard_params, tree_map, unflatten)
+    from repro_torch.parallel import sharding as shd
+    patterns = {a: get_config(a, smoke=True).pattern
+                for a in cases.FAMILY_ARCHES}
+    meshes, out = {}, {}
+
+    def ratio(got, want):
+        return float((got - want).abs().max()
+                     / (1e-5 * (1 + want.abs().max())))
+
+    for key, arch, shape, bs, j, part, kind in cases.piece_cases(patterns):
+        if shape[0] * shape[1] != world:
+            continue
+        if shape not in meshes:
+            meshes[shape] = make_mesh(shape, ("data", "model"), device="cpu")
+        mesh = meshes[shape]
+        cfg = get_config(arch, smoke=True).replace(compute_dtype="float32")
+        step_fn = port_steps.make_serve_step(cfg, mesh, bs)
+        cfg = step_fn.cfg
+        data = np.load(os.path.join(workdir, f"family_{arch}.npz"))
+        whole = unflatten({k[2:]: torch.from_numpy(data[k]) for k in data
+                           if k.startswith("p:")})
+        defs = mdl.model_defs(cfg)
+        sub = f"sub{j}"
+        mine = tree_map(lambda a: a[0], shard_params(
+            whole, defs, step_fn.plan, mesh)["blocks"][sub][part])
+        full = tree_map(lambda a: a[0], whole["blocks"][sub][part])
+        sp = tree_map(lambda s: s[1:], param_specs(
+            defs, step_fn.plan)["blocks"][sub][part])
+        cspecs = mdl.cache_specs(cfg, cases.SERVE_BATCH, cases.SERVE_SEQ,
+                                 mesh, bs)
+        rows = (mdl._bspec(mesh) if bs else None,)
+        batch_axes = shd.entry_axes(rows, 0)
+        x = torch.from_numpy(np.random.default_rng(j).standard_normal(
+            (cases.SERVE_BATCH, 1, cfg.d_model)).astype(np.float32))
+        step = cases.FAMILY_START[arch]
+
+        def leaf(name, spec=None):
+            t = torch.from_numpy(data[f"c:{name}"])
+            return t if spec is None else shd.shard(t, spec, mesh)
+
+        res = {}
+        if part == "ffn":
+            got, _ = mdl.ffn_apply(mine, shd.shard(x, rows, mesh), kind, cfg,
+                                   decode=True, sp=sp, mesh=mesh,
+                                   batch_axes=batch_axes)
+            want, _ = mdl.ffn_apply(full, x, kind, cfg, decode=True)
+            res["out"] = ratio(shd.gather(got, rows, mesh), want)
+        elif kind == "mamba":
+            lsp = {n: sp_[1:] for n, sp_ in cspecs["layers"][sub].items()}
+            cache = {n: leaf(f"layers.{sub}.{n}")[0] for n in ("conv",
+                                                            "state")}
+            mc = {n: shd.shard(t, lsp[n], mesh) for n, t in cache.items()}
+            hm = rms_norm(x, full["norm"], cfg.norm_eps)
+            def drop(p):
+                return {k: v for k, v in p.items() if k != "norm"}
+            got, new = ssm_mod.ssm_decode_step(drop(mine), shd.shard(
+                hm, rows, mesh), mc, cfg, sp=drop(sp), mesh=mesh)
+            want, new1 = ssm_mod.ssm_decode_step(drop(full), hm, cache, cfg)
+            res["out"] = ratio(shd.gather(got, rows, mesh), want)
+            for n in new:
+                res[n] = ratio(shd.gather(new[n], lsp[n], mesh), new1[n])
+        else:
+            kvspec = cspecs["layers"][sub]["k"][1:]
+            kv = {n: leaf(f"layers.{sub}.{n}")[0] for n in ("k", "v")}
+            mkv = {n: shd.shard(t, kvspec, mesh).clone() for n, t in
+                   kv.items()}
+            n_slots = kv["k"].shape[1]
+            slot = step % n_slots
+            seq_axes = mdl._seq_axes(mesh, bs)
+            index, _ = shd.block(mesh, seq_axes)
+            owner, local = divmod(slot, mkv["k"].shape[1])
+            positions = torch.full((cases.SERVE_BATCH, 1), step)
+
+            def insert(kc, vc, k, v):
+                if owner == index:
+                    return mdl.cache_insert(kc, vc, k, v, local)
+                return kc, vc
+
+            def core(q, kc, vc):
+                return mdl.split_kv_attention(q, kc, vc, step, cfg, mesh,
+                                              seq_axes)
+
+            def insert1(kc, vc, k, v):
+                return mdl.cache_insert(kc, vc, k, v, slot)
+
+            def core1(q, kc, vc):
+                return mdl.decode_attn_core(q, kc, vc, torch.full(
+                    (q.shape[0],), min(step + 1, n_slots),
+                    dtype=torch.int32), cfg)
+            memory = leaf("memory") if cfg.enc_layers else None
+            got = mdl.attn_decode_apply(
+                mine, shd.shard(x, rows, mesh), mkv,
+                shd.shard(positions, rows, mesh), insert, core, cfg,
+                None if memory is None else shd.shard(
+                    memory, cspecs["memory"], mesh), sp=sp, mesh=mesh)
+            want = mdl.attn_decode_apply(full, x, kv, positions, insert1,
+                                         core1, cfg, memory)
+            res["out"] = ratio(shd.gather(got, rows, mesh), want)
+            for n in ("k", "v"):
+                res[n] = ratio(shd.gather(mkv[n], kvspec, mesh), kv[n])
+        out[key] = res
+    return out
+
+
 def job_ckpt_save(rank, world, workdir):
     """Shard a granite smoke tree on a (2, 2) mesh, gather it whole and
     write it from rank 0 (a checkpoint written on 4 ranks)."""

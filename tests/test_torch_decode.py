@@ -28,7 +28,7 @@ from repro_torch.models import model as port_model
 from repro_torch.models import ssm as port_ssm
 from repro_torch.models.blocks import tree_leaves
 
-from _torch_parity import op_by_op, ported, run_ref, to_np
+from _torch_parity import drawn_params, op_by_op, ported, run_ref, to_np
 
 DECODE_TOL = {"float32": 1e-3, "bfloat16": 3e-2}
 STEP_TOL = {"float32": 1e-5, "bfloat16": 3e-2}
@@ -94,7 +94,7 @@ def test_init_caches_is_the_reference_tree(arch):
         assert str(leaf.dtype).split(".")[-1] == str(f32[name].dtype)
     if "mamba" in {m for m, _ in cfg.pattern}:
         w = ref_ssm.ssm_decode_init(cfg, 2)
-        g = port_ssm.ssm_decode_init(pcfg, 2)
+        g = port_ssm.ssm_decode_init(pcfg, 2, device="cpu")
         assert {k: (tuple(v.shape), str(v.dtype).split(".")[-1])
                 for k, v in g.items()} == \
             {k: (v.shape, str(v.dtype)) for k, v in w.items()}
@@ -109,8 +109,25 @@ def test_whisper_decode_matches_reference(compute_dtype):
     batch: a (B,) step raises there for B > 1, ROADMAP queue 3); float32
     at one row with a (1,) step (the reference's scalar branch cannot
     write a float32 k into its bf16 cache: queue 3)."""
+    whisper_parity(compute_dtype)
+
+
+@pytest.mark.parametrize("compute_dtype", sorted(DECODE_TOL))
+def test_whisper_decode_matches_reference_at_drawn_leaves(compute_dtype):
+    """The same eight steps with every leaf drawn
+    (``_torch_parity.drawn_params``): at seed-0 leaves the q/k/v biases
+    are 0 and the norm scales 1, so only drawn leaves test them."""
+    params = drawn_params("whisper_medium", 11)
+    mixer = params["blocks"]["sub0"]["mixer"]
+    assert all(float(jnp.abs(mixer[n]).min()) > 0 for n in ("bq", "bk",
+                                                            "bv"))
+    whisper_parity(compute_dtype, params)
+
+
+def whisper_parity(compute_dtype, params=None):
     tol = DECODE_TOL[compute_dtype]
-    cfg, pcfg, params, model = ported("whisper_medium", compute_dtype)
+    cfg, pcfg, params, model = ported("whisper_medium", compute_dtype,
+                                      params)
     mesh = single_device_mesh()
     b = 3 if compute_dtype == "bfloat16" else 1
     rc = ref_model.init_caches(cfg, b, 32)

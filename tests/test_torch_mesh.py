@@ -14,7 +14,9 @@ reference package.
   divides, both ``softmax_combine`` schedules, in float32 (within 1e-4
   of the reference's serve step on the same mesh, 1e-5 of the port on
   one device) and bf16 (2e-2, the reference test's band), under the
-  serve plan and the default (FSDP) plan; the final caches too.
+  serve plan and the default (FSDP) plan; the final caches too.  The
+  other families' serve steps are held in
+  ``tests/test_torch_mesh_families.py``.
 
 The reference runs once per module in a subprocess on 8 host devices and
 the port in two gloo worlds (4 and 8 ranks, ``tests/_torch_dist.py``:
@@ -389,16 +391,24 @@ def test_single_device_mesh_is_the_one_device_path():
                            caches[1]["layers"]["sub0"][n])
 
 
-@pytest.mark.parametrize("arch", ["mixtral_8x7b", "mamba2_370m",
-                                  "jamba_v0_1_52b", "whisper_medium",
-                                  "internvl2_26b"])
-def test_serve_step_on_a_mesh_raises_for_later_families(arch):
-    cfg = port_base.get_config(arch, smoke=True)
-    mesh = port_mesh.abstract_mesh((1, 4), ("data", "model"))
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-        port_steps.make_serve_step(cfg, mesh, batch_shardable=False)
-    assert callable(port_steps.make_serve_step(
-        cfg, port_mesh.single_device_mesh(device="cpu"), False))
+@pytest.mark.parametrize("arch", ref_base.ARCH_IDS)
+def test_serve_step_on_a_mesh_takes_every_family(arch):
+    """``make_serve_step`` builds for every configuration on meshes of
+    more than one rank, with the reference's decode plan: mixtral_8x7b
+    and jamba_v0_1_52b whole (all their experts counted) fit half a card
+    on (1, 4) and take the inference plan, qwen3-MoE-235B does not."""
+    cfg = port_base.get_config(arch)
+    for shape in ((1, 4), (2, 2), (16, 16)):
+        mesh = port_mesh.abstract_mesh(shape, ("data", "model"))
+        step = port_steps.make_serve_step(cfg, mesh, batch_shardable=False)
+        want = port_blocks.count_params(port_model.model_defs(cfg)) * 2 \
+            / shape[1] <= port_steps.CARD_BYTES / 2
+        assert (step.plan.rules is port_sharding.INFERENCE_RULES) == want
+        assert step.cfg.fsdp_weights == (not want)
+    if arch in ("mixtral_8x7b", "jamba_v0_1_52b"):
+        assert port_steps.make_serve_step(
+            cfg, port_mesh.abstract_mesh((1, 4), ("data", "model")),
+            False).plan.rules is port_sharding.INFERENCE_RULES
 
 
 def test_serve_plan_follows_the_budget():
@@ -429,6 +439,7 @@ import repro_torch.launch.mesh, repro_torch.parallel.sharding
 import repro_torch.core.collectives, repro_torch.parallel.pipeline
 import repro_torch.runtime.elastic, repro_torch.launch.steps
 import repro_torch.models.model, repro_torch.checkpoint.sharded
+import repro_torch.models.moe, repro_torch.models.ssm
 assert not any(m == "jax" or m.startswith(("jax.", "repro."))
                for m in sys.modules)
 print("ok")

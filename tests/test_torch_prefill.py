@@ -65,7 +65,8 @@ from _torch_parity import to_np as _np
 
 SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "src")
-PREFILL = ("granite_3_2b", "qwen1_5_110b", "h2o_danube_3_4b", "mamba2_370m",
+PREFILL = ("granite_3_2b", "llama3_2_3b", "qwen1_5_110b", "h2o_danube_3_4b",
+           "mamba2_370m",
            "mixtral_8x7b", "qwen3_moe_235b_a22b", "jamba_v0_1_52b",
            "whisper_medium", "internvl2_26b")
 #: (compute dtype, tolerance): f32 under jit, bf16 op by op
@@ -184,7 +185,8 @@ def test_ssm_pieces_match_reference():
 #: 8 of vision prefix and 56 tokens; qwen3 at 96 and whisper at 272 (68
 #: encoder frames) take the reference's chunked branch (module
 #: docstring); jamba in ``test_hybrid_prefill_matches_reference``
-PREFILL_POINTS = [("granite_3_2b", 2, 64), ("qwen1_5_110b", 2, 64),
+PREFILL_POINTS = [("granite_3_2b", 2, 64), ("llama3_2_3b", 2, 64),
+                  ("qwen1_5_110b", 2, 64),
                   ("h2o_danube_3_4b", 2, 64),
                   ("h2o_danube_3_4b", 2, 96), ("mamba2_370m", 2, 64),
                   ("mixtral_8x7b", 2, 64), ("qwen3_moe_235b_a22b", 2, 96),

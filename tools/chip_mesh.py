@@ -60,6 +60,31 @@ recorded.
    magnitude; NCCL and gloo times.
 6. ``pipeline``: the GPipe pipeline, 4 stages of 4 layers (d 32, 4
    microbatches of 2), against the unpipelined layers within 1e-5.
+7. ``moe_pieces``: at full width on (1, 4), 128 rows, bf16 and float32,
+   each against the same sublayer whole on every rank within the band
+   of its output's largest magnitude: mixtral's layer 0 MoE (2 experts a
+   rank), qwen3-MoE-235B's (128 experts top 8: 32 a rank), jamba's first
+   Mamba-2 step (32 of 128 heads a rank, the gated norm across ranks;
+   its conv window and state too) and whisper's cross-attention over
+   8,192 frames.
+8. ``mixtral``: mixtral_8x7b whole (32 layers) on (1, 4), batch 128 of
+   ``decode_32k`` (not shardable on (1, 4)), the 4,096-slot rolling
+   buffer over ``model``; first cut to 2 layers in float32 against rank 0
+   alone, every step within the band (the gate); then bf16, 16 steps
+   from a seeded fill past the window under both schedules.  Gates:
+   finite logits identical on every rank, 32 ``flash_decode`` launches a
+   rank and step.  Recorded: ms a step, tokens/s, peak GB a rank, the
+   plan, host ops a step and the ``moe_combine`` and ``softmax_combine``
+   ranges' shares of device time (steps 12-15).
+9. ``jamba``: jamba_v0_1_52b whole (28 Mamba-2, 4 attention, 16 MoE
+   layers) on (1, 4), batch 128 x 32,768 slots, as ``mixtral``; its cut
+   is one 8-layer pattern block in float32 at 4,096 slots (the whole
+   cache would not fit one card in float32); 4 launches a rank and step.
+
+Four cards for the new families alone (~10 min of command):
+
+    python3 -m torch.distributed.run --standalone --nproc-per-node 4 \\
+        tools/chip_mesh.py --phases moe_pieces,mixtral,jamba
 """
 from __future__ import annotations
 
@@ -83,8 +108,10 @@ from repro_torch.kernels import flash_decode as fd  # noqa: E402
 from repro_torch.launch.mesh import make_mesh, single_device_mesh  # noqa: E402
 from repro_torch.launch.steps import make_serve_step  # noqa: E402
 from repro_torch.models import model as mdl  # noqa: E402
+from repro_torch.models import attention as attn  # noqa: E402
+from repro_torch.models import ssm as ssm_mod  # noqa: E402
 from repro_torch.models.blocks import (init_sharded_params, param_specs,  # noqa: E402
-                                       tree_map)
+                                       rms_norm, tree_leaves, tree_map)
 from repro_torch.parallel import sharding as shd  # noqa: E402
 from repro_torch.parallel.pipeline import pipeline, pipeline_stages  # noqa: E402
 
@@ -97,12 +124,26 @@ FULL = dict(qwen=dict(arch="qwen1_5_110b", smoke=False, batch=4, seq=32768,
                       fills=(8184, 32752), steps=16, profile=(12, 4)),
             granite=dict(arch="granite_3_2b", smoke=False, batch=8,
                          seq=32768, fill=24576, steps=8),
-            sizes=(1 << 20, 256 << 20))
+            sizes=(1 << 20, 256 << 20),
+            moe_pieces=dict(batch=128, seq=32768),
+            mixtral=dict(arch="mixtral_8x7b", smoke=False, batch=128,
+                         seq=32768, fill=32752, steps=16, profile=(12, 4),
+                         cut_layers=2, cut_seq=32768, cut_fill=32752),
+            jamba=dict(arch="jamba_v0_1_52b", smoke=False, batch=128,
+                       seq=32768, fill=32752, steps=16, profile=(12, 4),
+                       cut_layers=8, cut_seq=4096, cut_fill=4000))
 SMALL = dict(qwen=dict(arch="qwen1_5_110b", smoke=True, batch=4, seq=64,
                        fills=(21, 60), steps=4, profile=None),
              granite=dict(arch="granite_3_2b", smoke=True, batch=8, seq=64,
                           fill=40, steps=4),
-             sizes=(1 << 10, 64 << 10))
+             sizes=(1 << 10, 64 << 10),
+             moe_pieces=dict(batch=8, seq=64),
+             mixtral=dict(arch="mixtral_8x7b", smoke=True, batch=8, seq=64,
+                          fill=60, steps=4, profile=None, cut_layers=2,
+                          cut_seq=64, cut_fill=60),
+             jamba=dict(arch="jamba_v0_1_52b", smoke=True, batch=8, seq=64,
+                        fill=60, steps=4, profile=None, cut_layers=8,
+                        cut_seq=64, cut_fill=40))
 
 
 def log(*parts):
@@ -156,6 +197,28 @@ def fill_caches(caches, cfg, batch, seq, fill, seed, mesh, batch_shardable):
             del whole
 
 
+def fill_every_leaf(caches, cfg, batch, seq, fill, seed, mesh,
+                    batch_shardable):
+    """Every layer of every cache leaf drawn whole on the rank's device
+    from a generator seeded by (seed, leaf, layer) and cut to its block
+    (the same bits on any mesh): k and v N(0, 1) below ``fill`` (all of a
+    rolling buffer shorter than it) and 0 above, each Mamba-2 conv
+    window and state N(0, 1)."""
+    structs = dict(tree_leaves(mdl.cache_structs(cfg, batch, seq)))
+    specs = dict(tree_leaves(mdl.cache_specs(cfg, batch, seq, mesh,
+                                             batch_shardable)))
+    gen = torch.Generator(device=mesh.device)
+    for j, (name, t) in enumerate(tree_leaves(caches)):
+        shape = structs[name][0]
+        for i in range(shape[0]):
+            gen.manual_seed(_seed(seed, j, i))
+            whole = torch.randn(shape[1:], generator=gen, device=mesh.device)
+            if name.endswith((".k", ".v")):
+                whole[:, fill:] = 0
+            t[i].copy_(shd.shard(whole.to(t.dtype), specs[name][1:], mesh))
+            del whole
+
+
 def tokens_for(cfg, batch, steps, seed):
     rng = np.random.default_rng(seed)
     return torch.from_numpy(rng.integers(0, cfg.vocab_size,
@@ -193,31 +256,42 @@ def decode_run(step_fn, params, caches, toks, start, mesh, tok_spec,
     return torch.stack(logits), ms, summary
 
 
+#: the profiler ranges of the mesh path's combines: the split-KV merge
+#: and the MoE's many-to-one sum
+RANGES = ("softmax_combine", "moe_combine")
+
+
 def profile_summary(prof, wall_ms, steps):
     """Device busy ms a step (the device's own events), the idle share,
-    the device ms a step inside the ``softmax_combine`` range and its
-    share of the busy time, the top device events."""
+    the device ms a step inside each range of ``RANGES`` and its share
+    of the busy time, host ops a step, the top device and host
+    events."""
     from torch.autograd import DeviceType
     avgs = prof.key_averages()
-    # the named range leaves a device-side span too, which would count
-    # its kernels a second time
+    # a named range leaves a device-side span too, which would count its
+    # kernels a second time
     dev = sorted(((a.key, a.self_device_time_total / 1e3, a.count)
                   for a in avgs if a.device_type != DeviceType.CPU
-                  and a.key != "softmax_combine"), key=lambda r: -r[1])
+                  and a.key not in RANGES), key=lambda r: -r[1])
     busy = sum(r[1] for r in dev)
-    combine = sum(a.device_time_total for a in avgs
-                  if a.device_type == DeviceType.CPU
-                  and a.key == "softmax_combine") / 1e3
     host = sorted(((a.key, a.self_cpu_time_total / 1e3 / steps, a.count)
                    for a in avgs if a.device_type == DeviceType.CPU),
                   key=lambda r: -r[1])
-    return {"steps": steps, "wall_ms": wall_ms,
-            "top_host_ms": host[:12],
-            "device_busy_ms_per_step": busy / steps,
-            "device_idle_share": 1 - busy / wall_ms if busy else None,
-            "combine_device_ms_per_step": combine / steps,
-            "combine_share_of_device": combine / busy if busy else None,
-            "top_device_ms": dev[:10]}
+    out = {"steps": steps, "wall_ms": wall_ms,
+           "top_host_ms": host[:12],
+           "host_ops_per_step": sum(a.count for a in avgs
+                                    if a.device_type == DeviceType.CPU
+                                    and a.key.startswith("aten::")) / steps,
+           "device_busy_ms_per_step": busy / steps,
+           "device_idle_share": 1 - busy / wall_ms if busy else None,
+           "top_device_ms": dev[:10]}
+    for name in RANGES:
+        ms = sum(a.device_time_total for a in avgs
+                 if a.device_type == DeviceType.CPU and a.key == name) / 1e3
+        short = name.split("_")[0]
+        out[f"{short}_device_ms_per_step"] = ms / steps
+        out[f"{short}_share_of_device"] = ms / busy if busy else None
+    return out
 
 
 def same_on_every_rank(t):
@@ -258,10 +332,11 @@ def perturb(caches, eps, seed, dev):
                                t[0]))
 
 
-def alone_run(cfg, b, seq, fill, seed, toks, dev, dtype, eps=0.0):
+def alone_run(cfg, b, seq, fill, seed, toks, dev, dtype, eps=0.0,
+              filler=None):
     """The same steps on rank 0 alone (``single_device_mesh``), whole
-    weights and cache (``perturb``-ed by ``eps`` when given); None on
-    the other ranks."""
+    weights and cache (filled by ``filler``, ``fill_caches`` by default;
+    ``perturb``-ed by ``eps`` when given); None on the other ranks."""
     if dist.get_rank() != 0:
         return None
     one = single_device_mesh(device=str(dev))
@@ -269,7 +344,7 @@ def alone_run(cfg, b, seq, fill, seed, toks, dev, dtype, eps=0.0):
     p1 = init_sharded_params(mdl.model_defs(cfg), step1.plan, one, seed=0,
                              dtype=dtype)
     c1 = mdl.init_caches(cfg, b, seq, dtype=dtype, device=dev)
-    fill_caches(c1, cfg, b, seq, fill, seed, one, False)
+    (filler or fill_caches)(c1, cfg, b, seq, fill, seed, one, False)
     if eps:
         perturb(c1, eps, 9, dev)
     logits, ms, _ = decode_run(step1, p1, c1, toks, fill, one, (None, None))
@@ -480,8 +555,8 @@ def qwen_phase(spec, dev_kind):
                 log(f"[qwen]   profile: device busy "
                     f"{prof['device_busy_ms_per_step']:.3f} ms/step, idle "
                     f"share {prof['device_idle_share']}, softmax_combine "
-                    f"{prof['combine_device_ms_per_step']:.3f} ms/step "
-                    f"({prof['combine_share_of_device']}); host "
+                    f"{prof['softmax_device_ms_per_step']:.3f} ms/step "
+                    f"({prof['softmax_share_of_device']}); host "
                     f"{prof['top_host_ms'][:4]}")
             if not finite or not same:
                 fail(f"qwen fill {fill} {sched}: finite {finite}, identical "
@@ -577,6 +652,241 @@ def granite_phase(spec, dev_kind):
         fail("granite22: a step of the (2, 2) float32 cut left the band of "
              "rank 0 alone")
     return {"granite22": out}
+
+
+def _sublayer(cfg, mesh, plan_step, j, part, dtype):
+    """Layer 0's sublayer ``j`` ``part`` ("mixer" or "ffn"): this rank's
+    blocks, their specs and the whole sublayer gathered on every rank."""
+    params = init_sharded_params(mdl.model_defs(cfg), plan_step.plan, mesh,
+                                 seed=0, dtype=dtype)["blocks"][f"sub{j}"]
+    specs = param_specs(mdl.model_defs(cfg), plan_step.plan)
+    lsp = tree_map(lambda sp: sp[1:], specs["blocks"][f"sub{j}"][part])
+    mine = tree_map(lambda a: a[0], params[part])
+    del params
+    whole = tree_map(lambda a, sp: shd.gather(a, sp, mesh), mine, lsp)
+    return mine, lsp, whole
+
+
+#: the MoE / Mamba-2 / cross-attention sublayers at full width on (1, 4):
+#: (label, arch, layers drawn, sublayer index, part)
+MOE_PIECES = (("mixtral layer 0 MoE", "mixtral_8x7b", 1, 0, "ffn"),
+              ("qwen3_moe layer 0 MoE", "qwen3_moe_235b_a22b", 1, 0, "ffn"),
+              ("jamba layer 0 Mamba-2", "jamba_v0_1_52b", 8, 0, "mixer"),
+              ("whisper layer 0 cross-attention", "whisper_medium", 1, 0,
+               "mixer"))
+
+
+def moe_pieces_phase(spec, dev_kind, smoke):
+    """The sublayers this slice puts on a mesh, each at full width on a
+    (1, 4) mesh against the same sublayer whole on every rank, on the
+    same input (and caches): mixtral's MoE (2 experts a rank), qwen3's
+    MoE (128 experts top 8: 32 a rank), jamba's first Mamba-2 step (128
+    heads, N 16: 32 heads a rank, the gated norm across ranks; its new
+    conv window and state too) and whisper's cross-attention over an
+    encoder memory of ``seq / 4`` frames; bf16 and float32, each within
+    the band of its output's largest magnitude (``within_scale``)."""
+    mesh = make_mesh((1, 4), ("data", "model"), device=dev_kind)
+    dev, b = mesh.device, spec["batch"]
+    rows = []
+    for label, arch, layers, j, part in MOE_PIECES:
+        base = get_config(arch, smoke=smoke).replace(n_layers=layers)
+        for dt in ("bfloat16", "float32"):
+            cdt = getattr(torch, dt)
+            cfg = base.replace(compute_dtype=dt)
+            step_fn = make_serve_step(cfg, mesh, batch_shardable=False)
+            cfg = step_fn.cfg
+            mine, lsp, whole = _sublayer(cfg, mesh, step_fn, j, part, cdt)
+            gen = torch.Generator(device=dev).manual_seed(7)
+            x = torch.randn(b, 1, cfg.d_model, generator=gen,
+                            device=dev).to(cdt)
+            extra = {}
+            if part == "ffn":
+                got, _ = mdl.ffn_apply(mine, x, "moe", cfg, decode=True,
+                                       sp=lsp, mesh=mesh)
+                want, _ = mdl.ffn_apply(whole, x, "moe", cfg, decode=True)
+            elif cfg.enc_layers:
+                enc = max(spec["seq"] // cfg.audio_stride, 8)
+                memory = torch.randn(b, enc, cfg.d_model, generator=gen,
+                                     device=dev).to(cdt)
+                got = mdl._cross(mine, x, memory, cfg, cdt,
+                                 attn.cross_attention, lsp, mesh)
+                want = mdl._cross(whole, x, memory, cfg, cdt,
+                                  attn.cross_attention)
+                del memory
+            else:
+                d_in, h, hp, n, k = ssm_mod.ssm_dims(cfg)
+                cache = {"conv": torch.randn(b, k - 1, d_in + 2 * n,
+                                             generator=gen,
+                                             device=dev).to(cdt),
+                         "state": torch.randn(b, h, n, hp, generator=gen,
+                                              device=dev)}
+                state_spec = (None, "model")
+                mc = {"conv": cache["conv"].clone(),
+                      "state": shd.shard(cache["state"], state_spec, mesh)}
+                drop = lambda p: {n_: v for n_, v in p.items()  # noqa: E731
+                                  if n_ != "norm"}
+                hm = rms_norm(x, whole["norm"], cfg.norm_eps)
+                got, new = ssm_mod.ssm_decode_step(drop(mine), hm, mc, cfg,
+                                                   sp=drop(lsp), mesh=mesh)
+                want, new1 = ssm_mod.ssm_decode_step(drop(whole), hm, cache,
+                                                     cfg)
+                state = shd.gather(new["state"], state_spec, mesh)
+                extra = {"conv_max_abs_diff": float(
+                    (new["conv"].float() - new1["conv"].float()).abs().max()),
+                         "state_max_abs_diff": float(
+                    (state - new1["state"]).abs().max()),
+                         "conv_ok": within_scale(new["conv"].float(),
+                                                 new1["conv"].float()),
+                         "state_ok": within_scale(state, new1["state"])}
+            row = {"sublayer": label, "dtype": dt,
+                   "plan": "default" if cfg.fsdp_weights else "inference",
+                   "max_abs_diff": float((got.float() - want.float())
+                                         .abs().max()),
+                   "max_abs": float(want.float().abs().max()),
+                   "ok": within_scale(got.float(), want.float())
+                   and extra.get("conv_ok", True)
+                   and extra.get("state_ok", True), **extra}
+            rows.append(row)
+            log(f"[moe_pieces] {label} {dt} on (1, 4): max |diff| "
+                f"{row['max_abs_diff']!r} at max |y| {row['max_abs']!r}"
+                + (f", conv {extra['conv_max_abs_diff']!r}, state "
+                   f"{extra['state_max_abs_diff']!r}" if extra else "")
+                + f", within band {row['ok']}")
+            del mine, whole
+            free(dev)
+    if not agree(all(r["ok"] for r in rows)):
+        fail("moe_pieces: a sublayer on 4 ranks left the band of the whole")
+    return {"moe_pieces": rows}
+
+
+def family_phase(name, spec, dev_kind):
+    """A model no card holds, whole on (1, 4) (the batch does not shard:
+    the KV cache's sequence splits over ``model``): first cut to
+    ``cut_layers`` in float32 against the same cut on rank 0 alone, every
+    step within the band (the gate); then every layer in bf16 under both
+    ``softmax_combine`` schedules, every cache leaf filled from a seed
+    (``fill_every_leaf``), 16 steps from ``fill``.  Gates: finite logits
+    identical on every rank, one ``flash_decode`` launch per attention
+    layer, rank and step (the tensor-core variant).  Recorded: ms a step,
+    tokens/s, peak GB a rank, the plan, and from torch.profiler (steps
+    12-15) device time, idle share, host ops a step and the share of
+    the device time in the ``softmax_combine`` and ``moe_combine``
+    ranges."""
+    out = {}
+    base = get_config(spec["arch"], smoke=spec["smoke"])
+    mesh = make_mesh((1, 4), ("data", "model"), device=dev_kind)
+    dev = mesh.device
+    b, seq, steps, fill = (spec[k] for k in ("batch", "seq", "steps",
+                                             "fill"))
+    toks = tokens_for(base, b, steps, 3)
+    tok_spec = (None, None)
+
+    # 1. the float32 cut against rank 0 alone
+    cut = base.replace(n_layers=spec["cut_layers"], compute_dtype="float32")
+    cseq, cfill = spec["cut_seq"], spec["cut_fill"]
+    step_fn = make_serve_step(cut, mesh, batch_shardable=False)
+    params = init_sharded_params(mdl.model_defs(cut), step_fn.plan, mesh,
+                                 seed=0, dtype=torch.float32)
+    caches = mdl.init_caches(cut, b, cseq, mesh=mesh, batch_shardable=False,
+                             dtype=torch.float32, device=dev)
+    fill_every_leaf(caches, cut, b, cseq, cfill, 0, mesh, False)
+    mesh_logits, _, _ = decode_run(step_fn, params, caches, toks, cfill,
+                                   mesh, tok_spec)
+    del params, caches
+    free(dev)
+    alone = alone_run(cut, b, cseq, cfill, 0, toks, dev, torch.float32,
+                      filler=fill_every_leaf)
+    ok = True
+    if alone is not None:
+        diffs, bands = per_step(mesh_logits, alone[0])
+        finite = bool(torch.isfinite(mesh_logits).all())
+        out[f"{name}_cut"] = {
+            "layers": cut.n_layers, "dtype": "float32", "batch": b,
+            "seq": cseq, "start": cfill, "steps": steps,
+            "max_abs_diff_per_step": diffs, "within_band_per_step": bands,
+            "finite": finite, "max_abs_logit": float(alone[0].abs().max())}
+        ok = all(bands) and finite
+        log(f"[{name}_cut] {cut.n_layers} layers float32, (1, 4) vs rank 0 "
+            f"alone, {steps} steps from {cfill}: max |diff| a step {diffs}")
+    free(dev)
+    if not agree(ok):
+        fail(f"{name}_cut: a step of the 4-rank float32 cut left the band "
+             f"of rank 0 alone")
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+
+    # 2. every layer, bf16
+    t0 = time.perf_counter()
+    step_fn = make_serve_step(base, mesh, batch_shardable=False)
+    params = init_sharded_params(mdl.model_defs(base), step_fn.plan, mesh,
+                                 seed=0)
+    caches = mdl.init_caches(base, b, seq, mesh=mesh, batch_shardable=False,
+                             device=dev)
+    sync(dev)
+    init_s = time.perf_counter() - t0
+    n_attn = [m for m, _ in base.pattern].count("attn") * base.n_blocks
+    runs = {}
+    for sched in ("xla", "gleam_tree"):
+        run = make_serve_step(step_fn.cfg.replace(collective_schedule=sched),
+                              mesh, batch_shardable=False)
+        fill_every_leaf(caches, base, b, seq, fill, 1, mesh, False)
+        fd.reset_launches()
+        logits, ms, prof = decode_run(run, params, caches, toks, fill, mesh,
+                                      tok_spec, profile=spec["profile"])
+        launches = dict(fd.LAUNCHES)
+        finite = bool(torch.isfinite(logits).all())
+        same = same_on_every_rank(logits)
+        timed = ms[1:spec["profile"][0]] if spec["profile"] else ms[1:]
+        row = {"schedule": sched, "fill": fill, "steps": steps,
+               "ms_per_step": float(np.mean(timed)), "ms_first_step": ms[0],
+               "tokens_per_s": b / (np.mean(timed) / 1e3),
+               "flash_decode_launches_per_step":
+                   launches["flash_decode"] / steps,
+               "launches": launches, "finite": finite,
+               "identical_on_every_rank": same,
+               "max_abs_logit": float(logits.abs().max()), "profile": prof}
+        runs[sched] = (logits, row)
+        log(f"[{name}] {base.n_layers} layers (1, 4), batch {b}, {seq} "
+            f"slots, fill {fill}, {sched}: {row['ms_per_step']:.3f} ms/step, "
+            f"{row['tokens_per_s']:.1f} tok/s, flash_decode "
+            f"{row['flash_decode_launches_per_step']} a step, finite "
+            f"{finite}, identical on every rank {same}")
+        if prof:
+            log(f"[{name}]   profile: device busy "
+                f"{prof['device_busy_ms_per_step']:.3f} ms/step, idle share "
+                f"{prof['device_idle_share']}, host ops a step "
+                f"{prof['host_ops_per_step']}, softmax_combine "
+                f"{prof['softmax_device_ms_per_step']:.3f} ms/step "
+                f"({prof['softmax_share_of_device']}), moe_combine "
+                f"{prof['moe_device_ms_per_step']:.3f} ms/step "
+                f"({prof['moe_share_of_device']}); host "
+                f"{prof['top_host_ms'][:4]}")
+        if not finite or not same:
+            fail(f"{name} {sched}: finite {finite}, identical on every rank "
+                 f"{same}")
+        want = steps * n_attn if dev.type == "cuda" else 0
+        if launches["flash_decode"] != want \
+                or launches["flash_decode_mma"] != want:
+            fail(f"{name} {sched}: flash_decode launched "
+                 f"{launches['flash_decode']} times (mma "
+                 f"{launches['flash_decode_mma']}), not {want}")
+    a, ra = runs["gleam_tree"]
+    ra["max_abs_diff_vs_xla_per_step"], _ = per_step(a, runs["xla"][0])
+    peak = (torch.cuda.max_memory_allocated(dev) / 1e9
+            if dev.type == "cuda" else None)
+    peaks = [None] * dist.get_world_size()
+    dist.all_gather_object(peaks, peak)
+    log(f"[{name}] peak GB a rank {peaks}, plan "
+        f"{'default' if step_fn.cfg.fsdp_weights else 'inference'}, init "
+        f"{init_s:.1f} s")
+    out[name] = {"layers": base.n_layers, "batch": b, "seq": seq,
+                 "plan": "default" if step_fn.cfg.fsdp_weights
+                 else "inference",
+                 "init_s": init_s, "peak_gb_per_rank": peaks,
+                 "runs": [row for _, row in runs.values()]}
+    del params, caches
+    free(dev)
+    return out
 
 
 COLLECTIVE_CASES = (
@@ -698,7 +1008,10 @@ def main() -> int:
     ap.add_argument("--rehearse", action="store_true",
                     help="gloo ranks on the CPU, smoke configs")
     ap.add_argument("--phases",
-                    default="pieces,qwen,granite22,collectives,pipeline")
+                    default="pieces,qwen,granite22,collectives,pipeline,"
+                            "moe_pieces,mixtral,jamba")
+    ap.add_argument("--out", default=None,
+                    help="the result's file name under chiprun_out/")
     args = ap.parse_args()
     sizes = SMALL if args.rehearse else FULL
     if args.rehearse:
@@ -744,6 +1057,11 @@ def main() -> int:
                 out.update(qwen_phase(sizes["qwen"], dev_kind))
             elif name == "granite22":
                 out.update(granite_phase(sizes["granite"], dev_kind))
+            elif name == "moe_pieces":
+                out.update(moe_pieces_phase(sizes["moe_pieces"], dev_kind,
+                                            args.rehearse))
+            elif name in ("mixtral", "jamba"):
+                out.update(family_phase(name, sizes[name], dev_kind))
             elif name == "collectives":
                 out.update(collectives_phase(sizes["sizes"], dev_kind))
             elif name == "pipeline":
@@ -757,8 +1075,8 @@ def main() -> int:
     ok = agree(not FAILURES)
     if dist.get_rank() == 0:
         os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
-        name = "chip_mesh_rehearsal.json" if args.rehearse \
-            else "chip_mesh.json"
+        name = args.out or ("chip_mesh_rehearsal.json" if args.rehearse
+                            else "chip_mesh.json")
         with open(os.path.join(REPO, "chiprun_out", name), "w") as fh:
             json.dump({"card": card, "torch": torch.__version__,
                        "phases": out, "failures": FAILURES,
