@@ -167,11 +167,14 @@ def decode_reference(q, k, v, kv_len, out_dtype=None):
     ``q.k / sqrt(D)``,
     ``l = sum exp(s - m)`` over the valid keys, ``out = acc / max(l,
     1e-30)``.  A row with ``kv_len = 0`` gives out 0, m -1e30, l 0.
+    Float64 inputs are computed in float64, m and l too (an exact
+    oracle, as ``mha_reference`` is).
     """
     b, h, d = q.shape
     s, kvh = k.shape[1], k.shape[2]
-    qg = q.reshape(b, kvh, h // kvh, d).float()
-    logits = torch.einsum("bkrd,bskd->bkrs", qg, k.float()) \
+    acc_t = torch.promote_types(q.dtype, torch.float32)
+    qg = q.reshape(b, kvh, h // kvh, d).to(acc_t)
+    logits = torch.einsum("bkrd,bskd->bkrs", qg, k.to(acc_t)) \
         * (1.0 / math.sqrt(d))
     valid = (torch.arange(s, device=q.device)[None, :]
              < kv_len.to(q.device)[:, None])[:, None, None, :]
@@ -179,7 +182,7 @@ def decode_reference(q, k, v, kv_len, out_dtype=None):
     m = logits.amax(-1)
     p = torch.where(valid, torch.exp(logits - m[..., None]), 0.0)
     l = p.sum(-1)
-    acc = torch.einsum("bkrs,bskd->bkrd", p, v.float())
+    acc = torch.einsum("bkrs,bskd->bkrd", p, v.to(acc_t))
     out = acc / torch.clamp(l, min=1e-30)[..., None]
     return (out.reshape(b, h, d).to(q.dtype if out_dtype is None
                                      else out_dtype),

@@ -222,10 +222,15 @@ def moe_decode(p, x, cfg, *, sp=None, mesh=None, batch_axes=()):
     """Few-token step.  x (B, S, D) -> (y (B, S, D), aux).  On a mesh
     ``p`` holds this rank's blocks (``sp`` their specs), ``x`` this
     rank's rows (split over ``batch_axes``, whole where that is empty);
-    y is the same on every rank of "model"."""
+    y is the same on every rank of "model".  aux is the router loss of
+    the rows the rank routes, not averaged over the ranks: no decode
+    step reads it (the reference's ``pmean`` of it is dead code under
+    ``jit``), and that average would be an all-reduce a layer.  A mesh
+    of one rank runs the mesh code, every collective on an axis of one
+    rank."""
     b, s, d = x.shape
     x2 = x.reshape(b * s, d)
-    if mesh is None or all(n == 1 for n in mesh.dims):
+    if mesh is None:
         gates, ids, aux = _router(x2, p["router"], cfg.top_k)
         out = expert_block(p, x2, gates, ids, cfg)
         return out.reshape(b, s, d).to(x.dtype), aux
@@ -255,8 +260,6 @@ def moe_decode(p, x, cfg, *, sp=None, mesh=None, batch_axes=()):
     wide = torch.promote_types(out.dtype, torch.float32)
     with torch.profiler.record_function("moe_combine"):
         out = coll.psum(out.to(wide), mesh, ("model",)).to(out.dtype)
-    axes = ("model",) + _fsdp_axes(mesh)
-    aux = coll.psum(aux, mesh, axes) / math.prod(mesh.shape[a] for a in axes)
     out = coll.all_gather(out, mesh, split, 0)
     return out.reshape(b, s, d).to(x.dtype), aux
 

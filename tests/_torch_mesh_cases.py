@@ -260,3 +260,29 @@ def piece_cases(patterns):
                        f"/sub{j}/{kind}")
                 out.append((key, arch, shape, bs, j, part, kind))
     return out
+
+
+#: the families whose float32 reassociation over ranks is held apart from
+#: the arithmetic: their serve step in float64 on ``PIECE_MESHES``
+FLOAT64_ARCHES = ("jamba_v0_1_52b", "whisper_medium")
+
+
+def float64_cases():
+    """``(key, arch, shape, batch_shardable)`` of the float64 serve runs."""
+    return [(family_key((arch, shape, bs, "xla", "float64")), arch, shape, bs)
+            for arch in FLOAT64_ARCHES for shape, bs in PIECE_MESHES]
+
+
+#: wrong versions of the split Mamba-2 step a test must tell apart from
+#: it: the gated norm over the rank's channels alone, and the conv
+#: window's new column written from the rank's channels alone
+SSM_MUTANTS = ("per_rank_norm", "rank_channels_conv")
+
+
+def mutant_cases():
+    """``(piece key, mutant)`` of the first Mamba-2 sublayer of mamba2
+    and jamba on ``PIECE_MESHES``."""
+    return [(f"{arch}/{shape[0]}x{shape[1]}/{'bs' if bs else 'seq'}"
+             f"/sub0/mamba", mutant)
+            for arch in ("mamba2_370m", "jamba_v0_1_52b")
+            for shape, bs in PIECE_MESHES for mutant in SSM_MUTANTS]

@@ -149,51 +149,95 @@ def job_families(rank, world, workdir):
     """Each family case of this world (4 ranks: (1, 4) and (2, 2); 8:
     (1, 8)): three steps through ``make_serve_step`` from caches filled
     whole and cut to the rank's blocks, the logits of every step and
-    every final cache leaf gathered whole (``serve``); and the sublayer
-    pieces of ``_family_pieces`` (``pieces``)."""
+    every final cache leaf gathered whole (``serve``; the float64 runs
+    of ``float64_cases`` in ``float64``); and the sublayer pieces of
+    ``_family_pieces`` (``pieces``)."""
+    meshes, out, out64 = {}, {}, {}
+
+    def mesh_of(shape):
+        if shape not in meshes:
+            meshes[shape] = make_mesh(shape, ("data", "model"), device="cpu")
+        return meshes[shape]
+
+    for key, arch, shape, bs, sched, dt in cases.family_cases():
+        if shape[0] * shape[1] == world:
+            out[key] = _family_serve(arch, mesh_of(shape), bs, sched, dt,
+                                     workdir)
+    for key, arch, shape, bs in cases.float64_cases():
+        if shape[0] * shape[1] == world:
+            out64[key] = _family_serve(arch, mesh_of(shape), bs, "xla",
+                                       "float64", workdir)
+    return {"serve": out, "float64": out64,
+            "pieces": _family_pieces(world, workdir)}
+
+
+def _family_serve(arch, mesh, bs, sched, dt, workdir):
+    """Three steps of ``arch``'s smoke config through ``make_serve_step``
+    on ``mesh`` in ``dt``: the logits of every step, the plan, and every
+    final cache leaf gathered whole."""
     from repro_torch.configs.base import get_config
     from repro_torch.launch import steps as port_steps
     from repro_torch.models import model as mdl
     from repro_torch.models.blocks import shard_params, tree_leaves, unflatten
     from repro_torch.parallel import sharding as shd
-    meshes, out = {}, {}
-    for key, arch, shape, bs, sched, dt in cases.family_cases():
-        if shape[0] * shape[1] != world:
-            continue
-        if shape not in meshes:
-            meshes[shape] = make_mesh(shape, ("data", "model"), device="cpu")
-        mesh = meshes[shape]
-        cfg = get_config(arch, smoke=True).replace(compute_dtype=dt,
-                                                   collective_schedule=sched)
-        data = np.load(os.path.join(workdir, f"family_{arch}.npz"))
-        step_fn = port_steps.make_serve_step(cfg, mesh, bs)
-        whole = unflatten({k[2:]: torch.from_numpy(data[k]) for k in data
-                           if k.startswith("p:")})
-        params = shard_params(whole, mdl.model_defs(cfg), step_fn.plan, mesh)
-        cdt = getattr(torch, dt)
-        caches = mdl.init_caches(step_fn.cfg, cases.SERVE_BATCH,
-                                 cases.SERVE_SEQ, mesh=mesh,
-                                 batch_shardable=bs, dtype=cdt, device="cpu")
-        specs = dict(tree_leaves(mdl.cache_specs(
-            cfg, cases.SERVE_BATCH, cases.SERVE_SEQ, mesh, bs)))
-        leaves = dict(tree_leaves(caches))
-        for name, t in leaves.items():
-            t.copy_(shd.shard(torch.from_numpy(data[f"c:{name}"]).to(t.dtype),
-                              specs[name], mesh))
-        tok_spec = (mdl._bspec(mesh) if bs else None, None)
-        logits = []
-        for i in range(cases.SERVE_STEPS):
-            tok = shd.shard(torch.from_numpy(data["tokens"][i]).long(),
-                            tok_spec, mesh)
-            got, caches = step_fn(params, caches, tok,
-                                  cases.FAMILY_START[arch] + i)
-            logits.append(shd.gather(got, tok_spec + (None,), mesh).numpy())
-        out[key] = {"logits": np.stack(logits),
-                    "plan": "default" if step_fn.cfg.fsdp_weights
-                    else "inference",
-                    **{f"c:{n}": shd.gather(t, specs[n], mesh).float().numpy()
-                       for n, t in tree_leaves(caches)}}
-    return {"serve": out, "pieces": _family_pieces(world, workdir)}
+    cfg = get_config(arch, smoke=True).replace(compute_dtype=dt,
+                                               collective_schedule=sched)
+    data = np.load(os.path.join(workdir, f"family_{arch}.npz"))
+    step_fn = port_steps.make_serve_step(cfg, mesh, bs)
+    whole = unflatten({k[2:]: torch.from_numpy(data[k]) for k in data
+                       if k.startswith("p:")})
+    params = shard_params(whole, mdl.model_defs(cfg), step_fn.plan, mesh)
+    cdt = getattr(torch, dt)
+    caches = mdl.init_caches(step_fn.cfg, cases.SERVE_BATCH,
+                             cases.SERVE_SEQ, mesh=mesh,
+                             batch_shardable=bs, dtype=cdt, device="cpu")
+    specs = dict(tree_leaves(mdl.cache_specs(
+        cfg, cases.SERVE_BATCH, cases.SERVE_SEQ, mesh, bs)))
+    for name, t in tree_leaves(caches):
+        t.copy_(shd.shard(torch.from_numpy(data[f"c:{name}"]).to(t.dtype),
+                          specs[name], mesh))
+    tok_spec = (mdl._bspec(mesh) if bs else None, None)
+    logits = []
+    for i in range(cases.SERVE_STEPS):
+        tok = shd.shard(torch.from_numpy(data["tokens"][i]).long(),
+                        tok_spec, mesh)
+        got, caches = step_fn(params, caches, tok,
+                              cases.FAMILY_START[arch] + i)
+        logits.append(shd.gather(got, tok_spec + (None,), mesh).numpy())
+    wide = torch.promote_types(cdt, torch.float32)
+    return {"logits": np.stack(logits),
+            "plan": "default" if step_fn.cfg.fsdp_weights else "inference",
+            **{f"c:{n}": shd.gather(t, specs[n], mesh).to(wide).numpy()
+               for n, t in tree_leaves(caches)}}
+
+
+class _RankChannelsOnly:
+    """``core.collectives`` with ``all_gather`` replaced by one that puts
+    the rank's block in place and zeros elsewhere: the Mamba-2 step's new
+    conv column written from the rank's channels alone."""
+
+    def __getattr__(self, name):
+        return getattr(coll, name)
+
+    @staticmethod
+    def all_gather(x, mesh, axes, dim):
+        from repro_torch.parallel import sharding as shd
+        index, count = shd.block(mesh, axes)
+        parts = [torch.zeros_like(x) for _ in range(count)]
+        parts[index] = x
+        return torch.cat(parts, dim=dim)
+
+
+def _per_rank_norm(y, scale, eps, mesh, axes, width):
+    """The gated norm over the rank's channels alone."""
+    from repro_torch.models.blocks import rms_norm
+    return rms_norm(y, scale, eps)
+
+
+#: each mutant of ``cases.SSM_MUTANTS`` as the ``models.ssm`` global it
+#: replaces
+SSM_MUTANTS = {"per_rank_norm": ("_gated_norm", _per_rank_norm),
+               "rank_channels_conv": ("coll", _RankChannelsOnly())}
 
 
 def _family_pieces(world, workdir):
@@ -266,12 +310,26 @@ def _family_pieces(world, workdir):
             hm = rms_norm(x, full["norm"], cfg.norm_eps)
             def drop(p):
                 return {k: v for k, v in p.items() if k != "norm"}
-            got, new = ssm_mod.ssm_decode_step(drop(mine), shd.shard(
-                hm, rows, mesh), mc, cfg, sp=drop(sp), mesh=mesh)
             want, new1 = ssm_mod.ssm_decode_step(drop(full), hm, cache, cfg)
-            res["out"] = ratio(shd.gather(got, rows, mesh), want)
-            for n in new:
-                res[n] = ratio(shd.gather(new[n], lsp[n], mesh), new1[n])
+
+            def on_mesh():
+                got, new = ssm_mod.ssm_decode_step(drop(mine), shd.shard(
+                    hm, rows, mesh), mc, cfg, sp=drop(sp), mesh=mesh)
+                r = {"out": ratio(shd.gather(got, rows, mesh), want)}
+                for n in new:
+                    r[n] = ratio(shd.gather(new[n], lsp[n], mesh), new1[n])
+                return r
+            res = on_mesh()
+            for mkey, mutant in cases.mutant_cases():
+                if mkey != key:
+                    continue
+                name, wrong = SSM_MUTANTS[mutant]
+                right = getattr(ssm_mod, name)
+                setattr(ssm_mod, name, wrong)
+                try:
+                    out[f"{key}/{mutant}"] = on_mesh()
+                finally:
+                    setattr(ssm_mod, name, right)
         else:
             kvspec = cspecs["layers"][sub]["k"][1:]
             kv = {n: leaf(f"layers.{sub}.{n}")[0] for n in ("k", "v")}

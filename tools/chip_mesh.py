@@ -46,9 +46,10 @@ recorded.
    ``flash_decode`` launches a rank and step (the tensor-core variant).
    Recorded: ms a step, tokens/s, peak GB per rank, every step's
    distance between the schedules and from the perturbed run, and from
-   torch.profiler (steps 12-15 of the last fill) the device time a
-   step, the share of it in the ``softmax_combine`` range, the top host
-   ops; the combine's bytes a step.
+   torch.profiler (steps 12-15 of the last fill) the device's compute
+   and NCCL time a step, the ``softmax_combine`` range's device and host
+   ms a step against the wall step, the top host ops; the combine's
+   bytes a step.
 4. ``granite22``: granite_3_2b at full width on a (2, 2) mesh, batch 8
    (over ``data``), a 32,768-slot cache (over ``model``) filled to
    24,576, 8 steps against the same steps on rank 0 alone: cut to 2
@@ -73,9 +74,11 @@ recorded.
    alone, every step within the band (the gate); then bf16, 16 steps
    from a seeded fill past the window under both schedules.  Gates:
    finite logits identical on every rank, 32 ``flash_decode`` launches a
-   rank and step.  Recorded: ms a step, tokens/s, peak GB a rank, the
-   plan, host ops a step and the ``moe_combine`` and ``softmax_combine``
-   ranges' shares of device time (steps 12-15).
+   rank and step.  Recorded: ms a step, tokens/s, the GB a rank
+   resident before the steps and the steps' peak (the fill left out),
+   the plan, host ops a step and the ``moe_combine`` and
+   ``softmax_combine`` ranges' device and host ms a step against the
+   wall step (steps 12-15).
 9. ``jamba``: jamba_v0_1_52b whole (28 Mamba-2, 4 attention, 16 MoE
    layers) on (1, 4), batch 128 x 32,768 slots, as ``mixtral``; its cut
    is one 8-layer pattern block in float32 at 4,096 slots (the whole
@@ -262,10 +265,14 @@ RANGES = ("softmax_combine", "moe_combine")
 
 
 def profile_summary(prof, wall_ms, steps):
-    """Device busy ms a step (the device's own events), the idle share,
-    the device ms a step inside each range of ``RANGES`` and its share
-    of the busy time, host ops a step, the top device and host
-    events."""
+    """From a trace of ``steps`` steps taking ``wall_ms`` in all: the
+    device's compute ms a step (its own events, NCCL's kernels apart:
+    they spin while a rank waits for the others, on a stream of their
+    own, so they can outlast the step) and the share of the wall the
+    compute stream is idle; NCCL's device ms a step; each range of
+    ``RANGES`` as device ms (its kernels, NCCL's included) and host ms a
+    step and each as a share of the wall step; host ops a step, the top
+    device and host events."""
     from torch.autograd import DeviceType
     avgs = prof.key_averages()
     # a named range leaves a device-side span too, which would count its
@@ -273,25 +280,46 @@ def profile_summary(prof, wall_ms, steps):
     dev = sorted(((a.key, a.self_device_time_total / 1e3, a.count)
                   for a in avgs if a.device_type != DeviceType.CPU
                   and a.key not in RANGES), key=lambda r: -r[1])
-    busy = sum(r[1] for r in dev)
+    nccl = sum(r[1] for r in dev if "nccl" in r[0].lower())
+    busy = sum(r[1] for r in dev) - nccl
     host = sorted(((a.key, a.self_cpu_time_total / 1e3 / steps, a.count)
                    for a in avgs if a.device_type == DeviceType.CPU),
                   key=lambda r: -r[1])
-    out = {"steps": steps, "wall_ms": wall_ms,
+    step_ms = wall_ms / steps
+    out = {"steps": steps, "wall_ms": wall_ms, "wall_ms_per_step": step_ms,
            "top_host_ms": host[:12],
            "host_ops_per_step": sum(a.count for a in avgs
                                     if a.device_type == DeviceType.CPU
                                     and a.key.startswith("aten::")) / steps,
-           "device_busy_ms_per_step": busy / steps,
-           "device_idle_share": 1 - busy / wall_ms if busy else None,
+           "device_compute_ms_per_step": busy / steps,
+           "nccl_device_ms_per_step": nccl / steps,
+           "compute_idle_share": 1 - busy / wall_ms if busy else None,
            "top_device_ms": dev[:10]}
     for name in RANGES:
-        ms = sum(a.device_time_total for a in avgs
-                 if a.device_type == DeviceType.CPU and a.key == name) / 1e3
+        rows = [a for a in avgs
+                if a.device_type == DeviceType.CPU and a.key == name]
         short = name.split("_")[0]
-        out[f"{short}_device_ms_per_step"] = ms / steps
-        out[f"{short}_share_of_device"] = ms / busy if busy else None
+        for side, attr in (("device", "device_time_total"),
+                           ("host", "cpu_time_total")):
+            ms = sum(getattr(a, attr) for a in rows) / 1e3 / steps
+            out[f"{short}_{side}_ms_per_step"] = ms
+            out[f"{short}_{side}_share_of_wall"] = ms / step_ms
     return out
+
+
+def profile_line(prof):
+    """The log line of a ``profile_summary``."""
+    return (f"wall {prof['wall_ms_per_step']:.3f} ms/step, device compute "
+            f"{prof['device_compute_ms_per_step']:.3f} (idle share "
+            f"{prof['compute_idle_share']}), NCCL "
+            f"{prof['nccl_device_ms_per_step']:.3f}; host ops a step "
+            f"{prof['host_ops_per_step']}; " + ", ".join(
+                f"{r} device {prof[s + '_device_ms_per_step']:.3f} ms/step "
+                f"({prof[s + '_device_share_of_wall']:.4f} of the wall), "
+                f"host {prof[s + '_host_ms_per_step']:.3f} "
+                f"({prof[s + '_host_share_of_wall']:.4f})"
+                for r, s in ((r, r.split('_')[0]) for r in RANGES))
+            + f"; top host {prof['top_host_ms'][:4]}")
 
 
 def same_on_every_rank(t):
@@ -552,12 +580,7 @@ def qwen_phase(spec, dev_kind):
                 f"{row['flash_decode_launches_per_step']} a step, finite "
                 f"{finite}, identical on every rank {same}")
             if prof:
-                log(f"[qwen]   profile: device busy "
-                    f"{prof['device_busy_ms_per_step']:.3f} ms/step, idle "
-                    f"share {prof['device_idle_share']}, softmax_combine "
-                    f"{prof['softmax_device_ms_per_step']:.3f} ms/step "
-                    f"({prof['softmax_share_of_device']}); host "
-                    f"{prof['top_host_ms'][:4]}")
+                log(f"[qwen]   profile: {profile_line(prof)}")
             if not finite or not same:
                 fail(f"qwen fill {fill} {sched}: finite {finite}, identical "
                      f"on every rank {same}")
@@ -768,10 +791,12 @@ def family_phase(name, spec, dev_kind):
     (``fill_every_leaf``), 16 steps from ``fill``.  Gates: finite logits
     identical on every rank, one ``flash_decode`` launch per attention
     layer, rank and step (the tensor-core variant).  Recorded: ms a step,
-    tokens/s, peak GB a rank, the plan, and from torch.profiler (steps
-    12-15) device time, idle share, host ops a step and the share of
-    the device time in the ``softmax_combine`` and ``moe_combine``
-    ranges."""
+    tokens/s, the GB a rank resident before the steps and the steps'
+    peak (each reset after the fill, whose whole-layer draws it leaves
+    out), the plan, and from torch.profiler (steps 12-15) the device's
+    compute and NCCL time, the compute stream's idle share, host ops a
+    step and the ``softmax_combine`` and ``moe_combine`` ranges' device
+    and host ms a step against the wall step."""
     out = {}
     base = get_config(spec["arch"], smoke=spec["smoke"])
     mesh = make_mesh((1, 4), ("data", "model"), device=dev_kind)
@@ -812,8 +837,6 @@ def family_phase(name, spec, dev_kind):
     if not agree(ok):
         fail(f"{name}_cut: a step of the 4-rank float32 cut left the band "
              f"of rank 0 alone")
-    if dev.type == "cuda":
-        torch.cuda.reset_peak_memory_stats(dev)
 
     # 2. every layer, bf16
     t0 = time.perf_counter()
@@ -825,14 +848,22 @@ def family_phase(name, spec, dev_kind):
     sync(dev)
     init_s = time.perf_counter() - t0
     n_attn = [m for m, _ in base.pattern].count("attn") * base.n_blocks
-    runs = {}
+    runs, resident, peak = {}, None, None
     for sched in ("xla", "gleam_tree"):
         run = make_serve_step(step_fn.cfg.replace(collective_schedule=sched),
                               mesh, batch_shardable=False)
         fill_every_leaf(caches, base, b, seq, fill, 1, mesh, False)
+        if dev.type == "cuda":
+            # the steps' own peak: the fill's whole-layer draws left out
+            sync(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+            resident = torch.cuda.memory_allocated(dev) / 1e9
         fd.reset_launches()
         logits, ms, prof = decode_run(run, params, caches, toks, fill, mesh,
                                       tok_spec, profile=spec["profile"])
+        if dev.type == "cuda":
+            peak = max(peak or 0.0,
+                       torch.cuda.max_memory_allocated(dev) / 1e9)
         launches = dict(fd.LAUNCHES)
         finite = bool(torch.isfinite(logits).all())
         same = same_on_every_rank(logits)
@@ -852,15 +883,7 @@ def family_phase(name, spec, dev_kind):
             f"{row['flash_decode_launches_per_step']} a step, finite "
             f"{finite}, identical on every rank {same}")
         if prof:
-            log(f"[{name}]   profile: device busy "
-                f"{prof['device_busy_ms_per_step']:.3f} ms/step, idle share "
-                f"{prof['device_idle_share']}, host ops a step "
-                f"{prof['host_ops_per_step']}, softmax_combine "
-                f"{prof['softmax_device_ms_per_step']:.3f} ms/step "
-                f"({prof['softmax_share_of_device']}), moe_combine "
-                f"{prof['moe_device_ms_per_step']:.3f} ms/step "
-                f"({prof['moe_share_of_device']}); host "
-                f"{prof['top_host_ms'][:4]}")
+            log(f"[{name}]   profile: {profile_line(prof)}")
         if not finite or not same:
             fail(f"{name} {sched}: finite {finite}, identical on every rank "
                  f"{same}")
@@ -872,17 +895,18 @@ def family_phase(name, spec, dev_kind):
                  f"{launches['flash_decode_mma']}), not {want}")
     a, ra = runs["gleam_tree"]
     ra["max_abs_diff_vs_xla_per_step"], _ = per_step(a, runs["xla"][0])
-    peak = (torch.cuda.max_memory_allocated(dev) / 1e9
-            if dev.type == "cuda" else None)
     peaks = [None] * dist.get_world_size()
-    dist.all_gather_object(peaks, peak)
-    log(f"[{name}] peak GB a rank {peaks}, plan "
+    dist.all_gather_object(peaks, (resident, peak))
+    log(f"[{name}] resident (weights and caches) / the steps' peak GB a "
+        f"rank {peaks}, plan "
         f"{'default' if step_fn.cfg.fsdp_weights else 'inference'}, init "
         f"{init_s:.1f} s")
     out[name] = {"layers": base.n_layers, "batch": b, "seq": seq,
                  "plan": "default" if step_fn.cfg.fsdp_weights
                  else "inference",
-                 "init_s": init_s, "peak_gb_per_rank": peaks,
+                 "init_s": init_s,
+                 "resident_gb_per_rank": [r for r, _ in peaks],
+                 "peak_gb_per_rank": [p for _, p in peaks],
                  "runs": [row for _, row in runs.values()]}
     del params, caches
     free(dev)
