@@ -96,11 +96,13 @@ version on the card:
      transport and the serving generator's achieved QPS within 10%,
      ``param_count == count_params(model_defs)``;
 3. **kernels** every kernel input the paths produced: the max-min
-   kernels in float32 and float64, plus random many-round problems (the
-   kernel against its plain version: freeze set and rates per round for
-   the first 256 rounds, then the whole filling, rtol 1e-6 in float32
-   and 1e-12 in float64; loss factors within 1e-6 and exactly 1 on
-   all-zero rows); ``flash_decode`` at layers 0 and 39 of the serve
+   kernels in float32 and float64, plus random many-round problems and
+   the +inf-bottleneck lane (the kernel against its plain version:
+   freeze set, rates and remaining capacity per round for the first 256
+   rounds, then the whole filling, rtol 1e-6 in float32 and 1e-12 in
+   float64, a NaN on one side only an error; loss factors within 1e-6
+   and exactly 1 on all-zero rows; one kernel a call and nothing else);
+   ``flash_decode`` at layers 0 and 39 of the serve
    path's first, middle and last step, the cross path's last step,
    ``tests/test_kernels.py``'s decode cases in float32 and bf16 and the
    one-launch kernel's edge cases in every dtype pair (``out``, ``m``,
@@ -124,12 +126,12 @@ version on the card:
    layer (N 16) at 1 x 4096 (each gradient within the forward's
    tolerance times its max abs; SDPA's backward timed beside the
    attention's).
-   Times through the wrapper from CUDA events; for
-   ``flash_decode`` and ``ssd_scan`` also the device time a call and the
-   device kernels a call, from torch.profiler, with the share of the
-   bound taken on the device time.  The plain versions take the query
-   axis in blocks (``ref.mha_reference``), so no full-width input is
-   split.
+   Times through the wrapper from CUDA events; for the max-min
+   kernels, ``flash_decode`` and ``ssd_scan`` also the device time a
+   call and the device kernels a call, from torch.profiler, with the
+   share of the bound taken on the device time.  The plain versions
+   take the query axis in blocks (``ref.mha_reference``), so no
+   full-width input is split.
 
 It prints one ``{"kernels": [...]}`` line, the card's name and power
 limit, and last ``{"ok": true, "device": {...}}``; any failed phase exits
@@ -139,6 +141,7 @@ from __future__ import annotations
 
 import functools
 import json
+import math
 import os
 import subprocess
 import sys
@@ -215,6 +218,9 @@ APPS_TRANSPORTS = ("gleam", "multiunicast")
 APPS_SERVE = dict(n_replicas=4, tp=2, prompt_len=64, decode_len=16,
                   kv_replicas=2)
 APPS_ARRIVALS = dict(rate=2e4, n=24, seed=0)
+#: the +inf-bottleneck lane: flow rows (the last link id is the +inf
+#: sentinel) and capacities; its second round's b is +inf
+B_INF = ([[2, 2], [0, 2]], [0.0, 20.0, math.inf])
 #: rounds held one by one against the plain round (the whole filling is
 #: compared however many rounds it takes)
 ROUNDS_CHECKED = 256
@@ -529,19 +535,23 @@ class Recorder:
         self._fill, self._loss = mm.maxmin_rates, mm.loss_factors
 
         def rates(fl, cap, active, **kw):
+            if not self.phase:
+                return self._fill(fl, cap, active, **kw)
             key = ("maxmin_fill", self.phase, tuple(fl.shape),
                    tuple(cap.shape), str(cap.dtype), kw.get("tol", 1e-6),
                    kw.get("max_rounds"))
-            if self.phase and key not in self.inputs:
+            if key not in self.inputs:
                 self.inputs[key] = (fl.clone(), cap.clone(),
                                     active.clone(), dict(kw))
             return self._fill(fl, cap, active, **kw)
 
         def loss(fl, rates_, active, cap, q, wsq, wnd, ecn, **kw):
+            if not self.phase:
+                return self._loss(fl, rates_, active, cap, q, wsq, wnd, ecn,
+                                  **kw)
             key = ("loss_factors", self.phase, tuple(fl.shape),
-                   tuple(cap.shape), str(cap.dtype),
-                   bool(self.phase and (q != 0).any()))
-            if self.phase and key not in self.inputs:
+                   tuple(cap.shape), str(cap.dtype), bool((q != 0).any()))
+            if key not in self.inputs:
                 self.inputs[key] = tuple(t.clone() for t in (
                     fl, rates_, active, cap, q, wsq, wnd, ecn)) + (dict(kw),)
             return self._loss(fl, rates_, active, cap, q, wsq, wnd, ecn, **kw)
@@ -2399,64 +2409,101 @@ def check_fill(name, fl, cap, active, kw, dtype, mm, ref, launches=0):
         frozen = torch.where(keep, pf, frozen)
         cap_rem = torch.where(keep, pc, cap_rem)
         rounds += 1
-    got = mm.maxmin_rates(fl, cap, active, **kw)
+    def call():
+        return mm.maxmin_rates(fl, cap, active, **kw)
+    got = call()
     want = ref.maxmin_rates_reference(fl, cap, active, **kw)
-    err_abs = float((got - want).abs().max())
+    err_abs = abs_err(got, want)
     err_rel = rel_err(got, want)
-    ok = freeze_ok and round_err <= rtol and err_rel <= rtol
-    ms = cuda_ms(lambda: mm.maxmin_rates(fl, cap, active, **kw), 20)
+    ms = cuda_ms(call, 20)
     plain_ms = cuda_ms(lambda: ref.maxmin_rates_reference(fl, cap, active,
                                                           **kw), 3)
     bound_ms, bound_by, bytes_ms = fill_bound(fl, cap, max(rounds, 1), dtype)
+    calls = call_counts(mm, call, ms, bound_ms)
+    ok = freeze_ok and round_err <= rtol and err_rel <= rtol \
+        and calls["one_kernel"]
     row = {"kernel": "maxmin_fill", "phase": name, "shape": list(fl.shape),
            "caps": cap.shape[-1], "dtype": str(dtype).split(".")[-1],
            "rounds": rounds, "freeze_sets_equal": freeze_ok,
            "round_max_rel_err": round_err, "max_abs_err": err_abs,
            "max_rel_err": err_rel, "ms": ms, "plain_ms": plain_ms,
            "bound_ms": bound_ms, "bound_by": bound_by,
-           "bytes_bound_ms": bytes_ms, "phase_launches": launches, "ok": ok}
+           "bytes_bound_ms": bytes_ms, **calls, "phase_launches": launches,
+           "ok": ok}
     log(f"[kernels] {json.dumps(row)}")
     if not ok:
         fail(f"maxmin_fill {name} {list(fl.shape)} {dtype}: freeze "
-             f"{freeze_ok}, round err {round_err}, rates err {err_rel}")
+             f"{freeze_ok}, round err {round_err}, rates err {err_rel}, "
+             f"kernels a call {calls['kernels_per_call']} (traced "
+             f"{calls['traced_kernels_per_call']})")
     return row
 
 
+def call_counts(mm, call, ms, bound_ms):
+    """Device ms (torch.profiler), kernels a call by the library's own
+    count and by the tracer (memsets and copies included), the share of
+    the bound on the device time, and whether a call ran one kernel and
+    nothing else (the tracer's count, where it gave a whole trace, must
+    agree)."""
+    reps = max(2, min(50, int(20.0 / max(ms, 1e-3))))
+    per_call = kernels_per_call(mm.kernels_launched, call, min(10, reps))
+    dev_ms, traced, traces = device_time(call, reps)
+    return {"device_ms": dev_ms, "kernels_per_call": per_call,
+            "traced_kernels_per_call": traced, "traces": traces,
+            "bound_share": bound_ms / dev_ms if dev_ms else None,
+            "one_kernel": per_call == 1 and traced in (None, 1)}
+
+
 def rel_err(got, want):
+    """Largest relative distance; equal values (infinities, and a NaN
+    where the plain value is NaN) count 0, a NaN on one side only +inf."""
     if got.numel() == 0:
         return 0.0
-    den = want.abs().clamp(min=1e-30)
-    diff = (got - want).abs()
-    diff = torch.where(torch.isinf(want) & (got == want),
-                       torch.zeros_like(diff), diff)
-    return float((diff / den).max())
+    same = (got == want) | (torch.isnan(got) & torch.isnan(want))
+    err = torch.where(same, torch.zeros_like(got),
+                      (got - want).abs() / want.abs().clamp(min=1e-30))
+    return float(torch.nan_to_num(err, nan=math.inf).max())
+
+
+def abs_err(got, want):
+    """Largest absolute distance, equal values (NaN with NaN) counting 0."""
+    if got.numel() == 0:
+        return 0.0
+    same = (got == want) | (torch.isnan(got) & torch.isnan(want))
+    err = torch.where(same, torch.zeros_like(got), (got - want).abs())
+    return float(torch.nan_to_num(err, nan=math.inf).max())
 
 
 def check_loss(name, args, kw, dtype, mm, ref, launches=0):
     fl, rates, active, cap, q, wsq, wnd, ecn = (
         a.to(dtype) if a.is_floating_point() else a for a in args)
-    got = mm.loss_factors(fl, rates, active, cap, q, wsq, wnd, ecn, **kw)
+    def call():
+        return mm.loss_factors(fl, rates, active, cap, q, wsq, wnd, ecn, **kw)
+    got = call()
     want = ref.loss_factors_reference(fl, rates, active, cap, q, wsq, wnd,
                                       ecn, **kw)
-    err = float((got - want).abs().max())
+    err = abs_err(got, want)
     zero = (q == 0) & (wsq == 0) & (wnd == 0) & (ecn == 0)
     ones_ok = bool((got[zero] == 1.0).all())
-    ok = err <= 1e-6 and ones_ok
-    ms = cuda_ms(lambda: mm.loss_factors(fl, rates, active, cap, q, wsq,
-                                         wnd, ecn, **kw), 20)
+    ms = cuda_ms(call, 20)
     plain_ms = cuda_ms(lambda: ref.loss_factors_reference(
         fl, rates, active, cap, q, wsq, wnd, ecn, **kw), 5)
     bound_ms, bound_by, bytes_ms = loss_bound(fl, cap, dtype)
+    calls = call_counts(mm, call, ms, bound_ms)
+    ok = err <= 1e-6 and ones_ok and calls["one_kernel"]
     row = {"kernel": "loss_factors", "phase": name, "shape": list(fl.shape),
            "caps": cap.shape[-1], "dtype": str(dtype).split(".")[-1],
            "zero_rows": int(zero.sum()), "zero_rows_exactly_one": ones_ok,
            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
            "bound_ms": bound_ms, "bound_by": bound_by,
-           "bytes_bound_ms": bytes_ms, "phase_launches": launches, "ok": ok}
+           "bytes_bound_ms": bytes_ms, **calls, "phase_launches": launches,
+           "ok": ok}
     log(f"[kernels] {json.dumps(row)}")
     if not ok:
         fail(f"loss_factors {name} {list(fl.shape)} {dtype}: err {err}, "
-             f"all-zero rows exactly 1: {ones_ok}")
+             f"all-zero rows exactly 1: {ones_ok}, kernels a call "
+             f"{calls['kernels_per_call']} (traced "
+             f"{calls['traced_kernels_per_call']})")
     return row
 
 
@@ -2501,6 +2548,14 @@ def run_kernels(rec, paths):
         for dtype in (torch.float32, torch.float64):
             rows.append(check_fill("random", fl, cap, active, kw, dtype,
                                    mm, ref))
+    # a live row over the sentinel alone: its round's bottleneck is +inf,
+    # and the plain round leaves NaN on every link a row crosses
+    links, caps = B_INF
+    fl = torch.tensor([links], dtype=torch.int32, device="cuda")
+    cap = torch.tensor(caps, dtype=torch.float64, device="cuda")
+    for dtype in (torch.float32, torch.float64):
+        rows.append(check_fill("b_inf", fl, cap, torch.ones(
+            fl.shape[:2], dtype=dtype, device="cuda"), {}, dtype, mm, ref))
     return rows
 
 

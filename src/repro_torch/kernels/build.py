@@ -47,10 +47,10 @@ BUILD_LOG: dict = {}
 
 _P, _I, _L, _D, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
     ctypes.c_double, ctypes.c_float
-_FILL_ARGS = [_P, _I, _I, _I, _P, _L, _I, _P, _P, _P, _P, _P, _P, _P,
-              _I, _D, _I, _I, _P]
+_FILL_ARGS = [_P, _I, _I, _I, _P, _L, _I, _P, _I, _P, _P, _P, _P, _P, _L,
+              _I, _D, _I, _I, _I, _I, _P]
 _LOSS_ARGS = [_P, _I, _I, _I, _P, _P, _P, _L, _I, _P, _P, _P, _P, _P, _P,
-              _P, _D, _D, _D, _I, _P]
+              _L, _D, _D, _D, _I, _I, _P]
 _DECODE_ARGS = [_I, _I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P,
                 _P, _P, _P]
 _ATTN_ARGS = [_I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P]
@@ -61,7 +61,8 @@ _SSD_ARGS = [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
 _SIGNATURES = {
     "maxmin": {"maxmin_fill_f32": _FILL_ARGS, "maxmin_fill_f64": _FILL_ARGS,
                "loss_factors_f32": _LOSS_ARGS,
-               "loss_factors_f64": _LOSS_ARGS},
+               "loss_factors_f64": _LOSS_ARGS,
+               "maxmin_variant": [_I, _I, _I, _I, _I, _I, _I]},
     "flash_decode": {"flash_decode": _DECODE_ARGS},
     "flash_attention": {"flash_attention": _ATTN_ARGS,
                         "flash_attention_wgmma": _ATTN_WG_ARGS,
@@ -70,7 +71,8 @@ _SIGNATURES = {
 }
 #: library -> its count of device kernels launched (no arguments, long
 #: long): kernels a call without a tracer
-KERNEL_COUNT = {"flash_decode": "flash_decode_kernels_launched",
+KERNEL_COUNT = {"maxmin": "maxmin_kernels_launched",
+                "flash_decode": "flash_decode_kernels_launched",
                 "ssd_scan": "ssd_scan_kernels_launched"}
 _ERROR_STRING = {"maxmin": "kernels_error_string",
                  "flash_decode": "flash_decode_error_string",

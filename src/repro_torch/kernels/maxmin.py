@@ -17,9 +17,15 @@ through.
 Inputs follow ``ref.py``: one lane (F, H) or a batch (B, F, H) of int32
 link ids whose last capacity entry is the +inf sentinel; capacities are
 (L+1,) shared or (B, L+1) per lane; per-flow vectors and masks are in
-the capacity dtype, float32 or float64.
+the capacity dtype, float32 or float64 (``maxmin_rates``' active mask
+may also be bool).  A call allocates its outputs and nothing else: the
+kernels keep their state in shared memory or in a scratch buffer kept
+per device and stream (``_scratch``), and the card's attributes are
+looked up once.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -35,14 +41,83 @@ def reset_launches() -> None:
         LAUNCHES[name] = 0
 
 
-def _group(n_hops: int) -> int:
-    """Threads per flow: H rounded up to a power of two, at most a warp."""
-    return min(32, 1 << max(n_hops - 1, 0).bit_length())
+def kernels_launched() -> int:
+    """Kernels the CUDA library has launched in this process, by its own
+    count (one added beside each launch): a wrapper call's share is its
+    kernels per call, with no tracer to lose any."""
+    from repro_torch.kernels import build
+    return build.kernels_launched("maxmin")
 
 
-def _check(name, fl, cap, vecs):
+#: scratch buffers the kernels may use, one per (device, stream), grown
+#: when a call needs more (``_scratch``)
+_SCRATCH: dict = {}
+#: kernel variants by name (the C entry's ``variant`` argument): "auto"
+#: lets the library choose (``variant_of``); tests and the probe name one
+_VARIANTS = {"auto": 0, "lane": 1, "grid": 2}
+_ALIGN = 256
+
+
+def _regions(*counts) -> int:
+    """Bytes of scratch regions of ``counts`` bytes each, every one
+    ``_ALIGN``-aligned (the kernel carves them in this order)."""
+    return sum(-(-n // _ALIGN) * _ALIGN for n in counts)
+
+
+@functools.lru_cache(maxsize=256)
+def _fill_bytes(b, f, n_caps, es):
+    """frozen, cap_out, tight, used, share, cnt and 4 B + 1 lane slots."""
+    return _regions(b * f * es, b * n_caps * es, b * f * es, b * n_caps * es,
+                    b * n_caps * es, b * n_caps * 4, (4 * b + 1) * 8)
+
+
+@functools.lru_cache(maxsize=256)
+def _loss_bytes(b, n_caps, es):
+    """util and cnt of the grid kernel."""
+    return _regions(b * n_caps * es, b * n_caps * 4)
+
+
+def _stream(device) -> int:
+    """The raw handle of the current stream on ``device``: what
+    ``torch.cuda.current_stream(device).cuda_stream`` gives, without
+    building a Stream object on every call."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
+
+
+def _scratch(device, stream, n_bytes):
+    """A byte buffer of at least ``n_bytes`` on ``device`` for calls on
+    ``stream``: kept between calls, grown (doubled) when too small; the
+    kernels reset what they use of it."""
+    key = (device.index, stream)
+    buf = _SCRATCH.get(key)
+    if buf is None or buf.numel() < n_bytes:
+        size = max(n_bytes, 2 * buf.numel() if buf is not None else 0)
+        buf = torch.empty(size, dtype=torch.uint8, device=device)
+        _SCRATCH[key] = buf
+    return buf
+
+
+def variant_of(kernel, flow_links, cap) -> str:
+    """The kernel a call of ``kernel`` ("maxmin_fill" or "loss_factors")
+    takes on the card: ``"lane"`` (one CTA a lane, its state in shared
+    memory) or ``"grid"`` (a cooperative grid over all lanes: lanes whose
+    links do not fit, or a few lanes of 32k+ ids each); ``"grid, lane
+    fits"`` when the grid was chosen for a lane the lane kernel could
+    take."""
+    from repro_torch.kernels import build
+    fl = flow_links if flow_links.dim() == 3 else flow_links[None]
+    code = build.library("maxmin").maxmin_variant(
+        0 if kernel == "maxmin_fill" else 1, *fl.shape, cap.shape[-1],
+        cap.element_size(), flow_links.device.index)
+    if code < 0:
+        build.check("maxmin", -code, "maxmin_variant")
+    return {1: "lane", 2: "grid", 3: "grid, lane fits"}[code]
+
+
+def _check(name, fl, cap, vecs, masks=()):
     """Validate what the kernel takes; returns (single, fl, cap, vecs)
-    with one lane promoted to a batch of one."""
+    with one lane promoted to a batch of one.  ``masks`` are indices of
+    vecs that may also be bool."""
     single = fl.dim() == 2
     if single:
         fl = fl[None]
@@ -50,56 +125,72 @@ def _check(name, fl, cap, vecs):
     if fl.dim() != 3 or fl.dtype != torch.int32:
         raise ValueError(f"{name}: flow_links must be (F, H) or (B, F, H) "
                          f"int32, got {tuple(fl.shape)} {fl.dtype}")
-    if cap.dtype not in (torch.float32, torch.float64):
+    dtype = cap.dtype
+    if dtype not in (torch.float32, torch.float64):
         raise ValueError(f"{name}: capacities must be float32 or float64, "
-                         f"got {cap.dtype}")
+                         f"got {dtype}")
     b, f, _ = fl.shape
     if cap.dim() not in (1, 2) or (cap.dim() == 2 and cap.shape[0] != b):
         raise ValueError(f"{name}: capacities must be (L+1,) or "
                          f"({b}, L+1), got {tuple(cap.shape)}")
-    for v in vecs:
-        if v.shape != (b, f) or v.dtype != cap.dtype:
+    device = fl.device
+    for i, v in enumerate(vecs):
+        if v.shape != (b, f) or (v.dtype != dtype and not (
+                i in masks and v.dtype == torch.bool)):
             raise ValueError(f"{name}: per-flow vectors must be ({b}, {f}) "
-                             f"{cap.dtype}, got {tuple(v.shape)} {v.dtype}")
+                             f"{dtype}, got {tuple(v.shape)} {v.dtype}")
     for t in (fl, cap, *vecs):
-        if t.device != fl.device:
-            raise ValueError(f"{name}: tensors on {t.device} and "
-                             f"{fl.device}")
+        if t.device != device:
+            raise ValueError(f"{name}: tensors on {t.device} and {device}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: tensors must be contiguous")
     return single, fl, cap, vecs
 
 
-def _fill(fl, cap, frozen, rates, *, tol, bound, floor_rates):
-    """Launch ``maxmin_fill``: rounds from the (frozen, rates, cap) state
-    while a flow is live and the round index is <= ``bound``."""
+def _fill(fl, cap, state, rates, *, tol, bound, one_round, floor_rates,
+          variant="auto"):
+    """Launch ``maxmin_fill`` once: rounds while a flow is live and the
+    round index is <= ``bound`` (``one_round``: exactly one).  ``state``
+    is the active mask (bool or the capacity dtype; ``rates`` None) or
+    the frozen mask with ``rates`` the rates to start from.  Returns
+    (rates, frozen, cap_rem); the last two None unless ``one_round``."""
     from repro_torch.kernels import build
-    single, fl, cap, (frozen, rates) = _check("maxmin_fill", fl, cap,
-                                              [frozen, rates])
+    vecs = [state] if rates is None else [state, rates]
+    single, fl, cap, vecs = _check("maxmin_fill", fl, cap, vecs,
+                                   masks=(0,) if rates is None else ())
     b, f, h = fl.shape
     n_caps = cap.shape[-1]
-    dtype = cap.dtype
-    rates, frozen = rates.clone(), frozen.clone()
-    cap_out = torch.empty((b, n_caps), dtype=dtype, device=fl.device)
-    tight = torch.empty((b, f), dtype=dtype, device=fl.device)
-    used = torch.empty(n_caps, dtype=dtype, device=fl.device)
-    cnt = torch.empty(n_caps, dtype=torch.int32, device=fl.device)
-    scal = torch.empty(4, dtype=torch.int64, device=fl.device)
-    fn = build.library("maxmin").maxmin_fill_f64 \
-        if dtype == torch.float64 else build.library("maxmin").maxmin_fill_f32
-    with torch.cuda.device(fl.device):
-        stream = torch.cuda.current_stream(fl.device).cuda_stream
-        code = fn(fl.data_ptr(), b, f, h, cap.data_ptr(),
-                  n_caps if cap.dim() == 2 else 0, n_caps, rates.data_ptr(),
-                  frozen.data_ptr(), cap_out.data_ptr(), tight.data_ptr(),
-                  used.data_ptr(), cnt.data_ptr(), scal.data_ptr(),
-                  int(bound), float(tol), int(floor_rates), _group(h),
-                  stream)
+    dtype, device = cap.dtype, fl.device
+    # outputs shaped and placed like the inputs (cheaper than torch.empty)
+    out = torch.empty_like(vecs[-1]) if vecs[-1].dtype == dtype \
+        else torch.empty((b, f), dtype=dtype, device=device)
+    frozen = cap_out = None
+    if one_round:
+        frozen = torch.empty_like(vecs[0])
+        cap_out = torch.empty_like(cap) if cap.dim() == 2 \
+            else torch.empty((b, n_caps), dtype=dtype, device=device)
+    stream = _stream(device)
+    n_bytes = _fill_bytes(b, f, n_caps, cap.element_size())
+    scratch = _scratch(device, stream, n_bytes)
+    kind = 2 if rates is not None else \
+        1 if vecs[0].dtype == torch.bool else 0
+    lib = build.library("maxmin")
+    fn = lib.maxmin_fill_f64 if dtype == torch.float64 \
+        else lib.maxmin_fill_f32
+    code = fn(fl.data_ptr(), b, f, h, cap.data_ptr(),
+              n_caps if cap.dim() == 2 else 0, n_caps, vecs[0].data_ptr(),
+              kind, vecs[1].data_ptr() if kind == 2 else None,
+              out.data_ptr(), frozen.data_ptr() if one_round else None,
+              cap_out.data_ptr() if one_round else None, scratch.data_ptr(),
+              n_bytes, int(bound), float(tol), int(one_round),
+              int(floor_rates), _VARIANTS[variant], device.index, stream)
     build.check("maxmin", code, "maxmin_fill")
     LAUNCHES["maxmin_fill"] += 1
+    if not one_round:
+        return (out[0] if single else out), None, None
     if single:
-        return rates[0], frozen[0], cap_out[0]
-    return rates, frozen, cap_out
+        return out[0], frozen[0], cap_out[0]
+    return out, frozen, cap_out
 
 
 def maxmin_round(flow_links, frozen, rates, cap_rem, *, tol: float = 1e-6):
@@ -108,7 +199,7 @@ def maxmin_round(flow_links, frozen, rates, cap_rem, *, tol: float = 1e-6):
         return ref.maxmin_round_reference(flow_links, frozen, rates, cap_rem,
                                           tol=tol)
     return _fill(flow_links, cap_rem, frozen, rates, tol=tol, bound=0,
-                 floor_rates=False)
+                 one_round=True, floor_rates=False)
 
 
 def maxmin_rates(flow_links, cap, active, *, tol: float = 1e-6,
@@ -123,11 +214,9 @@ def maxmin_rates(flow_links, cap, active, *, tol: float = 1e-6,
     if not on_card(flow_links):
         return ref.maxmin_rates_reference(flow_links, cap, active, tol=tol,
                                           max_rounds=max_rounds)
-    frozen = 1.0 - active.to(cap.dtype)
-    rates = torch.zeros_like(frozen)
     bound = flow_links.shape[-2] if max_rounds is None else max_rounds - 1
-    return _fill(flow_links, cap, frozen, rates, tol=tol, bound=bound,
-                 floor_rates=True)[0]
+    return _fill(flow_links, cap, active, None, tol=tol, bound=bound,
+                 one_round=False, floor_rates=True)[0]
 
 
 def loss_factors(flow_links, rates, active, cap, q, wsq, wnd, ecn, *,
@@ -137,27 +226,33 @@ def loss_factors(flow_links, rates, active, cap, q, wsq, wnd, ecn, *,
         return ref.loss_factors_reference(
             flow_links, rates, active, cap, q, wsq, wnd, ecn,
             dcqcn_num=dcqcn_num, dcqcn_min=dcqcn_min, util_eps=util_eps)
+    return _loss(flow_links, rates, active, cap, q, wsq, wnd, ecn,
+                 dcqcn_num=dcqcn_num, dcqcn_min=dcqcn_min,
+                 util_eps=util_eps)
+
+
+def _loss(flow_links, rates, active, cap, q, wsq, wnd, ecn, *, dcqcn_num,
+          dcqcn_min, util_eps=1e-3, variant="auto"):
+    """Launch ``loss_factors`` once."""
     from repro_torch.kernels import build
     single, fl, cap, vecs = _check("loss_factors", flow_links, cap,
                                    [rates, active, q, wsq, wnd, ecn])
-    rates, active, q, wsq, wnd, ecn = vecs
     b, f, h = fl.shape
     n_caps = cap.shape[-1]
-    fac = torch.empty((b, f), dtype=cap.dtype, device=fl.device)
-    util = torch.empty((b, n_caps), dtype=cap.dtype, device=fl.device)
-    cnt = torch.empty((b, n_caps), dtype=torch.int32, device=fl.device)
-    fn = build.library("maxmin").loss_factors_f64 \
-        if cap.dtype == torch.float64 \
-        else build.library("maxmin").loss_factors_f32
-    with torch.cuda.device(fl.device):
-        stream = torch.cuda.current_stream(fl.device).cuda_stream
-        code = fn(fl.data_ptr(), b, f, h, rates.data_ptr(),
-                  active.data_ptr(), cap.data_ptr(),
-                  n_caps if cap.dim() == 2 else 0, n_caps, q.data_ptr(),
-                  wsq.data_ptr(), wnd.data_ptr(), ecn.data_ptr(),
-                  fac.data_ptr(), util.data_ptr(), cnt.data_ptr(),
-                  float(dcqcn_num), float(dcqcn_min), float(util_eps),
-                  _group(h), stream)
+    dtype, device = cap.dtype, fl.device
+    fac = torch.empty_like(vecs[0])
+    stream = _stream(device)
+    n_bytes = _loss_bytes(b, n_caps, cap.element_size())
+    scratch = _scratch(device, stream, n_bytes)
+    lib = build.library("maxmin")
+    fn = lib.loss_factors_f64 if dtype == torch.float64 \
+        else lib.loss_factors_f32
+    code = fn(fl.data_ptr(), b, f, h, *(v.data_ptr() for v in vecs[:2]),
+              cap.data_ptr(), n_caps if cap.dim() == 2 else 0, n_caps,
+              *(v.data_ptr() for v in vecs[2:]), fac.data_ptr(),
+              scratch.data_ptr(), n_bytes, float(dcqcn_num),
+              float(dcqcn_min), float(util_eps), _VARIANTS[variant],
+              device.index, stream)
     build.check("maxmin", code, "loss_factors")
     LAUNCHES["loss_factors"] += 1
     return fac[0] if single else fac

@@ -293,6 +293,102 @@ def test_wrappers_refuse_other_devices():
         maxmin.maxmin_round(*t)
 
 
+@pytest.mark.parametrize("dtype_name", sorted(DTYPES))
+def test_round_at_an_infinite_bottleneck_matches_reference(dtype_name):
+    """A live flow over the +inf sentinel alone makes the round's
+    bottleneck +inf: the plain round and the JAX oracle then agree, NaNs
+    included, on every link a row crosses (0 * inf and inf - inf)."""
+    frozen, rates = np.array([0.0, 1.0]), np.array([0.0, 3.0])
+    with _with_x64(dtype_name):
+        want = _jax(dtype_name, maxmin_round_reference, B_INF_LINKS, frozen,
+                    rates, B_INF_CAP)
+    got = maxmin.maxmin_round(*_torch(dtype_name, B_INF_LINKS, frozen, rates,
+                                      B_INF_CAP))
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), w)
+    assert np.isnan(got[2].numpy()[[0, 2]]).all() and got[2][1] == 20.0
+
+
+def test_wrappers_refuse_what_the_kernel_cannot_take(monkeypatch):
+    """On the card path the wrappers raise on a wrong dtype, shape,
+    device or a non-contiguous input before anything is launched."""
+    monkeypatch.setattr(maxmin, "on_card", lambda t: True)
+    links, cap, frozen, rates = round_problem(2)
+    fl, fz, r, c = _torch("float32", links, frozen, rates, cap)
+    bad = {
+        "links dtype": (fl.long(), fz, r, c),
+        "cap dtype": (fl, fz.half(), r.half(), c.half()),
+        "vector dtype": (fl, fz.double(), r, c),
+        "vector shape": (fl, fz[:-1], r[:-1], c),
+        "cap shape": (fl, fz, r, c[None].expand(3, -1)),
+        "links shape": (fl[None, None], fz, r, c),
+        "non-contiguous": (fl.t().contiguous().t(), fz, r, c),
+        "device": (fl, fz.to("meta"), r, c)}
+    for name, args in bad.items():
+        with pytest.raises(ValueError):
+            maxmin.maxmin_round(*args)
+    with pytest.raises(ValueError):
+        maxmin.maxmin_rates(fl, c, fz.int())
+    *arrays, _ = loss_problem(1)
+    t = _torch("float32", *arrays)
+    kw = dict(dcqcn_num=DCQCN_RATE_NUM, dcqcn_min=DCQCN_MIN_RATE)
+    with pytest.raises(ValueError):
+        maxmin.loss_factors(*t[:2], t[2] > 0.5, *t[3:], **kw)
+    with pytest.raises(ValueError):
+        maxmin.loss_factors(t[0], t[1][::2], *t[2:], **kw)
+
+
+def test_fill_dispatch_is_one_call_with_outputs_only(monkeypatch):
+    """On a CUDA tensor ``maxmin_rates`` makes one call of the C entry
+    point with as many arguments as its ctypes signature declares,
+    allocates its rates and nothing else per call (the state lives in
+    shared memory or in the scratch kept per device and stream), and
+    hands a bool mask over as it is; ``maxmin_round`` allocates its
+    three outputs; ``loss_factors`` its factors.  The card is stood in
+    for by a library that records the calls."""
+    calls, made = [], []
+    lib = SimpleNamespace(
+        maxmin_fill_f32=lambda *a: calls.append(("fill", a)) or 0,
+        maxmin_fill_f64=lambda *a: calls.append(("fill", a)) or 0,
+        loss_factors_f32=lambda *a: calls.append(("loss", a)) or 0)
+    _fake_card(monkeypatch, maxmin, lib)
+    monkeypatch.setattr(torch._C, "_cuda_getCurrentRawStream",
+                        lambda index: 0, raising=False)
+    monkeypatch.setattr(maxmin, "_SCRATCH", {})
+    real_empty, real_like = torch.empty, torch.empty_like
+    monkeypatch.setattr(torch, "empty", lambda *a, **kw: made.append(
+        tuple(a[0]) if isinstance(a[0], tuple) else a[0])
+        or real_empty(*a, **kw))
+    monkeypatch.setattr(torch, "empty_like", lambda t, **kw: made.append(
+        tuple(t.shape)) or real_like(t, **kw))
+    links, cap, frozen, rates = round_problem(3, lanes=2)
+    fl, fz, r, c = _torch("float32", links, frozen, rates, cap)
+    maxmin.reset_launches()
+    maxmin.maxmin_rates(fl, c, fz < 0.5)
+    n_fill = len(build._SIGNATURES["maxmin"]["maxmin_fill_f32"])
+    n_bytes = maxmin._fill_bytes(2, 23, 18, 4)
+    assert [k for k, _ in calls] == ["fill"] and len(calls[0][1]) == n_fill
+    assert calls[0][1][8] == 1 and calls[0][1][14] == n_bytes  # bool mask
+    assert made == [(2, 23), n_bytes]      # rates, then the scratch once
+    made.clear()
+    maxmin.maxmin_rates(fl, c, 1.0 - fz)
+    assert made == [(2, 23)] and calls[1][1][8] == 0
+    made.clear()
+    maxmin.maxmin_round(fl, fz, r, c)
+    assert made == [(2, 23), (2, 23), (2, 18)] and calls[2][1][8] == 2
+    made.clear()
+    maxmin.maxmin_round(fl[0], fz[0], r[0], c)      # one lane
+    assert made == [(1, 23), (1, 23), (1, 18)]
+    *arrays, _ = loss_problem(4)
+    made.clear()
+    maxmin.loss_factors(*_torch("float32", *arrays),
+                        dcqcn_num=DCQCN_RATE_NUM, dcqcn_min=DCQCN_MIN_RATE)
+    n_loss = len(build._SIGNATURES["maxmin"]["loss_factors_f32"])
+    assert calls[4][0] == "loss" and len(calls[4][1]) == n_loss
+    assert made == [(1, 24)]           # the scratch is large enough
+    assert maxmin.LAUNCHES == {"maxmin_fill": 4, "loss_factors": 1}
+
+
 def test_plain_versions_launch_nothing():
     """CPU tensors never reach a kernel: the launch counts stay 0."""
     maxmin.reset_launches()
@@ -353,13 +449,15 @@ def test_entry_points_match_their_ctypes_signatures(name):
 
 
 def test_kernels_launched_reads_each_librarys_count(monkeypatch):
-    """``kernels_launched()`` of the decode and SSD wrappers reads the
-    counter of its own library."""
+    """``kernels_launched()`` of the decode, SSD and max-min wrappers
+    reads the counter of its own library."""
     libs = {"flash_decode": SimpleNamespace(
                 flash_decode_kernels_launched=lambda: 7),
-            "ssd_scan": SimpleNamespace(ssd_scan_kernels_launched=lambda: 9)}
+            "ssd_scan": SimpleNamespace(ssd_scan_kernels_launched=lambda: 9),
+            "maxmin": SimpleNamespace(maxmin_kernels_launched=lambda: 11)}
     monkeypatch.setattr(build, "library", libs.__getitem__)
     assert fd.kernels_launched() == 7 and ssd.kernels_launched() == 9
+    assert maxmin.kernels_launched() == 11
 
 
 def _chip_smoke():
@@ -463,6 +561,188 @@ def test_cuda_loss_factors_match_plain_on_card(dtype_name):
     want = ref.loss_factors_reference(*t, **kw)
     torch.testing.assert_close(got, want, atol=1e-6, rtol=0)
     assert (got.cpu().numpy()[zero] == 1.0).all()
+
+
+#: the lane whose second round's bottleneck is +inf: a live flow over the
+#: sentinel alone beside one frozen at a 0-capacity link
+B_INF_LINKS = np.array([[2, 2], [0, 2]], np.int32)
+B_INF_CAP = np.array([0.0, 20.0, np.inf])
+
+
+def sentinel_heavy_problem(seed, lanes, n_flows, n_hops, n_links, real):
+    """Rows of ``n_hops`` ids of which at most ``real`` are links (drawn
+    over ``n_links``), the rest the sentinel: a multicast tree's rows."""
+    rng = np.random.default_rng(seed)
+    links = np.full((lanes, n_flows, n_hops), n_links, np.int32)
+    lens = rng.integers(1, real + 1, (lanes, n_flows))
+    for b in range(lanes):
+        for f in range(n_flows):
+            links[b, f, :lens[b, f]] = rng.choice(n_links, lens[b, f],
+                                                  replace=False)
+    cap = np.stack([np.append(rng.uniform(1e9, 2.5e10, n_links), np.inf)
+                    for _ in range(lanes)])
+    return links, cap
+
+
+def _hold_fill_to_plain(fl, cap, active, dtype_name, variant="auto", **kw):
+    """Kernel against plain on the card: every round of ``maxmin_round``
+    (the same freeze set, rates and remaining capacity, NaNs where the
+    plain round has them) until no flow is live, then ``maxmin_rates``;
+    on the kernel the wrapper picks, or on the one named."""
+    rtol = DTYPES[dtype_name][3]
+    tol = kw.get("tol", 1e-6)
+    bound = fl.shape[-2] if kw.get("max_rounds") is None \
+        else kw["max_rounds"] - 1
+    frozen = 1.0 - active
+    rates = torch.zeros_like(active)
+    cap_rem = cap.expand(fl.shape[0], -1).contiguous() \
+        if cap.dim() == 1 and fl.dim() == 3 else cap
+    for _ in range(fl.shape[-2] + 1):
+        if not bool((frozen < 0.5).any()):
+            break
+        want = ref.maxmin_round_reference(fl, frozen, rates, cap_rem, tol=tol)
+        got = maxmin._fill(fl, cap_rem, frozen, rates, tol=tol, bound=0,
+                           one_round=True, floor_rates=False,
+                           variant=variant)
+        assert torch.equal(got[1], want[1])
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g, w, rtol=rtol, atol=0,
+                                       equal_nan=True)
+        rates, frozen, cap_rem = want
+    got = maxmin._fill(fl, cap, active, None, tol=tol, bound=bound,
+                       one_round=False, floor_rates=True, variant=variant)[0]
+    torch.testing.assert_close(got, ref.maxmin_rates_reference(
+        fl, cap, active, **kw), rtol=rtol, atol=0)
+    return got
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype_name", sorted(DTYPES))
+@pytest.mark.parametrize("case", ["sentinel_heavy", "one_lane_in_smem",
+                                  "two_lanes_past_smem"])
+def test_cuda_fill_matches_plain_at_the_flow_engines_shapes(case,
+                                                           dtype_name):
+    """The kernel takes each shape of the main path's lanes as the plain
+    version does: a lane of 16 rows of 8,192 ids over 4,000 links, most
+    of them the sentinel (fig15's trees), and one lane of 4,096 x 8 ids,
+    both of which fit shared memory (each held on the lane kernel and on
+    the grid kernel the wrapper picks for so few, long lanes); two lanes
+    of 30,000 links that do not fit (the grid kernel)."""
+    _card()
+    lanes, n_flows, n_hops, n_links, real = {
+        "sentinel_heavy": (1, 16, 8192, 4000, 4000),
+        "one_lane_in_smem": (1, 4096, 8, 3000, 8),
+        "two_lanes_past_smem": (2, 4096, 8, 30000, 8)}[case]
+    links, cap = sentinel_heavy_problem(5, lanes, n_flows, n_hops, n_links,
+                                        real)
+    t_dt = DTYPES[dtype_name][1]
+    fl, c = torch.from_numpy(links).cuda(), torch.from_numpy(cap).to(
+        t_dt).cuda()
+    act = torch.ones(fl.shape[:2], dtype=t_dt, device="cuda")
+    if case == "two_lanes_past_smem":
+        assert maxmin.variant_of("maxmin_fill", fl, c) == "grid"
+        _hold_fill_to_plain(fl, c, act, dtype_name)
+        return
+    assert maxmin.variant_of("maxmin_fill", fl, c) == "grid, lane fits"
+    for variant in ("lane", "grid"):
+        _hold_fill_to_plain(fl, c, act, dtype_name, variant)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype_name", sorted(DTYPES))
+@pytest.mark.parametrize("variant", ["lane", "grid"])
+def test_cuda_round_at_an_infinite_bottleneck_is_the_plain_round(
+        dtype_name, variant):
+    """At a round whose bottleneck is +inf the kernel returns the plain
+    round's remaining capacity, NaN on every link a row crosses; so does
+    a lane with no live flow (one round whatever is live), on both
+    kernels."""
+    _card()
+    t_dt = DTYPES[dtype_name][1]
+    fl = torch.from_numpy(B_INF_LINKS).cuda()
+    cap = torch.tensor(B_INF_CAP, dtype=t_dt, device="cuda")
+    for frozen in ([0.0, 1.0], [1.0, 1.0]):
+        fz = torch.tensor(frozen, dtype=t_dt, device="cuda")
+        rates = torch.tensor([0.0, 3.0], dtype=t_dt, device="cuda")
+        want = ref.maxmin_round_reference(fl, fz, rates, cap)
+        got = maxmin._fill(fl, cap, fz, rates, tol=1e-6, bound=0,
+                           one_round=True, floor_rates=False,
+                           variant=variant)
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g, w, rtol=0, atol=0, equal_nan=True)
+    act = torch.ones(2, dtype=t_dt, device="cuda")
+    _hold_fill_to_plain(fl, cap, act, dtype_name, variant)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype_name", sorted(DTYPES))
+def test_cuda_fill_stops_at_the_round_bound(dtype_name):
+    """``max_rounds=1`` (bound 0) runs one round: the plain round's rates,
+    floored, with the flows it left live at the floor."""
+    _card()
+    links, cap, _, _ = round_problem(6, n_flows=64, n_hops=8, n_links=40)
+    fl, c = (x.cuda() for x in _torch(dtype_name, links, cap))
+    act = torch.ones(64, dtype=DTYPES[dtype_name][1], device="cuda")
+    one = maxmin.maxmin_rates(fl, c, act, max_rounds=1)
+    r, f, _ = ref.maxmin_round_reference(fl, 1.0 - act, torch.zeros_like(act),
+                                         c)
+    assert bool((f < 0.5).any())
+    torch.testing.assert_close(one, torch.clamp(r, min=1e-9), rtol=0, atol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype_name", sorted(DTYPES))
+def test_cuda_calls_are_one_kernel_and_repeatable(dtype_name):
+    """A second ``maxmin_rates`` call is bit-identical to the first (the
+    scratch buffer is reset by the kernel); each call of either wrapper
+    launches one kernel by the library's count, and a bool active mask
+    gives the float mask's rates."""
+    _card()
+    links, cap = sentinel_heavy_problem(7, 3, 64, 16, 300, 6)
+    t_dt = DTYPES[dtype_name][1]
+    fl, c = torch.from_numpy(links).cuda(), torch.from_numpy(cap).to(
+        t_dt).cuda()
+    act = torch.ones((3, 64), dtype=t_dt, device="cuda")
+    act[:, ::5] = 0.0
+    first = maxmin.maxmin_rates(fl, c, act)
+    before = maxmin.kernels_launched()
+    second = maxmin.maxmin_rates(fl, c, act)
+    assert maxmin.kernels_launched() - before == 1
+    assert torch.equal(first, second)
+    assert torch.equal(maxmin.maxmin_rates(fl, c, act > 0.5), first)
+    *arrays, _ = loss_problem(3, n_flows=64, n_links=30)
+    t = [x.cuda() for x in _torch(dtype_name, *arrays)]
+    kw = dict(dcqcn_num=DCQCN_RATE_NUM, dcqcn_min=DCQCN_MIN_RATE)
+    before = maxmin.kernels_launched()
+    maxmin.loss_factors(*t, **kw)
+    assert maxmin.kernels_launched() - before == 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype_name", sorted(DTYPES))
+def test_cuda_loss_factors_grid_matches_plain_on_card(dtype_name):
+    """The loss kernel's grid variant (lanes past shared memory) against
+    the plain version, at a sentinel-heavy lane forced onto it."""
+    _card()
+    links, cap = sentinel_heavy_problem(8, 2, 16, 512, 400, 300)
+    rng = np.random.default_rng(8)
+    vec = [rng.uniform(1e8, 5e9, (2, 16)), (rng.random((2, 16)) < 0.8) * 1.0,
+           rng.uniform(0.0, 0.05, (2, 16)), rng.uniform(0.0, 1e-4, (2, 16)),
+           rng.choice([64.0, 256.0], (2, 16)), (rng.random((2, 16)) < 0.5)
+           * 1.0]
+    t_dt = DTYPES[dtype_name][1]
+    fl = torch.from_numpy(links).cuda()
+    rates, active, c, q, wsq, wnd, ecn = (torch.from_numpy(a).to(t_dt).cuda()
+                                          for a in (vec[0], vec[1], cap,
+                                                    *vec[2:]))
+    kw = dict(dcqcn_num=DCQCN_RATE_NUM, dcqcn_min=DCQCN_MIN_RATE,
+              util_eps=1e-3)
+    want = ref.loss_factors_reference(fl, rates, active, c, q, wsq, wnd, ecn,
+                                      **kw)
+    for variant in ("lane", "grid"):
+        got = maxmin._loss(fl, rates, active, c, q, wsq, wnd, ecn, **kw,
+                           variant=variant)
+        torch.testing.assert_close(got, want, atol=1e-6, rtol=0)
 
 
 # ============================================================ flash decode
