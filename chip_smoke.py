@@ -50,9 +50,9 @@ version on the card:
      mamba2_370m 8 x 4096 (48 ``ssd_scan``, chunk 256, every one the
      chunk-parallel tensor-core variant); finite (B, 1, V)
      logits; one more granite prefill traced with ``torch.profiler``;
-     then the three smoke configs in float32 (TF32 off, so the SIMT
-     attention variant) on card and CPU, last-position logits within
-     1e-3;
+     then the smoke configs (granite, llama3.2, qwen1.5, danube and the
+     other families) in float32 (TF32 off, so the SIMT attention
+     variant) on card and CPU, last-position logits within 1e-3;
    - train: full width, seed-0 float32 parameters and moments drawn
      on the card, bf16 compute, no checkpoint, 3 steps, through
      ``runtime/train.Trainer`` on synthetic tokens: granite_3_2b 4 x
@@ -73,6 +73,16 @@ version on the card:
      ``Trainer`` (final loss within rtol 1e-6 of the uninterrupted run),
      and the whisper and internvl2 smoke configs for 8 steps of
      ``make_train_step`` on card and CPU (losses within 1e-4);
+   - mesh_prefill, mesh_train: the prefill and train steps on
+     ``single_device_mesh`` (the mesh code with every collective on an
+     axis of one rank) against the steps without a mesh, granite_3_2b at
+     full width: prefill 4 x 4096, bit-identical logits; one train step
+     at 2 x 4096 in 2 microbatches from the same seed-0 state,
+     bit-identical loss, ``grad_norm``, the gradient handed to AdamW
+     and every updated parameter and moment (at 40 layers the float32
+     ``grad_norm`` overflows, so the clip zeroes the update's gradient
+     and the moments: the recorded gradient is what holds the backward);
+     the mesh steps' ``flash_attention`` launches (wgmma) counted alone;
    - the packet-vs-flow gates: the packet engine on the host (its wall,
      events/s and the host CPU logged) and the flow engine on the card,
      each flow side one phase:
@@ -113,7 +123,12 @@ version on the card:
    each attention prefill, ``tests/test_kernels.py``'s ATTN_CASES and the
    wgmma variant's WGMMA_CASES, in float32 (SIMT variant) and bf16
    (wgmma variant) (2e-5 / 2e-2; SDPA timed beside it; each row with its
-   variant, useful TFLOP/s and share of the bound); ``ssd_scan`` at
+   variant, useful TFLOP/s and share of the bound), and with
+   ``q_offset`` (``Q_OFFSET_ATTN``: llama3.2's and danube's layers at
+   8192 positions and granite's heads at 6000, each cut into 4 blocks of
+   query rows at their offsets against the whole K/V, every block held
+   to the plain version, the blocks together to one whole call);
+   ``ssd_scan`` at
    the first and last layer of the mamba prefill at chunks 64, 128 and
    256, SSD_CASES in float32 and bf16 and the chunk-parallel variant's
    edge cases in f32, bf16 and bf16 x with f32 y (y 1e-4 / 3e-2, state
@@ -315,11 +330,26 @@ PREFILL_PROFILE = "prefill_granite"
 #: the card-vs-CPU prefill check at the smoke configs, float32, TF32 off:
 #: (arch, batch, prompt length); danube where the reference applies its
 #: window of 32
-PREFILL_CROSS = (("granite_3_2b", 2, 64), ("h2o_danube_3_4b", 2, 64),
+PREFILL_CROSS = (("granite_3_2b", 2, 64), ("llama3_2_3b", 2, 64),
+                 ("qwen1_5_110b", 2, 64), ("h2o_danube_3_4b", 2, 64),
                  ("h2o_danube_3_4b", 2, 96), ("mamba2_370m", 2, 64),
                  ("mixtral_8x7b", 2, 64), ("qwen3_moe_235b_a22b", 2, 64),
                  ("jamba_v0_1_52b", 2, 64), ("whisper_medium", 2, 64),
                  ("internvl2_26b", 2, 64))
+#: the train and prefill steps on ``single_device_mesh`` against the steps
+#: without a mesh, granite_3_2b at full width: (batch, positions,
+#: microbatches) of the train step, (batch, prompt) of the prefill step
+MESH_TRAIN = dict(batch=2, seq=4096, accum=2)
+MESH_PREFILL = dict(batch=4, seq=4096)
+#: ``flash_attention`` with ``q_offset``, the sequence-parallel attention
+#: of a mesh's ``model`` ranks: (name, seq, H, KVH, D, window, blocks):
+#: each block's rows at offset i seq / blocks against the whole K/V,
+#: causal, batch 1 (llama3_2_3b's layer at 8192 split 4 ways, danube's
+#: with its window, and granite's heads at 6000 positions in 4 blocks
+#: whose offsets 1500, 3000 and 4500 are not multiples of 128)
+Q_OFFSET_ATTN = (("llama3_2_3b", 8192, 24, 8, 128, 0, 4),
+                 ("h2o_danube_3_4b", 8192, 32, 8, 120, 4096, 4),
+                 ("granite_3_2b", 6000, 32, 8, 64, 0, 4))
 #: the train paths at full width: (phase, arch, layers (0: the config's;
 #: cut where the float32 train state, 16 bytes a parameter: parameters,
 #: gradients and two moments, would not fit 80 GB), batch, decoder
@@ -1881,6 +1911,167 @@ def run_train(phases=TRAIN):
     return out
 
 
+# ---------------------------------------------------------- mesh steps
+
+def mesh_prefill_phase(spec=MESH_PREFILL, label="mesh_prefill"):
+    """granite_3_2b at full width (seed-0 weights, bf16 compute):
+    ``make_prefill_step`` on ``single_device_mesh`` against the step
+    without a mesh on the same prompts: bit-identical logits, one
+    ``flash_attention`` (wgmma) a layer, counted for the mesh step
+    alone."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch.mesh import single_device_mesh
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models.model import Model
+    cfg = get_config("granite_3_2b")
+    model = Model(cfg, seed=0, device=CARD)
+    inputs = prefill_batch(cfg, spec["batch"], spec["seq"], CARD)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    got = make_prefill_step(cfg, mesh=single_device_mesh(CARD))(
+        model.params, inputs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = counts()
+    want = make_prefill_step(cfg, device=CARD)(model.params, inputs)
+    same = torch.equal(got, want)
+    finite = bool(torch.isfinite(got).all())
+    row = {"arch": cfg.name, "n_layers": cfg.n_layers,
+           "batch": spec["batch"], "seq": spec["seq"], "wall_s": wall,
+           "identical_to_no_mesh": same, "logits_finite": finite,
+           "launches": launches}
+    log(f"[paths] {label}: make_prefill_step on single_device_mesh, "
+        f"{cfg.name} ({cfg.n_layers} layers) {spec['batch']} x "
+        f"{spec['seq']}: {wall:.3f} s (the first call), identical to the "
+        f"step without a mesh {same}, finite {finite}, launches {launches}")
+    want_n = cfg.n_layers if CARD == "cuda" else 0
+    if not same or not finite:
+        fail(f"{label}: identical {same}, finite {finite}")
+    for name in ("flash_attention", "flash_attention_wgmma"):
+        if launches[name] != want_n:
+            fail(f"{label}: {name} launched {launches[name]} times, not "
+                 f"{want_n}")
+    del model, got, want
+    torch.cuda.empty_cache()
+    return row
+
+
+def mesh_train_phase(spec=MESH_TRAIN, label="mesh_train"):
+    """granite_3_2b at full width (all 40 layers, seed-0 float32
+    parameters and fresh moments drawn on the card, bf16 compute): one
+    ``make_train_step`` step on ``single_device_mesh`` and one without a
+    mesh from the same state and batch (``train_batches``' first):
+    bit-identical loss, ``grad_norm``, the gradient handed to AdamW and
+    every updated parameter and moment (the mesh run's copied to the
+    host, each leaf of the other compared with it).  The gradient must be
+    finite and nonzero: at 40 layers its float32 norm overflows to inf,
+    the clip factor is 0 and the moments stay zero, so it is the
+    gradient that shows the backward.  The mesh step's launches are counted alone: each
+    attention layer's kernel twice a microbatch (forward and remat
+    recompute), every one the wgmma variant."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch.mesh import single_device_mesh
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models.blocks import tree_leaves
+    from repro_torch.models.model import Model
+    from repro_torch.optim import adamw
+    cfg = get_config("granite_3_2b")
+    batch = train_batches(cfg, spec["batch"], spec["seq"], 1, CARD)[0]
+    kept, metrics, diff, walls = {}, {}, [], {}
+    grads, gdiff, gsum = {}, [], {}
+    apply = adamw.apply
+
+    def recorded(opt_cfg, p, state, g, **kw):
+        # the gradient handed to AdamW, before its clip scales it in place
+        # (at 40 layers the float32 norm overflows, the clip factor is 0
+        # and the moments stay zero: this is where the backward shows)
+        kind = "mesh" if kw.get("mesh") is not None else "none"
+        sq, big, nz = 0.0, 0.0, 0
+        for name, t in tree_leaves(g):
+            sq += float(torch.sum(torch.square(t.double())))
+            big = max(big, float(t.abs().max()))
+            nz += int(torch.count_nonzero(t))
+            if kind == "mesh":
+                grads[name] = t.to("cpu", copy=True)
+            elif not torch.equal(t.cpu(), grads[name]):
+                gdiff.append(name)
+        gsum[kind] = {"norm_f64": sq ** 0.5, "max_abs": big,
+                      "nonzero": nz}
+        return apply(opt_cfg, p, state, g, **kw)
+    adamw.apply = recorded
+    torch.cuda.reset_peak_memory_stats()
+    for kind in ("mesh", "none"):
+        params = Model(cfg, seed=0, device=CARD).params
+        state = adamw.init(params)
+        kw = ({"mesh": single_device_mesh(CARD)} if kind == "mesh"
+              else {"device": CARD})
+        step = make_train_step(cfg, adamw.AdamWConfig(), spec["accum"],
+                               **kw)
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        params, state, m = step(params, state, batch)
+        torch.cuda.synchronize()
+        walls[kind] = time.perf_counter() - t0
+        if kind == "mesh":
+            launches = counts()
+        metrics[kind] = {k: v.detach().cpu() for k, v in m.items()}
+        leaves = tree_leaves({"params": params, "m": state["m"],
+                              "v": state["v"]})
+        for name, t in leaves:
+            if kind == "mesh":
+                kept[name] = t.cpu()
+            elif not torch.equal(t.cpu(), kept[name]):
+                diff.append(name)
+        del params, state, step, m, leaves
+        torch.cuda.empty_cache()
+    adamw.apply = apply
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    same_metrics = all(torch.equal(metrics["mesh"][k], metrics["none"][k])
+                       for k in metrics["none"])
+    loss = float(metrics["mesh"]["loss"])
+    row = {"arch": cfg.name, "n_layers": cfg.n_layers, **spec,
+           "loss": loss, "grad_norm": float(metrics["mesh"]["grad_norm"]),
+           "step_s": walls, "peak_gb": peak, "leaves": len(kept),
+           "leaves_differing": diff, "metrics_identical": same_metrics,
+           "grad_leaves": len(grads), "grad_leaves_differing": gdiff,
+           "grad": gsum["mesh"], "launches": launches}
+    log(f"[paths] {label}: make_train_step on single_device_mesh vs no "
+        f"mesh, {cfg.name} ({cfg.n_layers} layers) {spec['batch']} x "
+        f"{spec['seq']} in {spec['accum']} microbatches: loss {loss!r}, "
+        f"grad_norm {row['grad_norm']!r}, metrics identical "
+        f"{same_metrics}, {len(kept) - len(diff)} of {len(kept)} leaves "
+        f"(parameters, m, v) identical, {len(grads) - len(gdiff)} of "
+        f"{len(grads)} gradient leaves handed to AdamW identical (mesh "
+        f"run's gradient: {gsum['mesh']}), step s {walls} (the first "
+        f"steps), peak {peak:.1f} GB, launches {launches}")
+    if diff or gdiff or not same_metrics or not np.isfinite(loss):
+        fail(f"{label}: leaves differing {diff[:5]}, gradient leaves "
+             f"differing {gdiff[:5]}, metrics identical {same_metrics}, "
+             f"loss {loss}")
+    if not gsum["mesh"]["nonzero"] or not np.isfinite(
+            gsum["mesh"]["max_abs"]):
+        fail(f"{label}: the gradient is zero or not finite {gsum['mesh']}")
+    want_n = 2 * spec["accum"] * cfg.n_layers if CARD == "cuda" else 0
+    for name in ("flash_attention", "flash_attention_wgmma"):
+        if launches[name] != want_n:
+            fail(f"{label}: {name} launched {launches[name]} times, not "
+                 f"{want_n}")
+    del kept, grads
+    return row
+
+
+def run_mesh_steps():
+    """The prefill and train steps on ``single_device_mesh`` against the
+    steps without a mesh (the one-card case of the mesh code)."""
+    t0 = time.perf_counter()
+    out = {"mesh_prefill": mesh_prefill_phase(),
+           "mesh_train": mesh_train_phase()}
+    log(f"[paths] mesh steps: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 # ------------------------------------------------------ packet-vs-flow gates
 
 def gate(label, got, want, tol, what="JCT"):
@@ -2674,9 +2865,10 @@ def run_decode_kernels(rec, paths):
     return rows
 
 
-def attn_pairs(sq, skv, causal, window):
-    """(query, key) pairs inside the mask: what the kernel must compute."""
-    qpos = torch.arange(sq)
+def attn_pairs(sq, skv, causal, window, q_offset=0):
+    """(query, key) pairs inside the mask: what the kernel must compute
+    (query row s at position ``q_offset + s``)."""
+    qpos = torch.arange(sq) + q_offset
     hi = torch.clamp(qpos + 1, max=skv) if causal \
         else torch.full_like(qpos, skv)
     lo = torch.clamp(qpos - window + 1, min=0) if window \
@@ -2684,7 +2876,7 @@ def attn_pairs(sq, skv, causal, window):
     return int(torch.clamp(hi - lo, min=0).sum())
 
 
-def attn_bound(q, k, causal, window):
+def attn_bound(q, k, causal, window, q_offset=0):
     """q, k, v read once and out written once; 4 D operations per head and
     (query, key) pair inside the causal band or window (the two
     products), at the peak of the inputs' dtype (bf16 on the tensor
@@ -2692,24 +2884,26 @@ def attn_bound(q, k, causal, window):
     b, sq, h, d = q.shape
     n_bytes = 2 * q.numel() * q.element_size() \
         + 2 * k.numel() * k.element_size()
-    ops = 4 * d * b * h * attn_pairs(sq, k.shape[1], causal, window)
+    ops = 4 * d * b * h * attn_pairs(sq, k.shape[1], causal, window,
+                                     q_offset)
     return bound(n_bytes, ops, q.dtype), ops
 
 
-def sdpa_prefill_ms(q, k, v, causal, window, reps):
+def sdpa_prefill_ms(q, k, v, causal, window, reps, q_offset=0):
     """One PyTorch call computing the same attention, as a yardstick (the
     port never calls it): ``is_causal`` with GQA for a causal band, an
-    explicit band mask (kv heads repeated) for a window."""
+    explicit band mask (kv heads repeated) for a window or query rows at
+    an offset."""
     qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    if not window:
+    if not window and not q_offset:
         return cuda_ms(lambda: sdpa(qt, kt, vt, is_causal=causal,
                                     enable_gqa=True), reps)
     rep = q.shape[2] // k.shape[2]
     kt, vt = kt.repeat_interleave(rep, 1), vt.repeat_interleave(rep, 1)
-    qpos = torch.arange(q.shape[1], device=q.device)[:, None]
+    qpos = torch.arange(q.shape[1], device=q.device)[:, None] + q_offset
     kpos = torch.arange(k.shape[1], device=q.device)[None, :]
-    mask = kpos > qpos - window
+    mask = kpos > qpos - window if window else torch.ones_like(kpos > qpos)
     if causal:
         mask &= kpos <= qpos
     return cuda_ms(lambda: sdpa(qt, kt, vt, attn_mask=mask), reps)
@@ -2730,15 +2924,19 @@ def beyond_rounding(got, want, exact):
 
 
 def check_attention(name, q, k, v, causal, window, fa, ref, launches=0,
-                    oracle=False):
+                    oracle=False, q_offset=0, reps=None):
     """Kernel vs plain flash attention; times.  With ``oracle`` (the
     captured full-width inputs) both are also measured against the plain
     version in float64, which decides a float32 row (ORACLE_FACTOR); a
     bf16 row is decided by the element-wise 2e-2 check, with each
-    output's distance from float64 beyond its bf16 rounding recorded."""
+    output's distance from float64 beyond its bf16 rounding recorded.
+    ``q_offset`` puts query row s at position ``q_offset + s``; ``reps``
+    (kernel, plain, SDPA) overrides the timing repetitions."""
     tol = ATTN_TOL[q.dtype]
-    got = fa.flash_attention(q, k, v, causal=causal, window=window)
-    want = ref.mha_reference(q, k, v, causal=causal, window=window)
+    got = fa.flash_attention(q, k, v, causal=causal, window=window,
+                             q_offset=q_offset)
+    want = ref.mha_reference(q, k, v, causal=causal, window=window,
+                             q_offset=q_offset)
     err = float((got.float() - want.float()).abs().max())
     within = torch.allclose(got.float(), want.float(), rtol=tol, atol=tol)
     ok, errs, beyond = within, None, None
@@ -2753,18 +2951,22 @@ def check_attention(name, q, k, v, causal, window, fa, ref, launches=0,
         del exact
     del got, want
     big = q.numel() > 1 << 22
+    reps = reps or ((5, 2, 5) if big else (20, 5, 20))
     ms = cuda_ms(lambda: fa.flash_attention(q, k, v, causal=causal,
-                                            window=window), 5 if big else 20)
+                                            window=window,
+                                            q_offset=q_offset), reps[0])
     plain_ms = cuda_ms(lambda: ref.mha_reference(q, k, v, causal=causal,
-                                                 window=window),
-                       2 if big else 5)
-    (bound_ms, bound_by, bytes_ms), ops = attn_bound(q, k, causal, window)
-    lib = sdpa_prefill_ms(q, k, v, causal, window, 5 if big else 20)
+                                                 window=window,
+                                                 q_offset=q_offset),
+                       reps[1])
+    (bound_ms, bound_by, bytes_ms), ops = attn_bound(q, k, causal, window,
+                                                     q_offset)
+    lib = sdpa_prefill_ms(q, k, v, causal, window, reps[2], q_offset)
     row = {"kernel": "flash_attention", "phase": name,
            "variant": fa.variant(q, k),
            "shape": [*q.shape, k.shape[1], k.shape[2]],
            "dtype": str(q.dtype).split(".")[-1], "causal": causal,
-           "window": window, "flops": ops, "tflops": ops / ms / 1e9,
+           "window": window, "q_offset": q_offset, "flops": ops, "tflops": ops / ms / 1e9,
            "bound_share": bound_ms / ms, "max_abs_err": err, "tol": tol,
            "within_tol_of_plain": within, "f64_err_kernel_plain": errs,
            "f64_err_beyond_rounding": beyond,
@@ -3071,6 +3273,56 @@ def run_train_kernels(prefill_rec):
     return rows
 
 
+def run_q_offset_kernels(cases=Q_OFFSET_ATTN):
+    """``flash_attention`` with ``q_offset`` (the sequence-parallel
+    attention of a mesh's ``model`` ranks) in bf16 (wgmma) and float32
+    (SIMT): each block of query rows at its offset against the whole
+    K/V, causal, held to the plain version at the same bands as every
+    row (``check_attention``); the blocks concatenated held to one
+    whole-sequence call of the kernel at the same band, and whether they
+    are its bits recorded.  Inputs are unit normals from a seeded
+    generator."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    gen = torch.Generator(device=CARD).manual_seed(0)
+    rows = []
+    t0 = time.perf_counter()
+    for name, seq, h, kvh, d, window, blocks in cases:
+        shapes = ((1, seq, h, d), (1, seq, kvh, d), (1, seq, kvh, d))
+        base = [torch.randn(sh, generator=gen, device=CARD) for sh in shapes]
+        n = seq // blocks
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v = (t.to(dtype) for t in base)
+            parts = []
+            for i in range(blocks):
+                qb = q[:, i * n:(i + 1) * n].contiguous()
+                rows.append(check_attention(
+                    f"q_offset {name} block {i}/{blocks}", qb, k, v, True,
+                    window, fa, ref, q_offset=i * n, reps=(3, 1, 3)))
+                parts.append(fa.flash_attention(qb, k, v, causal=True,
+                                                window=window,
+                                                q_offset=i * n))
+            whole = fa.flash_attention(q, k, v, causal=True, window=window)
+            cat = torch.cat(parts, 1)
+            tol = ATTN_TOL[dtype]
+            err = float((cat.float() - whole.float()).abs().max())
+            within = torch.allclose(cat.float(), whole.float(), rtol=tol,
+                                    atol=tol)
+            same = torch.equal(cat, whole)
+            rows[-1].update(blocks_vs_whole_err=err,
+                            blocks_identical_to_whole=same)
+            log(f"[kernels] q_offset {name} {str(dtype).split('.')[-1]}: "
+                f"{blocks} blocks of {n} rows concatenated vs one call over "
+                f"{seq}: max abs {err!r} (tol {tol}), bit-identical {same}")
+            if not within:
+                fail(f"q_offset {name} {dtype}: blocks vs whole err {err}")
+            del q, k, v, parts, whole, cat
+        del base
+        torch.cuda.empty_cache()
+    log(f"[kernels] q_offset rows: {time.perf_counter() - t0:.1f} s")
+    return rows
+
+
 def kernels_line(rows, paths):
     """One entry per kernel: launches summed over the path phases, the
     worst error of any comparison, and the times of its largest
@@ -3145,10 +3397,11 @@ def main() -> int:
     paths.update(run_serve(decode_rec))
     paths.update(run_prefill(prefill_rec))
     paths.update(run_train())
+    paths.update(run_mesh_steps())
     paths.update(run_packet(rec))
     rows = run_kernels(rec, paths) + run_decode_kernels(decode_rec, paths) \
         + run_split_kv() + run_prefill_kernels(prefill_rec, paths) \
-        + run_train_kernels(prefill_rec)
+        + run_train_kernels(prefill_rec) + run_q_offset_kernels()
     line = kernels_line(rows, paths)
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
 

@@ -27,11 +27,18 @@ and butterfly schedules need a power-of-two axis (``_log2``), and every
 function returns its input untouched on an axis of size 1, with no
 process group used.
 
-``psum``, ``pmax`` and ``all_gather`` are the library's own collectives,
-the counterparts of the reference's ``psum`` / ``pmax`` / ``all_gather``: the
-``xla`` schedule, and the communication GSPMD would place around the
-model's sharded products.  The other schedules never call a library
-collective.
+``psum``, ``pmax``, ``all_gather`` and ``reduce_scatter`` are the
+library's own collectives, the counterparts of the reference's ``psum`` /
+``pmax`` / ``all_gather`` / ``psum_scatter``: the ``xla`` schedule, and
+the communication GSPMD would place around the model's sharded products.
+The other schedules never call a library collective.  Under autograd
+(prefill and training on a mesh) each has the backward ``shard_map``
+gives it: ``psum`` identity (its result is used alike on every rank),
+``all_gather`` the reduce-scatter of the gradient (or this rank's block
+of it, ``replicated=True``), ``reduce_scatter`` the all-gather, ``pmax``
+none; and ``grad_psum`` is the identity whose backward is the psum, for a
+tensor every rank holds alike entering a computation split over the
+axes.
 """
 from __future__ import annotations
 
@@ -222,41 +229,209 @@ def tree_allreduce(x, mesh, axis: str, combine: Callable, root: int = 0):
 
 # ---------------------------------------------------------------- library
 
+def _split_on(mesh, axes) -> bool:
+    return any(mesh.shape[a] > 1 for a in axes)
+
+
 def _reduce(x, mesh, axes, op):
     out = None
     for ax in axes:
         if mesh.shape[ax] > 1:
             if out is None:
-                out = x.clone()
+                out = x.detach().clone(memory_format=torch.contiguous_format)
             dist.all_reduce(out, op=op, group=mesh.group(ax))
     return x if out is None else out
 
 
-def psum(x, mesh, axes: Sequence[str]):
-    """The sum of ``x`` over the mesh axes ``axes`` (the reference's ``psum``): a
-    library all-reduce on each axis of more than one rank."""
-    return _reduce(x, mesh, axes, dist.ReduceOp.SUM)
-
-
-def pmax(x, mesh, axes: Sequence[str]):
-    """The elementwise max over ``axes`` (the reference's ``pmax``)."""
-    return _reduce(x, mesh, axes, dist.ReduceOp.MAX)
-
-
-def all_gather(x, mesh, axes: Sequence[str], dim: int):
-    """The blocks of ``x`` along ``dim`` from every rank of ``axes``,
-    concatenated in block order (the reference's tiled ``all_gather``).
-    The first axis is the major one, as in a ``PartitionSpec`` entry
-    that names several axes; axes of size 1 are skipped."""
+def _gather(x, mesh, axes, dim):
     for ax in reversed(tuple(axes)):
         n = mesh.shape[ax]
         if n == 1:
             continue
-        x = x.contiguous()
+        x = x.detach().contiguous()
         parts = [torch.empty_like(x) for _ in range(n)]
         dist.all_gather(parts, x, group=mesh.group(ax))
         x = torch.cat(parts, dim=dim)
     return x
+
+
+def _own(x, mesh, axes, dim):
+    """This rank's block of ``x`` along ``dim``, split over ``axes`` (the
+    first the major one)."""
+    index, count = 0, 1
+    for a in axes:
+        index = index * mesh.shape[a] + mesh.axis_index(a)
+        count *= mesh.shape[a]
+    n = x.shape[dim] // count
+    return x.narrow(dim, index * n, n)
+
+
+def _scatter(x, mesh, axes, dim):
+    """The sum of ``x`` over ``axes``, this rank's block of it along
+    ``dim``: a library reduce-scatter on each axis of more than one rank
+    (the major axis first), an all-reduce and a cut on gloo."""
+    for ax in axes:
+        n = mesh.shape[ax]
+        if n == 1:
+            continue
+        if x.is_cuda:
+            src = x.detach().movedim(dim, 0).contiguous()
+            out = src.new_empty((src.shape[0] // n,) + src.shape[1:])
+            dist.reduce_scatter_tensor(out, src, group=mesh.group(ax))
+            x = out.movedim(0, dim)
+        else:
+            x = _own(_reduce(x, mesh, (ax,), dist.ReduceOp.SUM), mesh,
+                     (ax,), dim)
+    return x
+
+
+def _grad(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(
+        isinstance(t, torch.Tensor) and t.requires_grad for t in tensors)
+
+
+class _PSum(torch.autograd.Function):
+    """psum of partial sums whose result every rank uses alike: the
+    gradient of each rank's part is the result's own (identity)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        return _reduce(x, mesh, axes, dist.ReduceOp.SUM)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+class _GradPSum(torch.autograd.Function):
+    """Identity forward, psum backward (the conjugate of ``_PSum``)."""
+
+    @staticmethod
+    def forward(ctx, mesh, axes, *xs):
+        ctx.mesh, ctx.axes = mesh, axes
+        ctx.meta = [(x.shape, x.dtype, x.device) for x in xs]
+        return tuple(x.view_as(x) for x in xs)
+
+    @staticmethod
+    def backward(ctx, *gs):
+        # every rank runs the same graph, so an unused output is unused on
+        # all of them: its zeros keep the all-reduce the same everywhere
+        leaves = [torch.zeros(sh, dtype=dt, device=dev) if g is None else g
+                  for g, (sh, dt, dev) in zip(gs, ctx.meta)]
+        with torch.profiler.record_function("grad_psum"):
+            bufs, unpack = _pack([g.contiguous() for g in leaves])
+            out = unpack([_reduce(b, ctx.mesh, ctx.axes, dist.ReduceOp.SUM)
+                          for b in bufs])
+        return (None, None) + tuple(
+            None if g is None else o for g, o in zip(gs, out))
+
+
+class _AllGather(torch.autograd.Function):
+    """all_gather; backward the reduce-scatter of the gradient, or (for a
+    result every rank uses alike) this rank's block of it."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axes, dim, replicated):
+        ctx.mesh, ctx.axes, ctx.dim = mesh, axes, dim
+        ctx.replicated = replicated
+        return _gather(x, mesh, axes, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.replicated:
+            return _own(g, ctx.mesh, ctx.axes, ctx.dim), None, None, None, None
+        with torch.profiler.record_function("grad_reduce_scatter"):
+            out = _scatter(g, ctx.mesh, ctx.axes, ctx.dim)
+        return out, None, None, None, None
+
+
+class _ReduceScatter(torch.autograd.Function):
+    """The sum over the axes, this rank's block kept; backward the
+    all-gather of the blocks' gradients."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axes, dim):
+        ctx.mesh, ctx.axes, ctx.dim = mesh, axes, dim
+        return _scatter(x, mesh, axes, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _gather(g, ctx.mesh, ctx.axes, ctx.dim), None, None, None
+
+
+def psum(x, mesh, axes: Sequence[str]):
+    """The sum of ``x`` over the mesh axes ``axes`` (the reference's
+    ``psum``): a library all-reduce on each axis of more than one rank.
+    Under autograd the result is taken as used alike on every rank of
+    ``axes`` (partial sums of a product whose contracted dim is split,
+    the logsumexp's sums, the loss's sums), so each rank's part gets the
+    result's gradient: identity backward, as ``shard_map`` transposes a
+    psum whose output is replicated."""
+    axes = tuple(axes)
+    if _grad(x) and _split_on(mesh, axes):
+        return _PSum.apply(x, mesh, axes)
+    return _reduce(x, mesh, axes, dist.ReduceOp.SUM)
+
+
+def psum_(x, mesh, axes: Sequence[str]):
+    """``psum`` IN PLACE on the contiguous tensor ``x`` (a gradient
+    buffer), no autograd; returns ``x``."""
+    for ax in axes:
+        if mesh.shape[ax] > 1:
+            dist.all_reduce(x, group=mesh.group(ax))
+    return x
+
+
+def pmax(x, mesh, axes: Sequence[str]):
+    """The elementwise max over ``axes`` (the reference's ``pmax``); no
+    gradient flows through it."""
+    return _reduce(x.detach(), mesh, axes, dist.ReduceOp.MAX)
+
+
+def all_gather(x, mesh, axes: Sequence[str], dim: int, *,
+               replicated: bool = False):
+    """The blocks of ``x`` along ``dim`` from every rank of ``axes``,
+    concatenated in block order (the reference's tiled ``all_gather``).
+    The first axis is the major one, as in a ``PartitionSpec`` entry
+    that names several axes; axes of size 1 are skipped.
+
+    Under autograd the backward is the conjugate reduce-scatter: the
+    gradient summed over ``axes``, this rank's block kept (an FSDP
+    weight gathered whole, each rank's use of it a part of the loss).
+    ``replicated=True`` is a result every rank of ``axes`` uses alike and
+    whose gradient each holds whole (an activation gathered over
+    ``model``): the backward keeps this rank's block of it."""
+    axes = tuple(axes)
+    if _grad(x) and _split_on(mesh, axes):
+        return _AllGather.apply(x, mesh, axes, dim, replicated)
+    return _gather(x, mesh, axes, dim)
+
+
+def reduce_scatter(x, mesh, axes: Sequence[str], dim: int):
+    """The sum of ``x`` over ``axes``, this rank's block of it along
+    ``dim`` (the reference's ``psum_scatter``); its backward all-gathers
+    the blocks' gradients."""
+    axes = tuple(axes)
+    if _grad(x) and _split_on(mesh, axes):
+        return _ReduceScatter.apply(x, mesh, axes, dim)
+    return _scatter(x, mesh, axes, dim)
+
+
+def grad_psum(x, mesh, axes: Sequence[str]):
+    """``x`` unchanged, its gradient summed over ``axes``: where a tensor
+    every rank of ``axes`` holds alike enters a computation split over
+    them (a product whose weight is split over ``model``, this rank's
+    block of rows or heads), each rank's gradient is a part of the whole
+    and the backward all-reduces it (Megatron's ``f``, the conjugate of
+    ``psum``).  ``x`` is a tensor or a tuple of tensors (their gradients
+    summed in one all-reduce where they share a dtype)."""
+    axes = tuple(axes)
+    many = isinstance(x, (tuple, list))
+    xs = tuple(x) if many else (x,)
+    if not (_grad(*xs) and _split_on(mesh, axes)):
+        return x
+    out = _GradPSum.apply(mesh, axes, *xs)
+    return out if many else out[0]
 
 
 # ---------------------------------------------------------------- combines

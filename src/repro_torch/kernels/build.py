@@ -53,7 +53,8 @@ _LOSS_ARGS = [_P, _I, _I, _I, _P, _P, _P, _L, _I, _P, _P, _P, _P, _P, _P,
               _L, _D, _D, _D, _I, _I, _P]
 _DECODE_ARGS = [_I, _I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P,
                 _P, _P, _P]
-_ATTN_ARGS = [_I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P]
+_ATTN_ARGS = [_I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F,
+              _P]
 _ATTN_WG_ARGS = _ATTN_ARGS[2:]  # no dtype codes: bf16 only
 _PROBE_ARGS = [_P, _P, _P, _P, _P, _I, _P]
 _SSD_ARGS = [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,

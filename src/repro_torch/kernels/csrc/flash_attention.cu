@@ -9,7 +9,13 @@
 //
 // with rep = H / KVH; the mask keeps kpos < Skv, kpos <= qpos when causal,
 // kpos > qpos - window when window > 0 (positions compared as absolute
-// indices, as the Pallas kernel and the oracle do).  Scores, softmax
+// indices, as the Pallas kernel and the oracle do).  A query row s stands
+// at position qpos = q_offset + s: q_offset > 0 is a block of query rows
+// of a longer sequence against its whole K/V (the sequence-parallel
+// attention of a mesh, src/repro/models/attention.py:162-172), and every
+// use of a position below (the causal and window tile ranges, the
+// per-row bounds, the edge-tile tests, the longest-first order) takes
+// it; row indices stay row indices (the loads of Q, the output rows).  Scores, softmax
 // statistics and the accumulator are f32; out = acc / max(l, 1e-30) in q's
 // dtype.  The plain PyTorch version is
 // src/repro_torch/kernels/ref.py:mha_reference.
@@ -75,7 +81,8 @@
 //     plain version with P rounded once).  The split costs a second P V
 //     product.
 // (6) Longest causal CTAs launch first (the q tile index is reversed and
-//     slowest), so the short ones fill the tail of the last wave.
+//     slowest), so the short ones fill the tail of the last wave; a
+//     later tile's band is never the shorter one at any q_offset.
 // What bounds it: at D = 128 (danube) the tensor cores, with the split
 // doubling the P V products; at D = 64 (granite) the softmax's
 // instruction issue and exponentials, for which a tile's products are
@@ -179,7 +186,7 @@ template <typename TQ, typename TKV>
 __global__ void __launch_bounds__(kThreads, 2)
 flash_attention_fwd(const TQ* __restrict__ q, const TKV* __restrict__ k,
                     const TKV* __restrict__ v, TQ* __restrict__ out, int Sq, int Skv, int H,
-                    int KVH, int D, int causal, int window, float scale) {
+                    int KVH, int D, int causal, int window, int q_offset, float scale) {
   const int g = blockIdx.y, b = blockIdx.z;
   const int rep = H / KVH;
   const int bq = kRows / rep;             // query positions of the tile
@@ -203,23 +210,24 @@ flash_attention_fwd(const TQ* __restrict__ q, const TKV* __restrict__ k,
             [&](int r) { return r < rows && q0 + r / rep < Sq; }, q);
 
   float m_i[4], l_i[4], acc[4][kMaxJ];
-  int qpos[4];
+  int qrow[4], qpos[4];
   bool live[4];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int r = tr * 4 + i;
-    qpos[i] = q0 + r / rep;
-    live[i] = r < rows && qpos[i] < Sq;
+    qrow[i] = q0 + r / rep;
+    qpos[i] = q_offset + qrow[i];
+    live[i] = r < rows && qrow[i] < Sq;
     m_i[i] = kNegInf;
     l_i[i] = 0.f;
 #pragma unroll
     for (int j = 0; j < kMaxJ; ++j) acc[i][j] = 0.f;
   }
 
-  // the KV tiles that touch the tile's band
-  const int q_last = min(q0 + bq, Sq) - 1;
+  // the KV tiles that touch the tile's band (positions)
+  const int q_last = q_offset + min(q0 + bq, Sq) - 1;
   const int k_end = causal ? min(Skv, q_last + 1) : Skv;
-  const int k_begin = window ? max(0, q0 - window + 1) : 0;
+  const int k_begin = window ? max(0, q_offset + q0 - window + 1) : 0;
   const int t_end = (k_end + kTile - 1) / kTile;
 
   for (int t = k_begin / kTile; t < t_end; ++t) {
@@ -316,7 +324,7 @@ flash_attention_fwd(const TQ* __restrict__ q, const TKV* __restrict__ k,
   for (int i = 0; i < 4; ++i) {
     if (!live[i]) continue;
     const int r = tr * 4 + i;
-    TQ* o = out + (((size_t)b * Sq + qpos[i]) * H + g * rep + r % rep) * D;
+    TQ* o = out + (((size_t)b * Sq + qrow[i]) * H + g * rep + r % rep) * D;
     const float l = fmaxf(l_i[i], 1e-30f);
 #pragma unroll
     for (int j = 0; j < kMaxJ; ++j) {
@@ -328,7 +336,8 @@ flash_attention_fwd(const TQ* __restrict__ q, const TKV* __restrict__ k,
 
 template <typename TQ, typename TKV>
 int launch(const void* q, const void* k, const void* v, void* out, int B, int Sq, int Skv, int H,
-           int KVH, int D, int causal, int window, float scale, cudaStream_t stream) {
+           int KVH, int D, int causal, int window, int q_offset, float scale,
+           cudaStream_t stream) {
   if (B == 0 || Sq == 0) return (int)cudaGetLastError();
   const size_t smem = smem_bytes(D);
   cudaError_t err = cudaFuncSetAttribute(flash_attention_fwd<TQ, TKV>,
@@ -338,7 +347,7 @@ int launch(const void* q, const void* k, const void* v, void* out, int B, int Sq
   const dim3 grid((Sq + bq - 1) / bq, KVH, B);
   flash_attention_fwd<TQ, TKV><<<grid, kThreads, smem, stream>>>(
       static_cast<const TQ*>(q), static_cast<const TKV*>(k), static_cast<const TKV*>(v),
-      static_cast<TQ*>(out), Sq, Skv, H, KVH, D, causal, window, scale);
+      static_cast<TQ*>(out), Sq, Skv, H, KVH, D, causal, window, q_offset, scale);
   return (int)cudaGetLastError();
 }
 
@@ -488,7 +497,7 @@ flash_attention_wgmma(const __grid_constant__ CUtensorMap tm_q,
                       const __grid_constant__ CUtensorMap tm_k,
                       const __grid_constant__ CUtensorMap tm_v, __nv_bfloat16* __restrict__ out,
                       int B, int Sq, int Skv, int H, int KVH, int D, int causal, int window,
-                      float scale_log2) {
+                      int q_offset, float scale_log2) {
   using L = Layout<NP, STAGES>;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = (uint32_t)__cvta_generic_to_shared(smem_raw);
@@ -501,11 +510,12 @@ flash_attention_wgmma(const __grid_constant__ CUtensorMap tm_q,
   const int n_gb = KVH * B;
   const int tile = (Sq + bq - 1) / bq - 1 - (int)(blockIdx.x / n_gb);
   const int g = (int)(blockIdx.x % n_gb) % KVH, b = (int)(blockIdx.x % n_gb) / KVH;
-  const int q0 = tile * bq;
+  const int q0 = tile * bq;        // first query row (the TMA coordinate)
+  const int p0 = q_offset + q0;   // and its position
   // the KV tiles that touch the CTA's band
-  const int q_last = min(q0 + bq, Sq) - 1;
+  const int q_last = q_offset + min(q0 + bq, Sq) - 1;
   const int k_end = causal ? min(Skv, q_last + 1) : Skv;
-  const int t_begin = (window ? max(0, q0 - window + 1) : 0) / kKeys;
+  const int t_begin = (window ? max(0, p0 - window + 1) : 0) / kKeys;
   const int t_end = (k_end + kKeys - 1) / kKeys;
 
   if (threadIdx.x == 0) {
@@ -544,9 +554,9 @@ flash_attention_wgmma(const __grid_constant__ CUtensorMap tm_q,
     const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
     // this thread's rows of the accumulators: r0 and r0 + 8
     const int r0 = 64 * wg + 16 * warp + lane / 4;
-    const int qp0 = q0 + r0 / rep, qp1 = q0 + (r0 + 8) / rep;
+    const int qp0 = p0 + r0 / rep, qp1 = p0 + (r0 + 8) / rep;
     // the warpgroup's positions, for telling edge tiles from interior ones
-    const int wq_first = q0 + 64 * wg / rep, wq_last = q0 + (64 * wg + 63) / rep;
+    const int wq_first = p0 + 64 * wg / rep, wq_last = p0 + (64 * wg + 63) / rep;
     const int hi0 = causal ? min(Skv, qp0 + 1) : Skv, hi1 = causal ? min(Skv, qp1 + 1) : Skv;
     const int lo0 = window ? qp0 - window + 1 : 0, lo1 = window ? qp1 - window + 1 : 0;
     const uint32_t q_addr = base + L::q + wg * 64 * 128;
@@ -687,11 +697,11 @@ flash_attention_wgmma(const __grid_constant__ CUtensorMap tm_q,
     const int chunks = D / 8;
     for (int idx = tid; idx < 64 * chunks; idx += 128) {
       const int r = 64 * wg + idx / chunks, c = idx % chunks;
-      const int qpos = q0 + r / rep;
-      if (r >= rows || qpos >= Sq) continue;
+      const int qrow = q0 + r / rep;
+      if (r >= rows || qrow >= Sq) continue;
       const uint4 val = *reinterpret_cast<const uint4*>(
           smem + L::q + (c / 8) * kPanelBytes + r * 128 + (((c % 8) ^ (r % 8)) * 16));
-      *reinterpret_cast<uint4*>(out + (((size_t)b * Sq + qpos) * H + g * rep + r % rep) * D +
+      *reinterpret_cast<uint4*>(out + (((size_t)b * Sq + qrow) * H + g * rep + r % rep) * D +
                                 8 * c) = val;
     }
   }
@@ -804,7 +814,8 @@ int encode(CUtensorMap* map, const void* ptr, int B, int S, int heads, int D, in
 
 template <int NP, int STAGES>
 int launch(const void* q, const void* k, const void* v, void* out, int B, int Sq, int Skv, int H,
-           int KVH, int D, int causal, int window, float scale, cudaStream_t stream) {
+           int KVH, int D, int causal, int window, int q_offset, float scale,
+           cudaStream_t stream) {
   const int rep = H / KVH, bq = kRows / rep;
   CUtensorMap tq, tk, tv;
   int code = encode(&tq, q, B, Sq, H, D, rep, bq);
@@ -819,7 +830,7 @@ int launch(const void* q, const void* k, const void* v, void* out, int B, int Sq
   const long long grid = (long long)((Sq + bq - 1) / bq) * KVH * B;
   kernel<<<(unsigned)grid, kThreads, smem, stream>>>(tq, tk, tv, static_cast<__nv_bfloat16*>(out),
                                                      B, Sq, Skv, H, KVH, D, causal, window,
-                                                     scale * 1.4426950408889634f);
+                                                     q_offset, scale * 1.4426950408889634f);
   return (int)cudaGetLastError();
 }
 
@@ -847,16 +858,18 @@ extern "C" {
 // and v theirs; bf16 q with bf16 k/v is flash_attention_wgmma's and is
 // refused here.  Shapes: q, out (B, Sq, H, D); k, v (B, Skv, KVH, D); all
 // contiguous and 16-byte aligned.  H is a multiple of KVH with
-// H / KVH <= 64; D a multiple of 8, at most 128; window 0 = none.
+// H / KVH <= 64; D a multiple of 8, at most 128; window 0 = none; query row
+// s stands at position q_offset + s (q_offset >= 0).
 int flash_attention(int q_dtype, int kv_dtype, const void* q, const void* k, const void* v,
                     void* out, int B, int Sq, int Skv, int H, int KVH, int D, int causal,
-                    int window, float scale, void* stream) {
+                    int window, int q_offset, float scale, void* stream) {
   const cudaStream_t st = (cudaStream_t)stream;
   if (KVH < 1 || H % KVH != 0 || H / KVH > kRows || D < 8 || D % 8 != 0 || D > kMaxD ||
-      window < 0)
+      window < 0 || q_offset < 0)
     return (int)cudaErrorInvalidValue;
 #define FA_CASE(TQ, TKV) \
-  return launch<TQ, TKV>(q, k, v, out, B, Sq, Skv, H, KVH, D, causal, window, scale, st)
+  return launch<TQ, TKV>(q, k, v, out, B, Sq, Skv, H, KVH, D, causal, window, q_offset, scale, \
+                         st)
   if (q_dtype == 0 && kv_dtype == 0) FA_CASE(float, float);
   if (q_dtype == 0 && kv_dtype == 1) FA_CASE(float, __nv_bfloat16);
   if (q_dtype == 1 && kv_dtype == 0) FA_CASE(__nv_bfloat16, float);
@@ -867,17 +880,19 @@ int flash_attention(int q_dtype, int kv_dtype, const void* q, const void* k, con
 // bf16 q, k, v and out, the shapes and limits of flash_attention.  Skv = 0
 // writes zeros (no key is valid), as the plain version does.
 int flash_attention_wgmma(const void* q, const void* k, const void* v, void* out, int B, int Sq,
-                          int Skv, int H, int KVH, int D, int causal, int window, float scale,
-                          void* stream) {
+                          int Skv, int H, int KVH, int D, int causal, int window, int q_offset,
+                          float scale, void* stream) {
   const cudaStream_t st = (cudaStream_t)stream;
   if (KVH < 1 || H % KVH != 0 || H / KVH > kRows || D < 8 || D % 8 != 0 || D > kMaxD ||
-      window < 0)
+      window < 0 || q_offset < 0)
     return (int)cudaErrorInvalidValue;
   if (B == 0 || Sq == 0) return (int)cudaGetLastError();
   if (Skv == 0) return (int)cudaMemsetAsync(out, 0, (size_t)B * Sq * H * D * 2, st);
   if (D <= 64)
-    return wg::launch<1, 4>(q, k, v, out, B, Sq, Skv, H, KVH, D, causal, window, scale, st);
-  return wg::launch<2, 2>(q, k, v, out, B, Sq, Skv, H, KVH, D, causal, window, scale, st);
+    return wg::launch<1, 4>(q, k, v, out, B, Sq, Skv, H, KVH, D, causal, window, q_offset, scale,
+                            st);
+  return wg::launch<2, 2>(q, k, v, out, B, Sq, Skv, H, KVH, D, causal, window, q_offset, scale,
+                          st);
 }
 
 // The one-tile probe (wg::tile_probe): q (64, D), k and v (128, D) bf16;

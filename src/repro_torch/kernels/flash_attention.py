@@ -1,7 +1,8 @@
 """Flash attention: tiled causal / sliding-window GQA attention, forward.
 
 The port of the reference package's ``kernels/flash_attention.py``.
-``flash_attention(q, k, v, causal=, window=)`` dispatches by the device
+``flash_attention(q, k, v, causal=, window=, q_offset=)`` dispatches by
+the device
 of ``q``: a CPU tensor takes the plain PyTorch version
 (``ref.mha_reference``); a CUDA tensor launches one of the hand-written
 Hopper kernels of ``csrc/flash_attention.cu``, or raises; nothing falls
@@ -46,7 +47,7 @@ def variant(q, k) -> str:
     return "simt"
 
 
-def _check(q, k, v, window):
+def _check(q, k, v, window, q_offset=0):
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
         raise ValueError(f"flash_attention: q must be (B, Sq, H, D) and k, "
                          f"v (B, Skv, KVH, D), got {tuple(q.shape)}, "
@@ -65,8 +66,9 @@ def _check(q, k, v, window):
         raise ValueError(f"flash_attention: q, k, v must be float32 or "
                          f"bfloat16 (k and v alike), got {q.dtype}, "
                          f"{k.dtype}, {v.dtype}")
-    if window < 0:
-        raise ValueError(f"flash_attention: window {window} < 0")
+    if window < 0 or q_offset < 0:
+        raise ValueError(f"flash_attention: window {window} or q_offset "
+                         f"{q_offset} < 0")
     for t in (k, v):
         if t.device != q.device:
             raise ValueError(f"flash_attention: tensors on {t.device} and "
@@ -82,9 +84,12 @@ def _check(q, k, v, window):
                          f"the bf16 kernel's tensor maps")
 
 
-def flash_attention(q, k, v, *, causal=True, window=0):
+def flash_attention(q, k, v, *, causal=True, window=0, q_offset=0):
     """q (B, Sq, H, D); k, v (B, Skv, KVH, D) -> (B, Sq, H, D) in q's
     dtype.  ``window > 0`` keeps keys with ``kpos > qpos - window``.
+    Query row s stands at position ``qpos = q_offset + s``: a block of the
+    query rows of a longer sequence against its whole K/V (the
+    sequence-parallel attention of a mesh); 0 for a whole sequence.
 
     On the card, bf16 q with bf16 k/v launches ``flash_attention_wgmma``
     (wgmma products fed by TMA, P multiplied as bf16 hi + lo parts);
@@ -95,16 +100,18 @@ def flash_attention(q, k, v, *, causal=True, window=0):
     the SIMT kernel.  Each call counts one launch in
     ``LAUNCHES["flash_attention"]`` and one in its variant's entry."""
     if not on_card(q):
-        return ref.mha_reference(q, k, v, causal=causal, window=window)
+        return ref.mha_reference(q, k, v, causal=causal, window=window,
+                                 q_offset=q_offset)
     from repro_torch.kernels import build
-    _check(q, k, v, window)
+    _check(q, k, v, window, q_offset)
     kind = variant(q, k)
     b, sq, h, d = q.shape
     skv, kvh = k.shape[1], k.shape[2]
     out = torch.empty_like(q)
     lib = build.library("flash_attention")
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, sq,
-            skv, h, kvh, d, int(bool(causal)), int(window), d ** -0.5)
+            skv, h, kvh, d, int(bool(causal)), int(window), int(q_offset),
+            d ** -0.5)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         if kind == "wgmma":
@@ -127,14 +134,16 @@ class FlashAttention(torch.autograd.Function):
     no backward to port (a kernel for it is ROADMAP queue 2 item 3)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, window):
-        out = flash_attention(q, k, v, causal=causal, window=window)
+    def forward(ctx, q, k, v, causal, window, q_offset=0):
+        out = flash_attention(q, k, v, causal=causal, window=window,
+                              q_offset=q_offset)
         ctx.save_for_backward(q, k, v, out)
-        ctx.causal, ctx.window = causal, window
+        ctx.causal, ctx.window, ctx.q_offset = causal, window, q_offset
         return out
 
     @staticmethod
     def backward(ctx, dout):
         q, k, v, out = ctx.saved_tensors
         return (*ref.mha_backward(q, k, v, out, dout, causal=ctx.causal,
-                                  window=ctx.window), None, None)
+                                  window=ctx.window, q_offset=ctx.q_offset),
+                None, None, None)

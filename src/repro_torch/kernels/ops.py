@@ -20,11 +20,12 @@ from repro_torch.kernels import flash_decode as fd
 from repro_torch.kernels import ssd_scan as ssd
 
 
-def flash_attention(q, k, v, *, causal=True, window=0):
+def flash_attention(q, k, v, *, causal=True, window=0, q_offset=0):
     """Flash attention.  q (B, Sq, H, D); k, v (B, Skv, KVH, D) ->
-    (B, Sq, H, D) in q's dtype — see ``kernels/flash_attention.py``."""
+    (B, Sq, H, D) in q's dtype, query row s at position ``q_offset + s``
+    — see ``kernels/flash_attention.py``."""
     return fa.FlashAttention.apply(q.contiguous(), k.contiguous(),
-                                   v.contiguous(), causal, window)
+                                   v.contiguous(), causal, window, q_offset)
 
 
 def flash_decode(q, k, v, kv_len, out_dtype=None):

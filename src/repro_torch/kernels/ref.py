@@ -193,12 +193,15 @@ def decode_reference(q, k, v, kv_len, out_dtype=None):
 MHA_BLOCK_Q = 1024
 
 
-def mha_reference(q, k, v, *, causal, window=0):
+def mha_reference(q, k, v, *, causal, window=0, q_offset=0):
     """Multi-head attention oracle (the reference's ``mha_reference``).
 
     q (B, Sq, H, D); k, v (B, Skv, KVH, D); GQA: q head h reads kv head
     ``h // (H / KVH)``.  Masks compare absolute positions: causal keeps
-    ``kpos <= qpos``, a window ``kpos > qpos - window``.  Logits in f32
+    ``kpos <= qpos``, a window ``kpos > qpos - window``; query row s
+    stands at ``qpos = q_offset + s`` (a block of a longer sequence's
+    rows against its whole K/V, as the reference's sequence-parallel
+    attention passes it).  Logits in f32
     with -1e30 where masked, softmax in f32, the result in q's dtype
     (float64 inputs are computed in float64: an exact-arithmetic oracle
     for both the kernel and this version).
@@ -220,7 +223,7 @@ def mha_reference(q, k, v, *, causal, window=0):
         n = qb.shape[1]
         qg = qb.reshape(b, n, kvh, rep, d).to(acc)
         logits = torch.einsum("bqkrd,bskd->bkrqs", qg, kf) / math.sqrt(d)
-        qpos = torch.arange(q0, q0 + n, device=q.device)[:, None]
+        qpos = torch.arange(q0, q0 + n, device=q.device)[:, None] + q_offset
         mask = torch.ones((n, skv), dtype=torch.bool, device=q.device)
         if causal:
             mask &= kpos[None, :] <= qpos
@@ -256,7 +259,7 @@ def ssd_reference(x, dt, a, B_, C_):
 
 
 def key_band(q0, n, skv, *, causal, window):
-    """The keys ``[lo, hi)`` that query rows ``q0 .. q0 + n - 1`` may see
+    """The keys ``[lo, hi)`` that query positions ``q0 .. q0 + n - 1`` may see
     under the mask: every other key's probability is exactly 0.  A band
     with no key (rows past the last key and its window; no path has
     them) is the whole key range, where ``mha_reference`` spreads such a
@@ -266,9 +269,10 @@ def key_band(q0, n, skv, *, causal, window):
     return (lo, hi) if lo < hi else (0, skv)
 
 
-def mha_backward(q, k, v, out, dout, *, causal, window=0):
+def mha_backward(q, k, v, out, dout, *, causal, window=0, q_offset=0):
     """``(dq, dk, dv)`` of ``mha_reference`` at ``out`` (its result, or
-    the kernel's) for the output gradient ``dout``.
+    the kernel's) for the output gradient ``dout``, query row s at
+    position ``q_offset + s``.
 
     Query rows go in blocks of ``MHA_BLOCK_Q`` against the keys of their
     band (``key_band``).  Each block recomputes its masked probabilities
@@ -290,12 +294,13 @@ def mha_backward(q, k, v, out, dout, *, causal, window=0):
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     for q0 in range(0, sq, MHA_BLOCK_Q):
         n = min(MHA_BLOCK_Q, sq - q0)
-        lo, hi = key_band(q0, n, skv, causal=causal, window=window)
+        lo, hi = key_band(q_offset + q0, n, skv, causal=causal,
+                          window=window)
         kb, vb = kf[:, lo:hi], vf[:, lo:hi]
         qg, og, dog = (t[:, q0:q0 + n].reshape(b, n, kvh, rep, d).to(acc)
                        for t in (q, out, dout))
         logits = torch.einsum("bqkrd,bskd->bkrqs", qg, kb) / math.sqrt(d)
-        qpos = torch.arange(q0, q0 + n, device=q.device)[:, None]
+        qpos = torch.arange(q0, q0 + n, device=q.device)[:, None] + q_offset
         kpos = torch.arange(lo, hi, device=q.device)[None, :]
         mask = torch.ones((n, hi - lo), dtype=torch.bool, device=q.device)
         if causal:

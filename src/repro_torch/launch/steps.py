@@ -1,8 +1,8 @@
 """Step functions of the port: train and prefill.
 
-The port of the reference package's ``launch/steps.py`` on one device.
+The port of the reference package's ``launch/steps.py``.
 
-- ``make_train_step(cfg, opt_cfg, accum_steps)`` returns
+- ``make_train_step(cfg, opt_cfg, accum_steps, mesh=)`` returns
   ``train_step(params, opt_state, batch)``: the gradient of
   ``models.model.loss_fn`` summed in float32 over ``accum_steps``
   microbatches and divided by their number, then one AdamW step
@@ -14,11 +14,15 @@ The port of the reference package's ``launch/steps.py`` on one device.
   of every entry of a batch, as the reference's does: tokens (and
   targets and loss mask) of ``seq - vision_prefix`` positions, the VLM's
   ``vision_embed`` and the encoder-decoder's ``frames``.
-- ``make_prefill_step(cfg)`` returns ``prefill_step(params, batch)``,
+- ``make_prefill_step(cfg, mesh=)`` returns ``prefill_step(params, batch)``,
   which runs ``forward_hidden`` over the whole prompt under
   ``torch.no_grad()`` and gives only the last position's logits, which
   is what serving needs to start decoding (a (B, S, V) logits buffer
   would be pointless).
+- On a ``mesh`` of ranks both run SPMD, each rank on its blocks of the
+  parameters (and moments) and its rows of the batch, as the reference's
+  GSPMD steps place them (``train_accum``, ``microbatches``,
+  ``sync_grads``); a (1, 1) mesh is the one-device step bit for bit.
 
 - ``make_serve_step(cfg, mesh, batch_shardable)`` returns
   ``serve_step(params, caches, tokens, step)``: one ``decode_forward``
@@ -35,22 +39,24 @@ The port of the reference package's ``launch/steps.py`` on one device.
 
 The dry-run lowering (``lowering_spec``, ``lower_cell``) lowers through
 XLA in the reference and waits for the port's dry-run slice (ROADMAP
-queue 1 item 8, after prefill and training on a mesh and the ``Server``
-on a mesh).
+queue 1 item 8, after the other families' prefill and training on a
+mesh and the ``Server`` on a mesh).
 """
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.device import resolve_device
+from repro_torch.core import collectives as coll
 from repro_torch.launch.mesh import abstract_mesh
 from repro_torch.models import model as mdl
 from repro_torch.models.blocks import (count_params, param_specs,
                                        tree_leaves, tree_map)
 from repro_torch.optim import adamw
+from repro_torch.parallel import sharding as shd
 from repro_torch.parallel.sharding import (DEFAULT_RULES, INFERENCE_RULES,
                                            ShardingPlan, block_shape)
 
@@ -95,22 +101,33 @@ def batch_structs(cfg: ArchConfig, seq: int, batch: int, *,
     return out
 
 
-def make_prefill_step(cfg: ArchConfig, *, device="cuda"):
+def make_prefill_step(cfg: ArchConfig, *, mesh=None, device="cuda"):
     """``prefill_step(params, batch) -> (B, 1, V) f32`` logits of the
     last prompt position.  ``params`` is ``Model.params`` on ``device``
     (``cuda`` by default, which needs a card); ``batch["tokens"]`` is a
     (B, S) integer array or tensor, with ``vision_embed`` (B,
     vision_prefix, D) for a VLM and ``frames`` (B, F, D) for an
-    encoder-decoder (``models/model.forward_hidden``)."""
-    dev = resolve_device(device)
+    encoder-decoder (``models/model.forward_hidden``).
+
+    On a ``mesh`` the step runs on the rank's device: ``params`` are this
+    rank's blocks under ``models/model.train_specs`` (the reference's
+    prefill plan, ``DEFAULT_RULES``), the batch and the logits the rank's
+    rows (split over the batch axes), the logits whole over the
+    vocabulary (all-gathered over ``model`` where ``lm_head`` splits).  A
+    (1, 1) mesh is the one-device step."""
+    mdl._mesh_families(cfg, mesh)
+    dev = mdl._forward_device(mesh, device)
+    specs = mdl.train_specs(cfg, mesh)
 
     @torch.no_grad()
     def prefill_step(params, batch):
-        x, _ = mdl.forward_hidden(params, batch, cfg, device=dev)
+        x, _ = mdl.forward_hidden(params, batch, cfg, mesh=mesh, device=dev)
         cd = getattr(torch, cfg.compute_dtype)
         last = x[:, -1:]
-        logits = torch.einsum("bsd,dv->bsv", last.to(cd),
-                              params["lm_head"].to(cd))
+        logits = torch.einsum("bsd,dv->bsv", last.to(cd), mdl._weight(
+            params, "lm_head", cd, specs, mesh))
+        logits = coll.all_gather(logits, mesh,
+                                 mdl._axes(specs, "lm_head", 1), 2)
         return logits.float()
 
     return prefill_step
@@ -146,64 +163,141 @@ def grad_leaves(params, grads):
     return tree
 
 
-def accumulate_grads(params, batch, cfg, grads, *, device="cuda"):
+def accumulate_grads(params, batch, cfg, grads, *, mesh=None,
+                     device="cuda"):
     """``loss_fn(params, batch)``'s metrics, its gradient added into
-    ``grads`` (float32 tensors shaped like ``params``).  The forward is
+    ``grads`` (float32 tensors shaped like ``params``; on a ``mesh`` the
+    rank's blocks, each holding the part of this rank's rows, summed over
+    the ranks whose FSDP gather it went through).  The forward is
     the profiler range ``train_step.forward``; the backward (remat
     recompute included) runs on autograd's device thread, outside any
     range opened here."""
     with torch.profiler.record_function("train_step.forward"):
         total, metrics = mdl.loss_fn(grad_leaves(params, grads), batch,
-                                     cfg, device=device)
+                                     cfg, mesh=mesh, device=device)
     total.backward()
     return metrics
 
 
+def train_accum(accum: int, batch: int, mesh) -> int:
+    """``accum`` for a global batch of ``batch`` rows, as the reference
+    takes it: a batch it does not divide raises (its ``make_train_step``
+    reshapes the batch to (accum, B / accum)), and it is clamped, as its
+    ``lowering_spec`` clamps it, to at most the rows a rank of the batch
+    axes holds, so that every microbatch still splits over those axes
+    (``mesh`` None: one rank).  A clamped ``accum`` divides ``batch``."""
+    if batch % accum:
+        raise ValueError(f"batch {batch} is not a multiple of accum_steps "
+                         f"{accum}")
+    ways = math.prod(mesh.shape[a] for a in mdl._batch_axes(mesh))
+    max_accum = max(batch // ways, 1) if batch % ways == 0 else batch
+    return min(accum, max_accum)
+
+
+def microbatches(batch, accum: int, mesh):
+    """This rank's rows of each of ``accum`` microbatches, the
+    reference's: its ``make_train_step`` reshapes the GLOBAL batch to
+    (accum, B / accum), so microbatch i is global rows ``[i B / accum,
+    (i + 1) B / accum)``, split over the batch axes.  ``batch`` holds
+    this rank's block of the global rows (``input_specs``); with more
+    than one microbatch and batch axes of more than one rank, the blocks
+    are all-gathered over them (integers and the mask, a few hundred KB)
+    and each microbatch's block of this rank cut from the whole.  With no
+    such axes (``mesh`` None or a (1, 1) mesh) the rows are the batch's
+    own, sliced as given."""
+    axes = mdl._batch_axes(mesh)
+    if accum <= 1:
+        return [batch]
+    whole = {k: coll.all_gather(torch.as_tensor(v).to(mesh.device), mesh,
+                                axes, 0) for k, v in batch.items()} \
+        if axes else batch
+    rows = len(whole["tokens"])
+    index, count = shd.block(mesh, axes)
+    mb = rows // accum
+    if mb % count:
+        raise ValueError(f"a microbatch of {mb} rows does not split over "
+                         f"the {count} ranks of the batch axes")
+    n = mb // count
+    return [{k: v[i * mb + index * n:i * mb + (index + 1) * n]
+             for k, v in whole.items()} for i in range(accum)]
+
+
+def sync_grads(grads, specs, mesh) -> None:
+    """All-reduce IN PLACE, over every batch axis of more than one rank
+    that does not split it, the gradient of each leaf: one a rank's rows
+    gave (the norm scales, and every leaf the plan does not split over
+    those axes).  A leaf split over a batch axis got its sum over that
+    axis from its FSDP gather's reduce-scatter; a leaf's ``model`` blocks
+    keep their own gradients.  With no such axes (``mesh`` None or a
+    (1, 1) mesh) nothing is reduced."""
+    rows = mdl._batch_axes(mesh)
+    if not rows:
+        return
+    for (_, g), (_, sp) in zip(tree_leaves(grads), tree_leaves(specs)):
+        split = {a for d in range(g.dim()) for a in shd.entry_axes(sp, d)}
+        coll.psum_(g, mesh, tuple(a for a in rows if a not in split))
+
+
 def make_train_step(cfg: ArchConfig, opt_cfg=None, accum_steps: int = 1, *,
-                    device="cuda"):
+                    mesh=None, device="cuda"):
     """``train_step(params, opt_state, batch) -> (params, opt_state,
     metrics)``.  ``params`` is ``Model.params`` (or any tree of float32
     tensors in its layout) on ``device`` (``cuda`` by default, which
     needs a card), ``opt_state`` ``adamw.init(params)``; ``batch`` holds
     ``tokens``, ``targets`` and ``loss_mask`` (B, S) arrays or tensors,
     with ``vision_embed`` or ``frames`` where the model takes them
-    (``batch_structs``), B a multiple of ``accum_steps``.  Microbatch i
-    takes rows ``i * B / accum_steps`` onward of every entry, as the
-    reference's reshape does.
+    (``batch_structs``), B a multiple of ``accum_steps``, which is
+    clamped to the rows a rank holds (``train_accum``).  Microbatch i
+    takes rows ``i * B / accum`` onward of every entry, as the
+    reference's reshape does (``microbatches``).
     Parameters and moments are updated in place and returned (at
     granite_3_2b's width each is 10.5 GB); metrics are ``loss``,
     ``aux_loss``, ``perplexity`` (over the microbatches' mean loss),
-    ``grad_norm`` and ``lr``."""
-    dev = resolve_device(device)
+    ``grad_norm`` and ``lr``.
+
+    On a ``mesh`` of more than one rank the step runs SPMD on the rank's
+    device (``mesh.device``), each rank on its own blocks: ``params`` and
+    both moments under ``models/model.train_specs`` (``DEFAULT_RULES``,
+    the reference's train plan; ``blocks.shard_params``), ``batch`` the
+    rank's block of the global rows (``input_specs``), and B above the
+    global batch.  Each rank differentiates the loss of the whole batch
+    through its rows; the FSDP gathers' reduce-scatters and
+    ``sync_grads`` sum the parts, ``adamw.apply`` takes the norm of the
+    blocks over the mesh and updates each rank's blocks.  The metrics are
+    the same on every rank.  ``mesh`` None and a (1, 1) mesh run the same
+    code, every collective on an axis of one rank a no-op."""
+    mdl._mesh_families(cfg, mesh)
+    dev = mdl._forward_device(mesh, device)
     opt_cfg = opt_cfg or adamw.AdamWConfig()
+    specs = mdl.train_specs(cfg, mesh)
+    ways = math.prod(mesh.shape[a] for a in mdl._batch_axes(mesh))
 
     def train_step(params, opt_state, batch):
-        b = len(batch["tokens"])
-        if b % accum_steps:
-            raise ValueError(f"batch {b} is not a multiple of "
-                             f"accum_steps {accum_steps}")
-        mb = b // accum_steps
+        rows = len(batch["tokens"]) * ways
+        parts = microbatches(batch, train_accum(accum_steps, rows, mesh),
+                             mesh)
         # float32 gradients (float64 for float64 parameters: the tests'
         # exact evaluation)
         grads = tree_map(lambda p: torch.zeros_like(
             p, dtype=torch.promote_types(p.dtype, torch.float32)), params)
-        if accum_steps <= 1:
-            metrics = accumulate_grads(params, batch, cfg, grads, device=dev)
+        if len(parts) == 1:
+            metrics = accumulate_grads(params, parts[0], cfg, grads,
+                                       mesh=mesh, device=dev)
         else:
             lsum = asum = torch.zeros((), dtype=torch.float32, device=dev)
-            for i in range(accum_steps):
-                m = accumulate_grads(
-                    params, {k: v[i * mb:(i + 1) * mb]
-                             for k, v in batch.items()}, cfg, grads,
-                    device=dev)
+            for part in parts:
+                m = accumulate_grads(params, part, cfg, grads, mesh=mesh,
+                                     device=dev)
                 lsum, asum = lsum + m["loss"], asum + m["aux_loss"]
-            tree_map(lambda g: g.div_(accum_steps), grads)
-            loss = lsum / accum_steps
-            metrics = {"loss": loss, "aux_loss": asum / accum_steps,
+            tree_map(lambda g: g.div_(len(parts)), grads)
+            loss = lsum / len(parts)
+            metrics = {"loss": loss, "aux_loss": asum / len(parts),
                        "perplexity": torch.exp(torch.clamp(loss, max=20.0))}
+        with torch.profiler.record_function("train_step.grad_sync"):
+            sync_grads(grads, specs, mesh)
         with torch.profiler.record_function("train_step.adamw"):
-            params, opt_state, opt_metrics = adamw.apply(opt_cfg, params,
-                                                         opt_state, grads)
+            params, opt_state, opt_metrics = adamw.apply(
+                opt_cfg, params, opt_state, grads, mesh=mesh, specs=specs)
         return params, opt_state, {**metrics, **opt_metrics}
 
     return train_step

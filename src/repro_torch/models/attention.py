@@ -15,8 +15,10 @@ The port of the reference package's ``models/attention.py``:
   encoder memory: ``flash_decode`` over the whole memory for one query,
   ``flash_attention(causal=False)`` for more.
 
-The sequence-parallel ``q_offset`` branch of ``attention`` belongs to
-prefill and training on a mesh (ROADMAP queue 1 item 8).
+``attention(q_offset=)`` is the reference's sequence-parallel branch: a
+block of query rows at global positions against the whole K/V, which a
+mesh's ``model`` ranks take when the heads do not split
+(``models/model.attn_core``).
 
 Shapes: q (B, Sq, H, hd); k, v (B, Skv, KVH, hd); H = KVH * rep (GQA).
 """
@@ -56,13 +58,15 @@ def dense_attention(q, k, v, *, causal=True, window=0, q_offset=0):
     return out.reshape(b, sq, h, d)
 
 
-def attention(q, k, v, *, causal=True, window=0):
+def attention(q, k, v, *, causal=True, window=0, q_offset=0):
     """Train/prefill attention.  The reference picks ``dense_attention``,
     ``swa_attention`` or ``chunked_attention`` by shape; the kernel
     computes all three, and applies the window at every length (the
     reference's ``chunked_attention`` branch drops it: ROADMAP queue
-    3)."""
-    return ops.flash_attention(q, k, v, causal=causal, window=window)
+    3).  Query row s stands at position ``q_offset + s`` (the reference's
+    ``q_offset`` branch, which applies the window at every length)."""
+    return ops.flash_attention(q, k, v, causal=causal, window=window,
+                               q_offset=q_offset)
 
 
 def decode_attention(q, k, v, *, kv_len=None, window=0):

@@ -196,10 +196,30 @@ def wide_mm(a, b):
     wide = torch.promote_types(a.dtype, torch.float32)
     a2 = a.reshape(-1, a.shape[-1])
     if a2.is_cuda and a2.dtype != wide:
-        out = torch.mm(a2, b, out_dtype=wide)
+        out = _WideMM.apply(a2, b, wide)
     else:
         out = a2.to(wide) @ b.to(wide)
     return out.reshape(*a.shape[:-1], b.shape[-1])
+
+
+class _WideMM(torch.autograd.Function):
+    """``torch.mm(a, b, out_dtype=wide)`` (which has no derivative) with
+    the gradient autograd gives a product in the inputs' dtype: the
+    incoming float32 gradient taken to that dtype (exact where it comes
+    back through the cast to the compute dtype), then its two products."""
+
+    @staticmethod
+    def forward(ctx, a, b, wide):
+        ctx.save_for_backward(a, b)
+        return torch.mm(a, b, out_dtype=wide)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        g = g.to(a.dtype)
+        da = g @ b.t() if ctx.needs_input_grad[0] else None
+        db = a.t() @ g if ctx.needs_input_grad[1] else None
+        return da, db, None
 
 
 def mlp_defs(d_model, d_ff):

@@ -1,7 +1,7 @@
 """The LM: its decode path, its forward (prefill) and its loss.
 
-The port of the reference package's ``models/model.py`` on one device:
-parameter definitions for every architecture (so parameter counts agree
+The port of the reference package's ``models/model.py``: parameter
+definitions for every architecture (so parameter counts agree
 with the reference), the ``Model`` module holding them, the stacked decode
 caches and ``decode_forward``; ``forward_hidden`` / ``forward`` over a
 whole sequence; and ``chunked_xent`` / ``loss_fn``, which the train step
@@ -64,8 +64,24 @@ MoE runs each rank's experts and adds their outputs over ``model``
 rank's rows of the table, summed over the axes that split them.  One
 code path serves both: on ``mesh=None`` or a (1, 1) mesh every
 collective is on an axis of one rank and does nothing, so it is the
-one-device path bit for bit.  Prefill and training on a mesh are not
-ported (ROADMAP queue 1 item 8).
+one-device path bit for bit.
+
+Prefill and training run on a mesh too (``forward_hidden``,
+``forward``, ``loss_fn`` with ``mesh=``; ``launch/steps.py``'s train and
+prefill steps), each rank on its blocks under ``train_specs`` (the
+reference's ``DEFAULT_RULES`` plan) and on its rows of the batch.  The
+communication is the decode step's, made differentiable
+(``core/collectives``: each collective with the backward ``shard_map``
+gives it): the FSDP gathers reduce-scatter their gradient; the psums of
+partial sums pass the gradient through; a tensor every ``model`` rank
+holds alike enters the rank's split computation through ``grad_psum``,
+whose backward sums the ranks' parts.  Attention runs ``attn_core``'s
+branch for the split: heads, kv heads replicated, or the
+sequence-parallel fallback with ``q_offset``.  The loss assembles a
+vocabulary split over ``model`` across ranks and is that of the whole
+batch.  Only the dense and sliding-window decoders run there; MoE,
+Mamba-2, the hybrid, the encoder-decoder and the VLM raise on a mesh of
+more than one rank (ROADMAP queue 1 item 8).
 """
 from __future__ import annotations
 
@@ -215,13 +231,16 @@ def _axes(sp, name, dim):
 def _project_qkv(p, x, cfg, cd, prefix="", sp=None, mesh=None):
     """q, k, v of ``x`` through ``wq``/``wk``/``wv`` (``xwq``... with
     prefix "x", the cross-attention's, which have no bias); on a mesh
-    this rank's heads of them."""
-    q = torch.einsum("bsd,dhk->bshk", x, _weight(p, prefix + "wq", cd, sp,
-                                                 mesh))
-    k = torch.einsum("bsd,dhk->bshk", x, _weight(p, prefix + "wk", cd, sp,
-                                                 mesh))
-    v = torch.einsum("bsd,dhk->bshk", x, _weight(p, prefix + "wv", cd, sp,
-                                                 mesh))
+    this rank's heads of them.  Under autograd the products whose weight
+    the plan splits over heads take ``x`` in through one ``grad_psum``:
+    each rank's gradient of ``x`` there is the part of its heads."""
+    names = [prefix + n for n in ("wq", "wk", "wv")]
+    axes = [_axes(sp, n, 1) for n in names]
+    split = [a for a in axes if _split(mesh, a)]
+    xs = coll.grad_psum(x, mesh, split[0]) if split else x
+    q, k, v = (torch.einsum("bsd,dhk->bshk", xs if _split(mesh, a) else x,
+                            _weight(p, n, cd, sp, mesh))
+               for n, a in zip(names, axes))
     if cfg.qkv_bias and prefix == "":
         q = q + p["bq"].to(cd)
         k = k + p["bk"].to(cd)
@@ -382,8 +401,11 @@ def ffn_apply(p, x, kind, cfg, decode=False, *, sp=None, mesh=None,
         axes = _axes(sp, "wo", 0)
         if not _split(mesh, axes):
             return x + swiglu(h, wi, wg, wo, cd), 0.0
+        h = coll.grad_psum(h, mesh, axes)
         part = wide_mm(silu(h @ wg) * (h @ wi), wo)
-        return x + coll.psum(part, mesh, axes).to(cd), 0.0
+        with torch.profiler.record_function("model_psum"):
+            part = coll.psum(part, mesh, axes)
+        return x + part.to(cd), 0.0
     y, aux = moe_mod.moe_apply(p, h, cfg, decode=decode, sp=sp, mesh=mesh,
                                batch_axes=batch_axes)
     return x + y, aux
@@ -436,7 +458,11 @@ def embed_tokens(params, tokens, cfg, cd, *, mesh=None, spec=(),
     rows are split over ``model`` too, the reference's mask + psum;
     tokens split over an axis that also splits the table (``batch_axes``,
     those that split the batch) are gathered over it first and the rank's
-    rows taken back after the sum."""
+    rows taken back after the sum (a reduce-scatter).  Under autograd
+    each rank's rows of the table get the gradient of every token that
+    reads them: the reduce-scatter's backward all-gathers the rows'
+    gradients, and the table's ``model`` block enters through
+    ``grad_psum`` (every ``model`` rank holds the table alike)."""
     table = params["embed"]
     axes = shd.entry_axes(spec, 0)
     m = mesh.shape.get("model", 1) if mesh is not None else 1
@@ -444,7 +470,8 @@ def embed_tokens(params, tokens, cfg, cd, *, mesh=None, spec=(),
             and table.shape[0] % m == 0):
         index, _ = shd.block(mesh, ("model",))
         rows = table.shape[0] // m
-        table = table.narrow(0, index * rows, rows)
+        table = coll.grad_psum(table, mesh, ("model",)).narrow(
+            0, index * rows, rows)
         axes = axes + ("model",)
     axes = tuple(a for a in axes if mesh.shape[a] > 1)
     if not axes:
@@ -456,11 +483,9 @@ def embed_tokens(params, tokens, cfg, cd, *, mesh=None, spec=(),
     loc = toks - index * v_local
     ok = (loc >= 0) & (loc < v_local)
     rows = table.to(cd)[torch.clamp(loc, 0, v_local - 1)]
-    rows = coll.psum(torch.where(ok[..., None], rows, 0), mesh, axes)
-    if shared:
-        own, _ = shd.block(mesh, shared)
-        rows = rows.narrow(0, own * tokens.shape[0], tokens.shape[0])
-    return rows
+    rows = coll.psum(torch.where(ok[..., None], rows, 0), mesh,
+                     tuple(a for a in axes if a not in shared))
+    return coll.reduce_scatter(rows, mesh, shared, 0)
 
 
 def _check_on(dev, tree, what):
@@ -709,25 +734,121 @@ def _split(mesh, axes) -> bool:
 
 # ================================================================ forward
 
-def attn_core(q, k, v, cfg, *, causal, window):
-    """Train/prefill attention core on one device (the reference's
-    ``m == 1`` branch): ``attention.attention``, whose CUDA path is the
-    hand-written flash-attention kernel."""
-    return attn.attention(q, k, v, causal=causal, window=window)
+def train_specs(cfg, mesh):
+    """The spec of every parameter leaf of the train and prefill steps on
+    ``mesh``: ``DEFAULT_RULES`` (FSDP over the batch axes; heads, the MLP
+    and the vocabulary over ``model``), the plan the reference's
+    ``lowering_spec`` gives them; None off a mesh."""
+    if mesh is None:
+        return None
+    return param_specs(model_defs(cfg), shd.ShardingPlan(mesh))
+
+
+def _batch_axes(mesh) -> tuple:
+    """The batch axes of more than one rank: those that split the rows of
+    a train or prefill batch."""
+    if mesh is None:
+        return ()
+    return tuple(a for a in BATCH_AXES if a in mesh.axis_names
+                 and mesh.shape[a] > 1)
+
+
+def _mesh_families(cfg, mesh) -> None:
+    """Raise where prefill and training on ``mesh`` (of more than one
+    rank) would meet a family not ported to it yet: only the dense and
+    sliding-window decoders run there."""
+    if _on_one_device(mesh):
+        return
+    other = ([m for m, _ in cfg.pattern if m != "attn"]
+             + [f for _, f in cfg.pattern if f not in (None, "mlp")]
+             + (["an encoder"] if cfg.enc_layers > 0 else [])
+             + (["a vision prefix"] if cfg.vision_prefix > 0 else []))
+    if other:
+        raise NotImplementedError(
+            f"{cfg.name}: prefill and training on a mesh of more than one "
+            f"rank are ported for the dense and sliding-window decoders; "
+            f"{', '.join(sorted(set(other)))} on a mesh are not (ROADMAP "
+            f"queue 1 item 8)")
+
+
+def attn_core(q, k, v, cfg, *, causal, window, sp=None, mesh=None):
+    """Train/prefill attention core: ``attention.attention``, whose CUDA
+    path is the hand-written flash-attention kernel, in the four branches
+    of the reference's ``attn_core`` on a ``model`` axis of m ranks
+    (``sp`` the specs of this rank's blocks, which say what the plan
+    split):
+
+    - m = 1: the plain call;
+    - heads split, kv heads split (KV % m == 0): the kernel on the rank's
+      H/m q heads and KV/m kv heads;
+    - heads split, kv heads whole (m % KV == 0, rep % h_l == 0): the rank
+      slices the one kv head its h_l q heads read, ``(index * h_l) //
+      rep``; with any other split the rank's q heads are gathered, the
+      whole attention runs on every rank and each keeps its heads;
+    - heads whole: the sequence-parallel fallback where m divides S (each
+      rank's S/m query rows at ``q_offset = index * S / m`` against the
+      whole K/V, the outputs all-gathered over ``model``), else the
+      replicated call.
+
+    Returns this rank's heads of the output where the plan splits ``wo``
+    over them, all heads otherwise.  Every tensor the ``model`` ranks hold
+    alike enters the rank's own part through ``grad_psum``."""
+    m = mesh.shape.get("model", 1) if mesh is not None else 1
+    if m == 1:
+        return attn.attention(q, k, v, causal=causal, window=window)
+    model = ("model",)
+    index = mesh.axis_index("model")
+    if not _split(mesh, _axes(sp, "wq", 1)):
+        s = q.shape[1]
+        if s % m:
+            return attn.attention(q, k, v, causal=causal, window=window)
+        n = s // m
+        q, k, v = coll.grad_psum((q, k, v), mesh, model)
+        o = attn.attention(q.narrow(1, index * n, n), k, v, causal=causal,
+                           window=window, q_offset=index * n)
+        return coll.all_gather(o, mesh, model, 1, replicated=True)
+    if _split(mesh, _axes(sp, "wk", 1)):
+        return attn.attention(q, k, v, causal=causal, window=window)
+    h_l, rep = cfg.n_heads // m, cfg.n_heads // cfg.n_kv_heads
+    if m % cfg.n_kv_heads == 0 and rep % h_l == 0:
+        start = (index * h_l) // rep
+        k, v = coll.grad_psum((k, v), mesh, model)
+        return attn.attention(q, k.narrow(2, start, 1), v.narrow(2, start, 1),
+                              causal=causal, window=window)
+    q = coll.all_gather(q, mesh, model, 2, replicated=True)
+    o = attn.attention(q, k, v, causal=causal, window=window)
+    return coll.grad_psum(o, mesh, model).narrow(2, index * h_l, h_l)
+
+
+def _out_proj(x, o, p, name, cd, sp, mesh):
+    """``x + o @ p[name]`` over heads; where the plan splits the heads, a
+    product over the rank's heads whose partial sums are all-reduced in
+    float32 (``wide_mm``) and rounded to the compute dtype once."""
+    w, axes = _weight(p, name, cd, sp, mesh), _axes(sp, name, 0)
+    if not _split(mesh, axes):
+        return x + torch.einsum("bshk,hkd->bsd", o.to(cd), w)
+    part = wide_mm(o.to(cd).flatten(2), w.flatten(0, 1))
+    with torch.profiler.record_function("model_psum"):
+        part = coll.psum(part, mesh, axes)
+    return x + part.to(cd)
 
 
 def attn_apply(p, x, cfg, positions, *, causal=True, window=0,
-               memory=None):
+               memory=None, sp=None, mesh=None):
     """The self-attention sublayer over a whole sequence, then the
-    cross-attention over ``memory`` (bidirectional) when given."""
+    cross-attention over ``memory`` (bidirectional) when given (one
+    device).  On a mesh ``p`` holds this rank's blocks and ``sp`` their
+    specs (``attn_core``; ``wo``'s partial sums all-reduced over the
+    heads' axes)."""
     cd = getattr(torch, cfg.compute_dtype)
     h = rms_norm(x, p["norm"], cfg.norm_eps).to(cd)
-    q, k, v = _project_qkv(p, h, cfg, cd)
+    q, k, v = _project_qkv(p, h, cfg, cd, sp=sp, mesh=mesh)
     if cfg.use_rope:
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
-    o = attn_core(q, k, v, cfg, causal=causal, window=window)
-    x = x + torch.einsum("bshk,hkd->bsd", o.to(cd), p["wo"].to(cd))
+    o = attn_core(q, k, v, cfg, causal=causal, window=window, sp=sp,
+                  mesh=mesh)
+    x = _out_proj(x, o, p, "wo", cd, sp, mesh)
     if memory is not None:
         x = _cross(p, x, memory, cfg, cd,
                    lambda qx, kx, vx: attn_core(qx, kx, vx, cfg,
@@ -736,17 +857,21 @@ def attn_apply(p, x, cfg, positions, *, causal=True, window=0,
 
 
 def sublayer_apply(sub, x, mixer, ffn, cfg, positions, *, causal=True,
-                   memory=None):
+                   memory=None, sp=None, mesh=None):
     """One (mixer, ffn) sublayer: attention or Mamba-2, then an MLP, a
-    MoE or nothing.  Returns ``(x, aux)``."""
+    MoE or nothing.  Returns ``(x, aux)``.  On a mesh ``sp`` holds the
+    specs of this rank's blocks of ``sub``."""
+    sp = sp or {}
     if mixer == "attn":
         x = attn_apply(sub["mixer"], x, cfg, positions, causal=causal,
-                       window=cfg.window, memory=memory)
+                       window=cfg.window, memory=memory,
+                       sp=sp.get("mixer"), mesh=mesh)
     else:
         hm = rms_norm(x, sub["mixer"]["norm"], cfg.norm_eps)
         y, _ = ssm_mod.ssm_apply(_mixer_params(sub["mixer"]), hm, cfg)
         x = x + y
-    return ffn_apply(sub.get("ffn"), x, ffn, cfg)
+    return ffn_apply(sub.get("ffn"), x, ffn, cfg, sp=sp.get("ffn"),
+                     mesh=mesh)
 
 
 def block_layers(blocks):
@@ -759,39 +884,47 @@ def block_layers(blocks):
     return [tree_map(lambda a: a[i], blocks) for i in range(n)]
 
 
-def _block(bp, x, cfg, positions, causal, pattern, memory):
+def _block(bp, x, cfg, positions, causal, pattern, memory, sp, mesh):
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for j, (mixer, ffn) in enumerate(pattern):
         x, a = sublayer_apply(bp[f"sub{j}"], x, mixer, ffn, cfg, positions,
-                              causal=causal, memory=memory)
+                              causal=causal, memory=memory,
+                              sp=sp.get(f"sub{j}"), mesh=mesh)
         aux = aux + a
     return x, aux
 
 
 def run_blocks(blocks, x, cfg, positions, *, pattern=None, causal=True,
-               memory=None):
+               memory=None, specs=None, mesh=None):
     """The stacked blocks over a whole sequence (``pattern`` the
     sublayers of a block, ``cfg.pattern`` by default), a Python loop in
     place of the reference's scan.  Returns ``(x, aux)``, aux a float32
     scalar tensor: the router loss summed over the MoE sublayers (0
     without), out of each block's checkpoint where it is rematerialised.
+    On a mesh ``specs`` are those of this rank's (stacked) blocks.
 
     Where gradients are kept and ``cfg.remat != "none"``, each block runs
     under ``torch.utils.checkpoint`` (non-reentrant), the reference's
     ``_remat``: only its input is kept, and its forward (the kernel of
-    its mixer included) runs again in the backward.  Granite's ``"dots"``
-    policy, which would keep the outputs of the block's products, is
-    taken as a whole-block checkpoint too: at 2 x 4096 tokens those bf16
-    outputs (q, k, v, the output projection, the MLP's three) hold 0.39
-    GB a layer, 15.5 GB over 40 layers beside a 42 GB train state, and
-    recomputing them costs one more forward of the block's products.
-    Neither choice changes a number.
+    its mixer included) runs again in the backward.  On a mesh that
+    recompute issues the block's forward collectives again inside the
+    backward; every rank runs the same graph, so each rank's sequence of
+    collectives stays the same (no collective is in a branch that
+    depends on the rank).  Granite's ``"dots"`` policy, which would keep
+    the outputs of the block's products, is taken as a whole-block
+    checkpoint too: at 2 x 4096 tokens those bf16 outputs (q, k, v, the
+    output projection, the MLP's three) hold 0.39 GB a layer, 15.5 GB
+    over 40 layers beside a 42 GB train state, and recomputing them costs
+    one more forward of the block's products.  Neither choice changes a
+    number.
     """
     pattern = cfg.pattern if pattern is None else pattern
     remat = cfg.remat != "none" and torch.is_grad_enabled()
+    layer_specs = tree_map(lambda sp: sp[1:], specs) if specs else {}
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for bp in block_layers(blocks):
-        args = (bp, x, cfg, positions, causal, pattern, memory)
+        args = (bp, x, cfg, positions, causal, pattern, memory, layer_specs,
+                mesh)
         if remat:
             x, a = checkpoint(_block, *args, use_reentrant=False,
                               preserve_rng_state=False)
@@ -801,13 +934,16 @@ def run_blocks(blocks, x, cfg, positions, *, pattern=None, causal=True,
     return x, aux
 
 
-def build_inputs(params, batch, cfg):
+def build_inputs(params, batch, cfg, *, specs=None, mesh=None):
     """The decoder input sequence: the embedded ``batch["tokens"]`` (B,
     S), after the vision prefix ``batch["vision_embed"] @ vis_proj`` (B,
     P, D) where the model has one, plus sinusoidal positions for an
-    encoder-decoder."""
+    encoder-decoder.  On a mesh the tokens are this rank's rows (split
+    over the batch axes) and the table the rank's block."""
     cd = getattr(torch, cfg.compute_dtype)
-    x = embed_tokens(params, batch["tokens"], cfg, cd)
+    x = embed_tokens(params, batch["tokens"], cfg, cd, mesh=mesh,
+                     spec=specs["embed"] if specs else (),
+                     batch_axes=_batch_axes(mesh))
     if cfg.vision_prefix > 0:
         vis = batch["vision_embed"].to(cd) @ params["vis_proj"].to(cd)
         x = torch.cat([vis, x], dim=1)
@@ -835,33 +971,61 @@ def encode(params, batch, cfg):
 BATCH_INPUTS = ("tokens", "vision_embed", "frames")
 
 
-def forward_hidden(params, batch, cfg, *, device="cuda"):
+def _forward_device(mesh, device):
+    """The mesh's rank's device on a mesh, else ``device``."""
+    return resolve_device(device) if mesh is None else mesh.device
+
+
+def forward_hidden(params, batch, cfg, *, mesh=None, device="cuda"):
     """Forward up to the final norm: ``(hidden (B, S, D) in the compute
     dtype, aux)``, the vision prefix's positions cut off.  ``params`` is
     ``Model.params`` on ``device``; ``batch["tokens"]`` (B, S) integers,
     with ``vision_embed`` (B, vision_prefix, D) for a VLM and ``frames``
     (B, F, D) for an encoder-decoder, arrays or tensors.
     Gradients are kept unless the caller runs it under
-    ``torch.no_grad()``."""
-    dev = resolve_device(device)
+    ``torch.no_grad()``.
+
+    On a ``mesh`` (``launch/mesh.Mesh``) it runs SPMD on the rank's
+    device (``mesh.device``): ``params`` are this rank's blocks under
+    ``train_specs`` (``blocks.shard_params``), the batch and the hidden
+    states the rank's rows (split over the batch axes), whole over the
+    sequence and ``d_model``.  Dims of a weight split over the batch axes
+    are all-gathered before use (their gradient reduce-scattered);
+    products over weights split over ``model`` keep their outputs split
+    (q, k, v over heads, the MLP's inner dim) and all-reduce the partial
+    sums of the products that contract them (``wo``, the MLP's down
+    projection); attention runs ``attn_core``'s branch for the split.  A
+    (1, 1) mesh is the one-device path: every collective is on an axis
+    of one rank.  Only the dense and sliding-window decoders run on a
+    mesh of more than one rank (``NotImplementedError`` otherwise, before
+    any work)."""
+    _mesh_families(cfg, mesh)
+    dev = _forward_device(mesh, device)
     _check_on(dev, params, "forward")
+    specs = train_specs(cfg, mesh)
     batch = {k: torch.as_tensor(v).to(dev) for k, v in batch.items()
              if k in BATCH_INPUTS}
-    x = build_inputs(params, batch, cfg)
+    x = build_inputs(params, batch, cfg, specs=specs, mesh=mesh)
     memory = encode(params, batch, cfg) if cfg.enc_layers > 0 else None
     pos = torch.arange(x.shape[1], device=dev).expand(x.shape[:2])
     x, aux = run_blocks(params["blocks"], x, cfg, pos, causal=True,
-                        memory=memory)
+                        memory=memory,
+                        specs=specs["blocks"] if specs else None, mesh=mesh)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     return x[:, cfg.vision_prefix:], aux
 
 
 @torch.no_grad()
-def forward(params, batch, cfg, *, device="cuda"):
-    """Teacher-forced forward: ``(logits (B, S, V) f32, aux)``."""
-    x, aux = forward_hidden(params, batch, cfg, device=device)
+def forward(params, batch, cfg, *, mesh=None, device="cuda"):
+    """Teacher-forced forward: ``(logits (B, S, V) f32, aux)``; on a
+    ``mesh`` the rank's rows, whole over the vocabulary (all-gathered
+    over the axes that split ``lm_head``)."""
+    x, aux = forward_hidden(params, batch, cfg, mesh=mesh, device=device)
     cd = getattr(torch, cfg.compute_dtype)
-    logits = torch.einsum("bsd,dv->bsv", x.to(cd), params["lm_head"].to(cd))
+    specs = train_specs(cfg, mesh)
+    logits = torch.einsum("bsd,dv->bsv", x.to(cd),
+                          _weight(params, "lm_head", cd, specs, mesh))
+    logits = coll.all_gather(logits, mesh, _axes(specs, "lm_head", 1), 2)
     return logits.float(), aux
 
 
@@ -875,7 +1039,30 @@ def _xent_chunk(x, w, targets, mask):
     return ((torch.logsumexp(logits, dim=-1) - gold) * mask).sum()
 
 
-def chunked_xent(x, lm_head, targets, mask, cfg):
+def _xent_chunk_split(x, w, targets, mask, mesh, axes, base):
+    """``_xent_chunk`` where ``w`` is this rank's block of the vocabulary
+    (columns ``base ..``) over ``axes``: the logsumexp assembled across
+    the blocks (a ``pmax`` of the row maxima, no gradient, and a ``psum``
+    of the exponential sums) and the gold logit from the block that holds
+    it, ``psum``med."""
+    logits = torch.einsum("bcd,dv->bcv", x.to(w.dtype), w).to(mask.dtype)
+    top = coll.pmax(logits.amax(-1), mesh, axes)
+    total = coll.psum(torch.exp(logits - top[..., None]).sum(-1), mesh, axes)
+    n = logits.shape[-1]
+    loc = targets - base
+    mine = (loc >= 0) & (loc < n)
+    gold = torch.gather(logits, -1, torch.clamp(loc, 0, n - 1)[..., None])
+    gold = coll.psum(torch.where(mine, gold[..., 0], 0), mesh, axes)
+    return ((torch.log(total) + top - gold) * mask).sum()
+
+
+def _mask_total(mask, mesh, axes):
+    """The loss's denominator: the mask's weight over the whole batch
+    (summed over the batch axes)."""
+    return coll.psum(mask.sum(), mesh, axes)
+
+
+def chunked_xent(x, lm_head, targets, mask, cfg, *, spec=None, mesh=None):
     """Cross-entropy without a (B, S, V) logits tensor (the reference's
     ``chunked_xent``): the sequence goes in chunks of ``cfg.xent_chunk``
     tokens (all of it where that does not divide S), each chunk's logits
@@ -883,7 +1070,13 @@ def chunked_xent(x, lm_head, targets, mask, cfg):
     backward under a checkpoint, so that at most one chunk's (B, chunk,
     V) logits exist.  The gold logit is gathered (the reference reduces
     a one-hot product, which gives the same number).  Returns the mean
-    NLL over the mask's weight (at least 1)."""
+    NLL over the mask's weight (at least 1).
+
+    On a ``mesh`` (``spec`` that of this rank's block of ``lm_head``)
+    the rows are the rank's: the summed NLL and the mask's weight are
+    both summed over the batch axes, so the loss is that of the whole
+    batch.  Where ``lm_head``'s vocabulary splits over ``model`` each
+    rank makes its block of a chunk's logits (``_xent_chunk_split``)."""
     cd = getattr(torch, cfg.compute_dtype)
     s = x.shape[1]
     chunk = min(cfg.xent_chunk, s)
@@ -894,18 +1087,31 @@ def chunked_xent(x, lm_head, targets, mask, cfg):
                       device=x.device) if mask is None else mask.to(acc)
     targets = targets.long()
     w = lm_head.to(cd)
+    fn = _xent_chunk
+    if spec:
+        w = shd.fsdp_whole(w, spec, mesh)
+        vocab = shd.entry_axes(spec, 1)
+        if _split(mesh, vocab):
+            x = coll.grad_psum(x, mesh, vocab)
+            index, _ = shd.block(mesh, vocab)
+
+            def fn(*part):
+                return _xent_chunk_split(*part, mesh, vocab,
+                                         index * w.shape[1])
     remat = torch.is_grad_enabled()
     nll = torch.zeros((), dtype=acc, device=x.device)
     for c0 in range(0, s, chunk):
         part = (x[:, c0:c0 + chunk], w, targets[:, c0:c0 + chunk],
                 mask[:, c0:c0 + chunk])
-        nll = nll + (checkpoint(_xent_chunk, *part, use_reentrant=False,
+        nll = nll + (checkpoint(fn, *part, use_reentrant=False,
                                 preserve_rng_state=False) if remat
-                     else _xent_chunk(*part))
-    return nll / torch.clamp(mask.sum(), min=1.0)
+                     else fn(*part))
+    rows = _batch_axes(mesh)
+    return coll.psum(nll, mesh, rows) / torch.clamp(
+        _mask_total(mask, mesh, rows), min=1.0)
 
 
-def loss_fn(params, batch, cfg, *, device="cuda"):
+def loss_fn(params, batch, cfg, *, mesh=None, device="cuda"):
     """``(total, metrics)``: the next-token loss of ``batch`` (``tokens``,
     ``targets``, optional ``loss_mask``, with ``vision_embed`` or
     ``frames`` where the model takes them; arrays or tensors) plus
@@ -913,14 +1119,20 @@ def loss_fn(params, batch, cfg, *, device="cuda"):
     sublayers and not divided by their number, as the reference's
     ``run_blocks`` sums it (0 without MoE); metrics ``loss``,
     ``aux_loss`` and ``perplexity = exp(min(loss, 20))``, detached.
-    ``total`` carries the graph."""
-    dev = resolve_device(device)
-    x, aux = forward_hidden(params, batch, cfg, device=dev)
+    ``total`` carries the graph.  On a ``mesh`` (``forward_hidden``)
+    the batch is this rank's rows and the loss that of the whole batch,
+    the same on every rank; its gradient on each rank is the part of the
+    rank's rows (``launch/steps.make_train_step`` sums the parts)."""
+    _mesh_families(cfg, mesh)
+    dev = _forward_device(mesh, device)
+    x, aux = forward_hidden(params, batch, cfg, mesh=mesh, device=dev)
     mask = batch.get("loss_mask")
     if mask is not None:
         mask = torch.as_tensor(mask).to(dev)
+    specs = train_specs(cfg, mesh)
     loss = chunked_xent(x, params["lm_head"],
-                        torch.as_tensor(batch["targets"]).to(dev), mask, cfg)
+                        torch.as_tensor(batch["targets"]).to(dev), mask, cfg,
+                        spec=specs["lm_head"] if specs else None, mesh=mesh)
     total = loss + cfg.router_aux_coef * aux
     loss = loss.detach()
     return total, {"loss": loss, "aux_loss": aux.detach(),

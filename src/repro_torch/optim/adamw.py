@@ -1,6 +1,6 @@
 """AdamW with a warmup + cosine schedule and global-norm clipping.
 
-The port of the reference package's ``optim/adamw.py`` on one device.
+The port of the reference package's ``optim/adamw.py``.
 The optimizer state mirrors the parameter tree (``{"m", "v", "step"}``,
 moments in float32).  Every expression keeps the reference's order of
 operations in float32: the bias corrections ``1 - b ** step``, the clip
@@ -10,6 +10,12 @@ reference's order (dict keys sorted).  ``apply`` updates the parameters,
 the moments and the gradients IN PLACE (at granite_3_2b's width a copy of
 any of them is 10.5 GB) and returns them, as the reference returns its
 new trees.
+
+On a mesh (``mesh`` and ``specs``, the specs of the rank's blocks of
+every leaf) each rank holds its blocks of the parameters, moments and
+gradients; the norm sums each leaf's squares once over the mesh (a psum
+over the axes that split the leaf, never over one on which it is
+replicated), and every other step is elementwise on the rank's blocks.
 """
 from __future__ import annotations
 
@@ -18,7 +24,9 @@ import math
 
 import torch
 
+from repro_torch.core import collectives as coll
 from repro_torch.models.blocks import tree_leaves, tree_map
+from repro_torch.parallel.sharding import entry_axes
 
 
 @dataclasses.dataclass(frozen=True)
@@ -55,21 +63,39 @@ def init(params):
             "step": torch.zeros((), dtype=torch.int32, device=dev)}
 
 
-def global_norm(tree):
+def global_norm(tree, *, mesh=None, specs=None):
     """sqrt of the sum over leaves (in order) of each leaf's sum of
-    squares, in float32."""
-    return torch.sqrt(sum(torch.sum(torch.square(g.float()))
-                          for _, g in tree_leaves(tree)))
+    squares, in float32.  On a ``mesh`` each leaf of ``tree`` is this
+    rank's block under ``specs``: its sum of squares is summed over the
+    axes that split it (one all-reduce for the leaves split alike), so
+    every rank gets the whole tree's norm."""
+    squares = [torch.sum(torch.square(g.float()))
+               for _, g in tree_leaves(tree)]
+    if specs is not None:
+        groups: dict = {}
+        for i, (_, sp) in enumerate(tree_leaves(specs)):
+            axes = sorted({a for d in range(len(sp))
+                           for a in entry_axes(sp, d) if mesh.shape[a] > 1})
+            groups.setdefault(tuple(axes), []).append(i)
+        for axes, idx in groups.items():
+            if axes:
+                summed = coll.psum(torch.stack([squares[i] for i in idx]),
+                                   mesh, axes)
+                for j, i in enumerate(idx):
+                    squares[i] = summed[j]
+    return torch.sqrt(sum(squares))
 
 
 @torch.no_grad()
-def apply(cfg: AdamWConfig, params, opt_state, grads):
+def apply(cfg: AdamWConfig, params, opt_state, grads, *, mesh=None,
+          specs=None):
     """One AdamW step: ``(params, opt_state, {"grad_norm", "lr"})``.
     ``params``, ``opt_state["m"]``, ``opt_state["v"]`` and ``grads`` are
     updated in place (grads scaled by the clip factor); the step is a new
-    tensor."""
+    tensor.  On a ``mesh`` they are this rank's blocks under ``specs``
+    (``global_norm``)."""
     step = opt_state["step"] + 1
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads, mesh=mesh, specs=specs)
     scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-12),
                         max=1.0)
     lr = schedule(cfg, step)

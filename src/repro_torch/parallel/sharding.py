@@ -223,11 +223,15 @@ def gather(t, spec: tuple, mesh):
 
 def fsdp_whole(t, spec: tuple, mesh):
     """``t`` whole along every dim the spec splits over the batch axes
-    (the FSDP per-step gathers); model-axis dims stay split."""
+    (the FSDP per-step gathers, the profiler range ``fsdp_gather``; under
+    autograd their backward reduce-scatters the gradient, the range
+    ``grad_reduce_scatter``); model-axis dims stay split."""
     for d in range(t.dim()):
         axes = entry_axes(spec, d)
         if axes and all(a in BATCH_AXES for a in axes):
-            t = coll.all_gather(t, mesh, axes, d)
+            if any(mesh.shape[a] > 1 for a in axes):
+                with torch.profiler.record_function("fsdp_gather"):
+                    t = coll.all_gather(t, mesh, axes, d)
         elif any(a in BATCH_AXES for a in axes):
             raise ValueError(f"dim {d} of spec {spec} mixes batch and model "
                              f"axes")

@@ -286,3 +286,67 @@ def mutant_cases():
              f"/sub0/mamba", mutant)
             for arch in ("mamba2_370m", "jamba_v0_1_52b")
             for shape, bs in PIECE_MESHES for mutant in SSM_MUTANTS]
+
+
+# ------------------------------------------------------------ train step
+
+#: the dense and sliding-window families of prefill and training on a mesh
+TRAIN_ARCHES = ("granite_3_2b", "llama3_2_3b", "qwen1_5_110b",
+                "h2o_danube_3_4b")
+#: the 4-rank world's meshes, then the 8-rank world's
+TRAIN_MESHES = ((1, 4), (2, 2), (2, 4), (4, 2))
+#: the embedding of each arch: the masked lookup psummed over ``model``
+#: (llama, qwen1.5: their vocabulary of 256 splits) or the gather
+TRAIN_EMBED = {"granite_3_2b": "gather", "llama3_2_3b": "psum",
+               "qwen1_5_110b": "psum", "h2o_danube_3_4b": "gather"}
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_ACCUM = 8, 64, 2
+#: bf16 prefill: 96 positions take the reference's chunked branch
+#: (granite; danube's banded one, 96 a multiple of its window), where its
+#: bf16 P is not rounded (ROADMAP queue 3)
+BF16_ARCHES, BF16_SEQ = ("granite_3_2b", "h2o_danube_3_4b"), 96
+
+
+def train_key(arch, shape):
+    return f"{arch}/{shape[0]}x{shape[1]}"
+
+
+def train_cases():
+    """``(key, arch, shape, embed_impl)`` of every arch on every mesh."""
+    return [(train_key(a, s), a, s, TRAIN_EMBED[a])
+            for a in TRAIN_ARCHES for s in TRAIN_MESHES]
+
+
+def bf16_cases():
+    """``(key, arch, shape)`` of the bf16 prefill runs."""
+    return [(train_key(a, s), a, s) for a in BF16_ARCHES
+            for s in TRAIN_MESHES]
+
+
+#: wrong versions of the mesh train step the checks must reject: the
+#: gradient without the psum over ``model`` of a replicated activation's
+#: gradient, the loss over each rank's own mask sum, and microbatches cut
+#: from each rank's own rows; each on the cases where it changes a number
+TRAIN_MUTANTS = (("no_model_psum", "granite_3_2b/1x4"),
+                 ("no_model_psum", "llama3_2_3b/2x2"),
+                 ("no_model_psum", "qwen1_5_110b/2x2"),
+                 ("own_mask_sum", "granite_3_2b/2x2"),
+                 ("own_mask_sum", "qwen1_5_110b/4x2"),
+                 ("own_rows_microbatches", "h2o_danube_3_4b/2x2"),
+                 ("own_rows_microbatches", "llama3_2_3b/4x2"))
+
+
+def train_inputs(cfg, seed=0):
+    """A train batch (``tokens``, ``targets``, ``loss_mask``) of
+    ``TRAIN_BATCH`` x ``TRAIN_SEQ`` whose mask is not uniform across rows
+    (row r's first 4 r positions and a fifth of the rest masked, so every
+    rank's rows weigh differently), and the bf16 prefill's tokens."""
+    rng = np.random.default_rng(seed + 3)
+    b, s = TRAIN_BATCH, TRAIN_SEQ
+    rows = rng.integers(0, cfg.vocab_size, (b, s + 1)).astype(np.int32)
+    mask = (rng.random((b, s)) > 0.2).astype(np.float32)
+    for r in range(b):
+        mask[r, :4 * r] = 0.0
+    return {"tokens": rows[:, :-1], "targets": rows[:, 1:],
+            "loss_mask": mask,
+            "prefill16": rng.integers(0, cfg.vocab_size,
+                                      (b, BF16_SEQ)).astype(np.int32)}

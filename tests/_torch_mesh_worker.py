@@ -373,6 +373,123 @@ def _family_pieces(world, workdir):
     return out
 
 
+def _train_run(arch, mesh, embed, workdir, dtype, mutant=None):
+    """``arch``'s smoke config in ``dtype`` on ``mesh``, every result
+    gathered whole: the loss, metrics and every gradient leaf of
+    ``loss_fn`` over the whole batch (``accumulate_grads`` then
+    ``sync_grads``, the train step's own parts), and one
+    ``make_train_step`` step at ``TRAIN_ACCUM`` (its metrics, the
+    gradient it hands AdamW and the updated parameters).  ``mutant``
+    replaces one part by a wrong one (``cases.TRAIN_MUTANTS``)."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch import steps
+    from repro_torch.models import model as mdl
+    from repro_torch.models.blocks import (shard_params, tree_leaves,
+                                           tree_map, unflatten)
+    from repro_torch.optim import adamw
+    from repro_torch.parallel import sharding as shd
+    cfg = get_config(arch, smoke=True).replace(
+        compute_dtype=str(dtype)[6:], embed_impl=embed)
+    data = np.load(os.path.join(workdir, f"train_{arch}.npz"))
+    whole = unflatten({k[2:]: torch.from_numpy(data[k]).to(dtype)
+                       for k in data if k.startswith("p:")})
+    defs = mdl.model_defs(cfg)
+    specs = mdl.train_specs(cfg, mesh)
+    rows = (mdl._bspec(mesh), None)
+    batch = {k: shd.shard(torch.from_numpy(data[k]), rows, mesh)
+             for k in ("tokens", "targets", "loss_mask")}
+    batch["loss_mask"] = batch["loss_mask"].to(dtype)
+
+    def gather(tree):
+        return {n: shd.gather(t, sp, mesh).double().numpy().copy()
+                for (n, t), (_, sp) in zip(tree_leaves(tree),
+                                           tree_leaves(specs))}
+
+    saved, seen, apply = {}, [], adamw.apply
+
+    def recorded(opt_cfg, params, state, grads, **kw):
+        seen.append(gather(grads))
+        return apply(opt_cfg, params, state, grads, **kw)
+    wrong = {"no_model_psum": (coll, "grad_psum", lambda x, mesh, axes: x),
+             "own_mask_sum": (mdl, "_mask_total",
+                              lambda mask, mesh, axes: mask.sum()),
+             "own_rows_microbatches": (steps, "microbatches", _own_rows)}
+    patches = [(adamw, "apply", recorded)]
+    if mutant:
+        patches.append(wrong[mutant])
+    for module, name, fn in patches:
+        saved[(module, name)] = getattr(module, name)
+        setattr(module, name, fn)
+    try:
+        params = shard_params(whole, defs, shd.ShardingPlan(mesh), mesh)
+        grads = tree_map(torch.zeros_like, params)
+        metrics = steps.accumulate_grads(params, batch, cfg, grads,
+                                         mesh=mesh, device="cpu")
+        steps.sync_grads(grads, specs, mesh)
+        step = steps.make_train_step(
+            cfg, adamw.AdamWConfig(warmup_steps=1), cases.TRAIN_ACCUM,
+            mesh=mesh)
+        new_p, _, step_m = step(params, adamw.init(params), batch)
+    finally:
+        for (module, name), fn in saved.items():
+            setattr(module, name, fn)
+    return {"metrics": {k: float(v) for k, v in metrics.items()},
+            "grads": gather(grads),
+            "step": {"metrics": {k: float(v) for k, v in step_m.items()},
+                     "grads": seen[0], "params": gather(new_p)}}
+
+
+def _own_rows(batch, accum, mesh):
+    """Microbatches cut from this rank's own rows (a mutant)."""
+    n = len(batch["tokens"]) // accum
+    return [{k: v[i * n:(i + 1) * n] for k, v in batch.items()}
+            for i in range(accum)]
+
+
+def job_train(rank, world, workdir):
+    """Each train case of this world's meshes: ``_train_run`` in float32
+    and float64, the prefill step's last-position logits in float32 (and
+    bf16 for ``cases.bf16_cases``), and the mutants of
+    ``cases.TRAIN_MUTANTS``."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch import steps
+    from repro_torch.models import model as mdl
+    from repro_torch.models.blocks import shard_params, unflatten
+    from repro_torch.parallel import sharding as shd
+    meshes, out = {}, {}
+    bf16 = {key for key, _, _ in cases.bf16_cases()}
+    for key, arch, shape, embed in cases.train_cases():
+        if shape[0] * shape[1] != world:
+            continue
+        if shape not in meshes:
+            meshes[shape] = make_mesh(shape, ("data", "model"), device="cpu")
+        mesh = meshes[shape]
+        res = {dt: _train_run(arch, mesh, embed, workdir, getattr(torch, dt))
+               for dt in ("float32", "float64")}
+        data = np.load(os.path.join(workdir, f"train_{arch}.npz"))
+        whole = unflatten({k[2:]: torch.from_numpy(data[k]) for k in data
+                           if k.startswith("p:")})
+        rows = (mdl._bspec(mesh), None)
+        for dt, toks in (("float32", "tokens"), ("bfloat16", "prefill16")):
+            if dt == "bfloat16" and key not in bf16:
+                continue
+            cfg = get_config(arch, smoke=True).replace(compute_dtype=dt,
+                                                       embed_impl=embed)
+            params = shard_params(whole, mdl.model_defs(cfg),
+                                  shd.ShardingPlan(mesh), mesh)
+            logits = steps.make_prefill_step(cfg, mesh=mesh)(
+                params, {"tokens": shd.shard(torch.from_numpy(data[toks]),
+                                             rows, mesh)})
+            res[f"prefill_{dt}"] = shd.gather(logits, rows + (None,),
+                                              mesh).numpy()
+        for mutant, mkey in cases.TRAIN_MUTANTS:
+            if mkey == key:
+                res[mutant] = _train_run(arch, mesh, embed, workdir,
+                                         torch.float32, mutant)
+        out[key] = res
+    return out
+
+
 def job_ckpt_save(rank, world, workdir):
     """Shard a granite smoke tree on a (2, 2) mesh, gather it whole and
     write it from rank 0 (a checkpoint written on 4 ranks)."""

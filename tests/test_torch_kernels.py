@@ -1245,6 +1245,214 @@ def test_cuda_flash_attention_rescale_is_exact_at_large_logits():
                                atol=tol)
 
 
+#: query rows at a global offset (the sequence-parallel attention of a
+#: mesh: each model rank's block of rows against the whole K/V):
+#: (B, S, H, KVH, D, blocks, causal, window); the sequence is cut into
+#: ``blocks`` blocks of rows, block i at q_offset i S / blocks.  llama's
+#: 3/1 heads, granite's 4/2 with danube's window of 32, a window that
+#: straddles the blocks, bidirectional with a window, and three blocks
+#: whose offsets are not a multiple of the kernels' tiles
+Q_OFFSET_CASES = [(2, 64, 3, 1, 16, 4, True, 0),
+                  (2, 64, 4, 2, 16, 4, True, 32),
+                  (1, 96, 4, 2, 16, 4, True, 40),
+                  (1, 96, 4, 2, 16, 2, False, 24),
+                  (1, 150, 8, 2, 32, 3, True, 0)]
+#: the reference's ``dense_attention`` and ``chunked_attention`` take q
+#: and k to float32 for the logits even under ``jax.enable_x64``, so a
+#: float64 input is held to them at the float32 band too
+Q_OFFSET_TOL = {"float32": 2e-5, "float64": 2e-5}
+
+
+def q_offset_blocks(case, dtype, seed=3):
+    """Whole q, k, v (torch, ``dtype``) of a ``Q_OFFSET_CASES`` case and
+    its blocks of query rows: ``[(q_offset, rows)]``."""
+    b, s, h, kvh, d, n = case[:6]
+    rng = np.random.default_rng(seed)
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape)).to(dtype)
+               for shape in ((b, s, h, d), (b, s, kvh, d), (b, s, kvh, d)))
+    rows = s // n
+    return q, k, v, [(i * rows, slice(i * rows, (i + 1) * rows))
+                     for i in range(n)]
+
+
+@pytest.mark.parametrize("case", Q_OFFSET_CASES)
+@pytest.mark.parametrize("dtype_name", sorted(Q_OFFSET_TOL))
+def test_mha_q_offset_matches_reference(case, dtype_name):
+    """Each block of query rows at its ``q_offset``: the plain version's
+    forward against the reference's ``dense_attention(q_offset=)`` and,
+    without a window, ``chunked_attention(q_offset=)`` (the two branches
+    of its sequence-parallel call), and ``mha_backward(q_offset=)``
+    against ``jax.vjp`` of ``dense_attention``, in float32 and float64
+    (the reference under ``jax.enable_x64``)."""
+    from repro.models import attention as ref_attn
+    causal, window = case[6], case[7]
+    tol = Q_OFFSET_TOL[dtype_name]
+    dtype = getattr(torch, dtype_name)
+    q, k, v, blocks = q_offset_blocks(case, dtype)
+    rng = np.random.default_rng(4)
+    with jax.enable_x64(dtype_name == "float64"):
+        jk, jv = jnp.asarray(k.numpy()), jnp.asarray(v.numpy())
+        for off, rows in blocks:
+            qb = q[:, rows].contiguous()
+            jq = jnp.asarray(qb.numpy())
+            got = ref.mha_reference(qb, k, v, causal=causal, window=window,
+                                    q_offset=off)
+
+            def dense(a, b_, c):
+                return ref_attn.dense_attention(a, b_, c, causal=causal,
+                                                window=window, q_offset=off)
+            want, vjp = jax.vjp(dense, jq, jk, jv)
+            np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                       rtol=tol, atol=tol)
+            if not window:
+                chunked = ref_attn.chunked_attention(
+                    jq, jk, jv, causal=causal, kv_chunk=16, q_offset=off)
+                np.testing.assert_allclose(got.numpy(), np.asarray(chunked),
+                                           rtol=tol, atol=tol)
+            dout = rng.standard_normal(qb.shape)
+            grads = ref.mha_backward(qb, k, v, got, torch.from_numpy(
+                dout).to(dtype), causal=causal, window=window, q_offset=off)
+            for g, w in zip(grads, vjp(jnp.asarray(dout, jq.dtype))):
+                np.testing.assert_allclose(g.numpy(), np.asarray(w),
+                                           rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("case", Q_OFFSET_CASES)
+def test_q_offset_blocks_are_the_whole_call(case):
+    """The blocks of query rows, each at its offset, concatenated, are the
+    whole call (float64): forward, dq, and dk and dv summed over the
+    blocks (each block's keys get the gradient of its rows)."""
+    causal, window = case[6], case[7]
+    q, k, v, blocks = q_offset_blocks(case, torch.float64)
+    whole = ref.mha_reference(q, k, v, causal=causal, window=window)
+    dout = torch.from_numpy(np.random.default_rng(5).standard_normal(
+        q.shape))
+    dq, dk, dv = ref.mha_backward(q, k, v, whole, dout, causal=causal,
+                                  window=window)
+    parts, dq_parts = [], []
+    dk_sum, dv_sum = torch.zeros_like(k), torch.zeros_like(v)
+    for off, rows in blocks:
+        qb = q[:, rows].contiguous()
+        out = ops.flash_attention(qb, k, v, causal=causal, window=window,
+                                  q_offset=off)
+        parts.append(out)
+        g = ref.mha_backward(qb, k, v, out, dout[:, rows].contiguous(),
+                             causal=causal, window=window, q_offset=off)
+        dq_parts.append(g[0])
+        dk_sum += g[1]
+        dv_sum += g[2]
+    torch.testing.assert_close(torch.cat(parts, 1), whole, rtol=1e-12,
+                               atol=1e-12)
+    torch.testing.assert_close(torch.cat(dq_parts, 1), dq, rtol=1e-12,
+                               atol=1e-12)
+    torch.testing.assert_close(dk_sum, dk, rtol=1e-12, atol=1e-12)
+    torch.testing.assert_close(dv_sum, dv, rtol=1e-12, atol=1e-12)
+
+
+def test_flash_attention_q_offset_zero_is_the_call_without_it():
+    """``q_offset=0`` is the call without it, bit for bit, forward and
+    backward; a negative offset is refused before any launch."""
+    q, k, v = map(torch.from_numpy, attn_problem(ATTN_CASES[3]))
+    for causal, window in ((True, 0), (True, 128), (False, 0)):
+        a = ops.flash_attention(q, k, v, causal=causal, window=window)
+        b = ops.flash_attention(q, k, v, causal=causal, window=window,
+                                q_offset=0)
+        assert torch.equal(a, b)
+        da = ref.mha_backward(q, k, v, a, q, causal=causal, window=window)
+        db = ref.mha_backward(q, k, v, a, q, causal=causal, window=window,
+                              q_offset=0)
+        assert all(torch.equal(x, y) for x, y in zip(da, db))
+    with pytest.raises(ValueError, match="q_offset"):
+        fa._check(q, k, v, 0, -1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", Q_OFFSET_CASES)
+@pytest.mark.parametrize("dtype_name", sorted(ATTN_DTYPES))
+def test_cuda_flash_attention_q_offset_matches_plain_on_card(case,
+                                                             dtype_name):
+    """Each block of rows at its offset through the kernel (wgmma for
+    bf16, SIMT for float32) against the plain version on the same block,
+    at the kernel tests' bands; the blocks together against one whole
+    call of the kernel at the same band."""
+    _card()
+    _, t_dt, tol = ATTN_DTYPES[dtype_name]
+    causal, window = case[6], case[7]
+    q, k, v, blocks = q_offset_blocks(case, torch.float32)
+    q, k, v = (t.cuda().to(t_dt) for t in (q, k, v))
+    parts = []
+    for off, rows in blocks:
+        qb = q[:, rows].contiguous()
+        got = ops.flash_attention(qb, k, v, causal=causal, window=window,
+                                  q_offset=off)
+        want = ref.mha_reference(qb, k, v, causal=causal, window=window,
+                                 q_offset=off)
+        torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                                   atol=tol)
+        parts.append(got)
+    whole = ops.flash_attention(q, k, v, causal=causal, window=window)
+    torch.testing.assert_close(torch.cat(parts, 1).float(), whole.float(),
+                               rtol=tol, atol=tol)
+
+
+@pytest.mark.gpu
+def test_cuda_wide_mm_gradient_is_the_products_in_the_inputs_dtype():
+    """``blocks.wide_mm`` on the card (a float32 product of bf16 inputs,
+    the partial sums a mesh all-reduces) has the gradient of the bf16
+    product, bit for bit: ``torch.mm(out_dtype=)`` has no derivative of
+    its own."""
+    _card()
+    from repro_torch.models.blocks import wide_mm
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    a, b = (torch.randn(shape, generator=gen, device="cuda").bfloat16()
+            for shape in ((2, 96, 64), (64, 80)))
+    g = torch.randn((2, 96, 80), generator=gen, device="cuda").bfloat16()
+    ins = [t.clone().requires_grad_() for t in (a, b)]
+    out = wide_mm(*ins)
+    assert out.dtype == torch.float32
+    got = torch.autograd.grad(out, ins, g.float())
+    ref_ins = [t.clone().requires_grad_() for t in (a, b)]
+    want = torch.autograd.grad(ref_ins[0] @ ref_ins[1], ref_ins, g)
+    assert all(torch.equal(x, y) for x, y in zip(got, want))
+
+
+#: the families whose prefill and training on a mesh are not ported yet
+MESH_LATER = ("mixtral_8x7b", "mamba2_370m", "jamba_v0_1_52b",
+              "whisper_medium", "internvl2_26b")
+
+
+@pytest.mark.parametrize("arch", MESH_LATER)
+def test_training_and_prefill_on_a_mesh_raise_for_the_other_families(arch):
+    """MoE, Mamba-2, the hybrid, the encoder-decoder and the VLM raise
+    ``NotImplementedError`` naming ROADMAP queue 1 item 8 on a 4-rank
+    mesh, from ``forward_hidden`` and ``loss_fn`` before any work (no
+    process group is touched), and from the train and prefill steps when
+    they are made."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch import mesh as port_mesh
+    from repro_torch.launch import steps as port_steps
+    from repro_torch.models import model as port_model
+    from repro_torch.optim import adamw
+    cfg = get_config(arch, smoke=True)
+    mesh = port_mesh.Mesh(("data", "model"), (1, 4), coords=(0, 0),
+                          lines=((0,), (0, 1, 2, 3)), groups=(None, None),
+                          device=torch.device("cpu"))
+    model = port_model.Model(cfg, device="cpu")
+    tokens = torch.zeros((1, 16), dtype=torch.long)
+    batch = {"tokens": tokens, "targets": tokens}
+    calls = [lambda: port_model.forward_hidden(model.params, batch, cfg,
+                                               mesh=mesh),
+             lambda: port_model.loss_fn(model.params, batch, cfg, mesh=mesh),
+             lambda: port_steps.make_prefill_step(cfg, mesh=mesh)(
+                 model.params, batch),
+             lambda: port_steps.make_train_step(cfg, mesh=mesh)(
+                 model.params, adamw.init(model.params), batch)]
+    for call in calls:
+        with pytest.raises(NotImplementedError,
+                           match="ROADMAP queue 1 item 8"):
+            call()
+
+
 # ================================================================ ssd scan
 
 #: tests/test_kernels.py's SSD_CASES, then mamba2_370m's head shape

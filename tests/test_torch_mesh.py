@@ -440,6 +440,23 @@ import repro_torch.core.collectives, repro_torch.parallel.pipeline
 import repro_torch.runtime.elastic, repro_torch.launch.steps
 import repro_torch.models.model, repro_torch.checkpoint.sharded
 import repro_torch.models.moe, repro_torch.models.ssm
+import repro_torch.optim.adamw, repro_torch.kernels.flash_attention
+# the mesh train and prefill steps run on a (1, 1) mesh
+import torch
+from repro_torch.configs.base import get_config
+from repro_torch.launch.mesh import single_device_mesh
+from repro_torch.launch.steps import make_prefill_step, make_train_step
+from repro_torch.models.model import Model
+from repro_torch.optim import adamw
+cfg = get_config("llama3_2_3b", smoke=True).replace(compute_dtype="float32")
+mesh = single_device_mesh(device="cpu")
+params = Model(cfg, device="cpu").params
+toks = torch.arange(32).reshape(2, 16) % cfg.vocab_size
+_, _, metrics = make_train_step(cfg, mesh=mesh)(
+    params, adamw.init(params), {"tokens": toks, "targets": toks})
+assert torch.isfinite(metrics["loss"])
+assert make_prefill_step(cfg, mesh=mesh)(params, {"tokens": toks}).shape \
+    == (2, 1, cfg.vocab_size)
 assert not any(m == "jax" or m.startswith(("jax.", "repro."))
                for m in sys.modules)
 print("ok")

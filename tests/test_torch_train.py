@@ -630,11 +630,11 @@ def test_train_step_matches_reference_through_its_gradient(arch,
                                     for k, v in batch.items()})
     seen, apply = [], adamw.apply
 
-    def recorded(opt_cfg, params, state, grads):
+    def recorded(opt_cfg, params, state, grads, **kw):
         # a copy: apply scales the gradient by the clip factor in place
         seen.append({k: g.detach().double().clone().numpy()
                      for k, g in port_blocks.tree_leaves(grads)})
-        return apply(opt_cfg, params, state, grads)
+        return apply(opt_cfg, params, state, grads, **kw)
     monkeypatch.setattr(adamw, "apply", recorded)
     out = {}
     for dtype in (torch.float32, torch.float64):

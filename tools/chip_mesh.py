@@ -1,5 +1,5 @@
-"""Four-card runs of the port's serve step on a mesh, its collectives and
-its pipeline.
+"""Four-card runs of the port's serve step on a mesh, its collectives, its
+pipeline, and its prefill and train steps on a mesh.
 
 On a machine with four CUDA cards:
 
@@ -84,6 +84,29 @@ recorded.
    is one 8-layer pattern block in float32 at 4,096 slots (the whole
    cache would not fit one card in float32); 4 launches a rank and step.
 
+10. ``prefill_pieces``: qwen1_5_110b's layer 0 at full width on (1, 4),
+    the prefill's attention sublayer (16 of 64 q heads and 2 of 8 kv
+    heads a rank, ``wo``'s float32 partial sums all-reduced) and MLP
+    against the whole sublayer on every rank: bf16 at 1 x 32,768, float32
+    at 1 x 4,096, within the band of the output's largest magnitude.
+11. ``prefill_qwen``: qwen1_5_110b whole (80 layers) on (1, 4), its bf16
+    weights placed as ``qwen``'s (55.6 GB a rank), one prompt of 32,768
+    tokens through ``make_prefill_step(mesh=)``: two timed calls, one
+    profiled.  Gates: finite last-position logits, the same on every
+    rank.  Recorded: ms, prompt tok/s, resident and peak GB a rank, NCCL
+    ms and ``TRAIN_RANGES``.
+12. ``train_granite22``: granite_3_2b on (2, 2) at 4 x 4096 (2 rows a
+    data rank), accum 2.  Gate: the float32 cut to 2 layers, one step
+    against the same step on rank 0 alone (``gate_faults``), and the two
+    ``WRONG_STEPS`` on the same cut, which it must reject.  Then all 40
+    layers in bf16 compute, 3 steps and one profiled: ms a step, tok/s,
+    mfu, peak GB a rank, NCCL ms, the compute stream's idle share and
+    ``TRAIN_RANGES``; finite losses.
+13. ``train_qwen22``: qwen1_5_110b at full width cut to 2 layers (5.21 B
+    parameters, 83.3 GB of float32 state: no one card holds it) on (2,
+    2), the same batch and numbers.  Gates: finite losses, every rank's
+    ``grad_norm`` equal.
+
 Four cards for the new families alone (~10 min of command):
 
     python3 -m torch.distributed.run --standalone --nproc-per-node 4 \\
@@ -104,17 +127,20 @@ import torch.distributed as dist
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.join(REPO, "src"))
+sys.path.insert(0, REPO)          # chip_smoke.model_flops
 
 from repro_torch.configs.base import get_config  # noqa: E402
 from repro_torch.core import collectives as coll  # noqa: E402
+from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import flash_decode as fd  # noqa: E402
 from repro_torch.launch.mesh import make_mesh, single_device_mesh  # noqa: E402
 from repro_torch.launch.steps import make_serve_step  # noqa: E402
 from repro_torch.models import model as mdl  # noqa: E402
 from repro_torch.models import attention as attn  # noqa: E402
 from repro_torch.models import ssm as ssm_mod  # noqa: E402
-from repro_torch.models.blocks import (init_sharded_params, param_specs,  # noqa: E402
-                                       rms_norm, tree_leaves, tree_map)
+from repro_torch.models.blocks import (count_params, init_sharded_params,  # noqa: E402
+                                       param_specs, rms_norm, tree_leaves,
+                                       tree_map)
 from repro_torch.parallel import sharding as shd  # noqa: E402
 from repro_torch.parallel.pipeline import pipeline, pipeline_stages  # noqa: E402
 
@@ -134,7 +160,14 @@ FULL = dict(qwen=dict(arch="qwen1_5_110b", smoke=False, batch=4, seq=32768,
                          cut_layers=2, cut_seq=32768, cut_fill=32752),
             jamba=dict(arch="jamba_v0_1_52b", smoke=False, batch=128,
                        seq=32768, fill=32752, steps=16, profile=(12, 4),
-                       cut_layers=8, cut_seq=4096, cut_fill=4000))
+                       cut_layers=8, cut_seq=4096, cut_fill=4000),
+            train_granite22=dict(arch="granite_3_2b", smoke=False, batch=4,
+                                 seq=4096, accum=2, steps=3),
+            train_qwen22=dict(arch="qwen1_5_110b", smoke=False, layers=2,
+                              batch=4, seq=4096, accum=2, steps=3),
+            prefill_qwen=dict(arch="qwen1_5_110b", smoke=False, seq=32768),
+            prefill_pieces=dict(arch="qwen1_5_110b", smoke=False,
+                                seq16=32768, seq32=4096))
 SMALL = dict(qwen=dict(arch="qwen1_5_110b", smoke=True, batch=4, seq=64,
                        fills=(21, 60), steps=4, profile=None),
              granite=dict(arch="granite_3_2b", smoke=True, batch=8, seq=64,
@@ -146,7 +179,14 @@ SMALL = dict(qwen=dict(arch="qwen1_5_110b", smoke=True, batch=4, seq=64,
                           cut_seq=64, cut_fill=60),
              jamba=dict(arch="jamba_v0_1_52b", smoke=True, batch=8, seq=64,
                         fill=60, steps=4, profile=None, cut_layers=8,
-                        cut_seq=64, cut_fill=40))
+                        cut_seq=64, cut_fill=40),
+             train_granite22=dict(arch="granite_3_2b", smoke=True, batch=4,
+                                  seq=64, accum=2, steps=2),
+             train_qwen22=dict(arch="qwen1_5_110b", smoke=True, layers=2,
+                               batch=4, seq=64, accum=2, steps=2),
+             prefill_qwen=dict(arch="qwen1_5_110b", smoke=True, seq=64),
+             prefill_pieces=dict(arch="qwen1_5_110b", smoke=True, seq16=64,
+                                 seq32=32))
 
 
 def log(*parts):
@@ -262,9 +302,23 @@ def decode_run(step_fn, params, caches, toks, start, mesh, tok_spec,
 #: the profiler ranges of the mesh path's combines: the split-KV merge
 #: and the MoE's many-to-one sum
 RANGES = ("softmax_combine", "moe_combine")
+#: the ranges of the mesh train and prefill steps: the FSDP gathers, the
+#: psums over ``model`` of the products' partial sums, the psum of a
+#: replicated activation's gradient over ``model`` (``grad_psum``'s
+#: backward), the FSDP gathers' gradient reduce-scatters, the all-reduce
+#: of the gradients of leaves replicated over the batch axes, and AdamW
+TRAIN_RANGES = ("fsdp_gather", "model_psum", "grad_psum",
+                "grad_reduce_scatter", "train_step.grad_sync",
+                "train_step.adamw")
 
 
-def profile_summary(prof, wall_ms, steps):
+def _short(name):
+    """A range's key in a summary: the combines' first word, else the
+    name."""
+    return name.split("_")[0] if name in RANGES else name.replace(".", "_")
+
+
+def profile_summary(prof, wall_ms, steps, ranges=RANGES):
     """From a trace of ``steps`` steps taking ``wall_ms`` in all: the
     device's compute ms a step (its own events, NCCL's kernels apart:
     they spin while a rank waits for the others, on a stream of their
@@ -279,7 +333,7 @@ def profile_summary(prof, wall_ms, steps):
     # kernels a second time
     dev = sorted(((a.key, a.self_device_time_total / 1e3, a.count)
                   for a in avgs if a.device_type != DeviceType.CPU
-                  and a.key not in RANGES), key=lambda r: -r[1])
+                  and a.key not in ranges), key=lambda r: -r[1])
     nccl = sum(r[1] for r in dev if "nccl" in r[0].lower())
     busy = sum(r[1] for r in dev) - nccl
     host = sorted(((a.key, a.self_cpu_time_total / 1e3 / steps, a.count)
@@ -295,10 +349,10 @@ def profile_summary(prof, wall_ms, steps):
            "nccl_device_ms_per_step": nccl / steps,
            "compute_idle_share": 1 - busy / wall_ms if busy else None,
            "top_device_ms": dev[:10]}
-    for name in RANGES:
+    for name in ranges:
         rows = [a for a in avgs
                 if a.device_type == DeviceType.CPU and a.key == name]
-        short = name.split("_")[0]
+        short = _short(name)
         for side, attr in (("device", "device_time_total"),
                            ("host", "cpu_time_total")):
             ms = sum(getattr(a, attr) for a in rows) / 1e3 / steps
@@ -307,7 +361,7 @@ def profile_summary(prof, wall_ms, steps):
     return out
 
 
-def profile_line(prof):
+def profile_line(prof, ranges=RANGES):
     """The log line of a ``profile_summary``."""
     return (f"wall {prof['wall_ms_per_step']:.3f} ms/step, device compute "
             f"{prof['device_compute_ms_per_step']:.3f} (idle share "
@@ -318,7 +372,7 @@ def profile_line(prof):
                 f"({prof[s + '_device_share_of_wall']:.4f} of the wall), "
                 f"host {prof[s + '_host_ms_per_step']:.3f} "
                 f"({prof[s + '_host_share_of_wall']:.4f})"
-                for r, s in ((r, r.split('_')[0]) for r in RANGES))
+                for r, s in ((r, _short(r)) for r in ranges))
             + f"; top host {prof['top_host_ms'][:4]}")
 
 
@@ -1027,13 +1081,430 @@ def pipeline_phase(dev_kind):
                          "ok": ok}}
 
 
+# ------------------------------------------------------- train, prefill
+
+#: the float32 gate of a mesh train step against rank 0 alone
+#: (``tests/test_torch_train.py``'s ``TOL`` and ``ORACLE_FACTOR``)
+TRAIN_TOL, ORACLE_FACTOR = 1e-4, 8.0
+#: the most of a step's updated elements the float64 rule may excuse:
+#: 0.101 measured on the float32 2-layer granite cut at full width on
+#: four H100s, with room above it
+NOISE_CAP = 0.2
+#: wrong mesh steps that the train gate must reject: the ``model`` psum of
+#: a replicated activation's gradient left out, and the loss over each
+#: rank's own mask sum (as ``tests/_torch_mesh_worker.py``'s mutants)
+WRONG_STEPS = {"no_model_psum": (coll, "grad_psum",
+                                 lambda x, mesh, axes: x),
+               "own_mask_sum": (mdl, "_mask_total",
+                                lambda mask, mesh, axes: mask.sum())}
+#: the card's bf16 peak (dense, H100 SXM), for mfu
+PEAK_BF16 = 989e12
+
+
+def train_batch(cfg, batch, seq, mesh, seed):
+    """A global train batch drawn whole from a generator seeded by
+    ``seed`` on the rank's device (the same bits on any mesh): tokens,
+    targets (the tokens shifted by one) and a loss mask of ones but for
+    the first quarter of row 0; and this rank's block of its rows."""
+    gen = torch.Generator(device=mesh.device).manual_seed(seed)
+    rows = torch.randint(0, cfg.vocab_size, (batch, seq + 1), generator=gen,
+                         device=mesh.device)
+    mask = torch.ones((batch, seq), device=mesh.device)
+    mask[0, :seq // 4] = 0.0
+    whole = {"tokens": rows[:, :-1], "targets": rows[:, 1:],
+             "loss_mask": mask}
+    spec = (mdl._bspec(mesh), None)
+    return whole, {k: shd.shard(v, spec, mesh) for k, v in whole.items()}
+
+
+def gate_step(cfg, mesh, batch, accum, push=0.0, wrong=None):
+    """One ``make_train_step`` step (AdamW warmup 1) from the seed-0
+    float32 state on ``mesh``: its metrics, and the gradient it hands
+    AdamW and the updated parameters gathered whole (on the CPU).
+    ``push`` scales 1% of every leaf's elements by (1 + push) first (a
+    rounding-sized push on one rank alone: the yardstick of how far the
+    gradient moves with a float32 rounding).  ``wrong`` names one of
+    ``WRONG_STEPS`` to put in place of the right part for this step."""
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.optim import adamw
+    defs = mdl.model_defs(cfg)
+    specs = mdl.train_specs(cfg, mesh)
+    params = init_sharded_params(defs, shd.ShardingPlan(mesh), mesh, seed=0,
+                                 dtype=torch.float32)
+    gen = torch.Generator(device=mesh.device).manual_seed(11)
+    for _, t in tree_leaves(params) if push else ():
+        pick = torch.rand(t.shape, generator=gen, device=t.device) < 0.01
+        t.copy_(torch.where(pick, t * (1 + push), t))
+
+    def whole(tree):
+        # a copy: AdamW scales the gradient by the clip factor in place
+        return {n: shd.gather(t, sp, mesh).to("cpu", copy=True)
+                for (n, t), (_, sp) in zip(tree_leaves(tree),
+                                           tree_leaves(specs))}
+    seen, apply = [], adamw.apply
+
+    def recorded(opt_cfg, p, state, grads, **kw):
+        seen.append(whole(grads))
+        return apply(opt_cfg, p, state, grads, **kw)
+    patches = [(adamw, "apply", recorded)]
+    if wrong:
+        patches.append(WRONG_STEPS[wrong])
+    saved = [(module, name, getattr(module, name))
+             for module, name, _ in patches]
+    for module, name, fn in patches:
+        setattr(module, name, fn)
+    try:
+        step = make_train_step(cfg, adamw.AdamWConfig(warmup_steps=1), accum,
+                               mesh=mesh)
+        params, _, m = step(params, adamw.init(params), batch)
+    finally:
+        for module, name, fn in saved:
+            setattr(module, name, fn)
+    return ({k: float(v) for k, v in m.items()}, seen[0], whole(params))
+
+
+def gate_faults(got, want, pushed=None):
+    """Where the (2, 2) step leaves rank 0 alone: the loss and
+    ``grad_norm`` beyond ``TRAIN_TOL``; every updated leaf beyond it
+    outside the elements whose first AdamW step is held by the float64
+    rule of ``tests/test_torch_train.py`` (their gradient nonzero and no
+    larger than the leaf's float32 error, here the largest distance
+    between the two float32 gradients, as no float64 kernel exists on the
+    card: AdamW's g / (|g| + 1e-8) may take either's sign or a size set
+    by the 1e-8); and each gradient leaf's largest distance over its
+    largest magnitude beyond ``ORACLE_FACTOR`` times that of ``pushed``,
+    rank 0 alone from a rounding-sized push (the float32 gradient's own
+    sensitivity).  The share of elements held by the float64 rule must
+    stay within ``NOISE_CAP``: at full width the gradient is
+    ill-conditioned (a 1e-7 push on 1% of the parameters moves it by up
+    to 1e-3 of its largest magnitude), so that share is far above the
+    smoke configs' 1%, and the gradient itself is held to the push as
+    well.  ``WRONG_STEPS`` are the faults this gate must reject."""
+    (m, g, p), (m1, g1, p1) = got, want
+    out = {"metrics": [k for k in ("loss", "grad_norm")
+                       if abs(m[k] - m1[k]) > TRAIN_TOL * (1 + abs(m1[k]))],
+           "leaves": {}, "grad_rel": {}}
+    noise = total = 0
+    for name, w in p1.items():
+        err = float((g[name] - g1[name]).abs().max())
+        out["grad_rel"][name] = err / max(float(g1[name].abs().max()),
+                                          1e-30)
+        kept = (g1[name] == 0) | (g1[name].abs() > err)
+        noise += int((~kept).sum())
+        total += kept.numel()
+        far = (p[name] - w).abs() > TRAIN_TOL * (1 + w.abs())
+        if bool((far & kept).any()):
+            out["leaves"][name] = float((p[name] - w).abs()[kept].max())
+    out["noise_share"] = noise / total
+    if pushed is not None:
+        out["pushed_1e-7_grad_rel"] = gate_faults(pushed, want)["grad_rel"]
+        out["grads"] = {n: r for n, r in out["grad_rel"].items()
+                        if r > ORACLE_FACTOR * max(
+                            out["pushed_1e-7_grad_rel"][n], 1e-7)}
+    out["ok"] = not (out["metrics"] or out["leaves"] or out.get("grads")
+                     or out["noise_share"] > NOISE_CAP)
+    return out
+
+
+def timed_train(cfg, mesh, whole, mine, accum, steps, label):
+    """``steps`` steps of ``make_train_step`` on ``mesh`` from the seed-0
+    float32 state (``init_sharded_params``), then one more under
+    torch.profiler: ms a step (after the first), tok/s, mfu (the
+    one-card train phase's model FLOPs, ``chip_smoke.model_flops``, over
+    four cards' bf16 peak), the steps' peak GB a rank, and the profile
+    (NCCL device ms a step, the compute stream's idle share,
+    ``TRAIN_RANGES``)."""
+    import chip_smoke
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.optim import adamw
+    dev = mesh.device
+    params = init_sharded_params(mdl.model_defs(cfg), shd.ShardingPlan(mesh),
+                                 mesh, seed=0, dtype=torch.float32)
+    state = adamw.init(params)
+    step = make_train_step(cfg, adamw.AdamWConfig(), accum, mesh=mesh)
+    sync(dev)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    fa.reset_launches()
+    losses, norms, ms = [], [], []
+    for _ in range(steps):
+        sync(dev)
+        t0 = time.perf_counter()
+        params, state, m = step(params, state, mine)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+        ms.append((time.perf_counter() - t0) * 1e3)
+    launches = dict(fa.LAUNCHES)
+    prof = torch.profiler.profile(activities=[
+        torch.profiler.ProfilerActivity.CPU,
+        torch.profiler.ProfilerActivity.CUDA])
+    sync(dev)
+    with prof:
+        t0 = time.perf_counter()
+        params, state, m = step(params, state, mine)
+        float(m["loss"])
+        sync(dev)
+        wall = (time.perf_counter() - t0) * 1e3
+    summary = profile_summary(prof, wall, 1, TRAIN_RANGES)
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9 \
+        if dev.type == "cuda" else 0.0
+    b, seq = whole["tokens"].shape
+    flops = chip_smoke.model_flops(cfg, b, seq)
+    step_s = float(np.mean(ms[1:])) / 1e3 if steps > 1 else ms[0] / 1e3
+    norm_all = torch.tensor(norms, device=DEV[0])
+    row = {"arch": cfg.name, "n_layers": cfg.n_layers, "mesh": list(
+        mesh.dims), "batch": b, "seq": seq, "accum": accum,
+        "n_params": count_params(mdl.model_defs(cfg)),
+        "losses": losses, "grad_norms": norms, "ms_per_step_all": ms,
+        "ms_per_step": step_s * 1e3, "tokens_per_s": b * seq / step_s,
+        "model_flops_per_step": flops,
+        "mfu": flops / step_s / (mesh.size * PEAK_BF16),
+        "peak_gb_rank0": peak, "peak_gb_max": None,
+        "grad_norms_equal_on_every_rank": same_on_every_rank(norm_all),
+        "launches": launches, "profile": summary}
+    peaks = torch.tensor([peak], device=DEV[0])
+    dist.all_reduce(peaks, op=dist.ReduceOp.MAX)
+    row["peak_gb_max"] = float(peaks.item())
+    log(f"[{label}] {cfg.name} ({cfg.n_layers} layers, "
+        f"{row['n_params'] / 1e9:.3f} B parameters) on {tuple(mesh.dims)}, "
+        f"{b} x {seq} in {accum} microbatches: losses {losses}, grad norms "
+        f"{norms} (equal on every rank "
+        f"{row['grad_norms_equal_on_every_rank']}), "
+        f"{row['ms_per_step']:.1f} ms a step after the first ({ms}), "
+        f"{row['tokens_per_s']:.1f} tok/s, mfu {row['mfu']:.4f}, peak "
+        f"{row['peak_gb_max']:.2f} GB a rank, launches a rank {launches}; "
+        f"profiled step: {profile_line(summary, TRAIN_RANGES)}")
+    for key, t, n in summary["top_device_ms"]:
+        log(f"[{label}]   device {t:10.3f} ms  {n:6d}x  {key[:90]}")
+    del params, state, step
+    free(dev)
+    return row
+
+
+def wgmma_launches(row, cfg, accum, steps):
+    """Whether a rank launched the attention kernel (the wgmma variant,
+    or nothing on the CPU) twice a layer and microbatch: forward and
+    remat recompute."""
+    want = 2 * cfg.n_layers * accum * steps if DEV[0].type == "cuda" else 0
+    return row["launches"]["flash_attention_wgmma"] == want \
+        and row["launches"]["flash_attention"] == want
+
+
+def train_granite_phase(spec, dev_kind):
+    """granite_3_2b on (2, 2): the float32 cut to 2 layers, one step
+    against the same step on rank 0 alone (the gate); then all 40 layers
+    in bf16 compute, ``steps`` steps and one profiled."""
+    mesh = make_mesh((2, 2), ("data", "model"), device=dev_kind)
+    base = get_config(spec["arch"], smoke=spec["smoke"])
+    b, seq, accum = spec["batch"], spec["seq"], spec["accum"]
+    cut = base.replace(n_layers=2, compute_dtype="float32")
+    whole, mine = train_batch(cut, b, seq, mesh, 4)
+    got = gate_step(cut, mesh, mine, accum)
+    wrong = {name: gate_step(cut, mesh, mine, accum, wrong=name)
+             for name in WRONG_STEPS}
+    out = {}
+    if dist.get_rank() == 0:
+        one = single_device_mesh(device=str(mesh.device))
+        want = gate_step(cut, one, whole, accum)
+        pushed = gate_step(cut, one, whole, accum, push=1e-7)
+        out["gate"] = gate_faults(got, want, pushed)
+        out["wrong_steps"] = {}
+        for name, res in wrong.items():
+            faults = gate_faults(res, want, pushed)
+            out["wrong_steps"][name] = {
+                "rejected": not faults["ok"], "metrics": faults["metrics"],
+                "leaves_off": len(faults["leaves"]),
+                "grad_leaves_off": len(faults["grads"]),
+                "noise_share": faults["noise_share"],
+                "largest_grad_rel": max(faults["grad_rel"].values())}
+            log(f"[train_granite22] wrong step {name} on the float32 cut: "
+                f"{out['wrong_steps'][name]}")
+        del pushed
+        out["gate"].update(loss=got[0]["loss"], loss_alone=want[0]["loss"],
+                           grad_norm=got[0]["grad_norm"],
+                           grad_norm_alone=want[0]["grad_norm"])
+        log(f"[train_granite22] float32 cut to 2 layers on (2, 2) vs rank 0 "
+            f"alone, one step: loss {got[0]['loss']!r} / "
+            f"{want[0]['loss']!r}, grad_norm {got[0]['grad_norm']!r} / "
+            f"{want[0]['grad_norm']!r}, leaves off {out['gate']['leaves']}, "
+            f"gradient leaves off {out['gate']['grads']}, share held by "
+            f"the float64 rule {out['gate']['noise_share']!r}, gradient "
+            f"distance / max by leaf {out['gate']['grad_rel']}; rank 0 alone "
+            f"pushed by 1e-7 on 1% of each leaf: "
+            f"{out['gate']['pushed_1e-7_grad_rel']}")
+        del want
+    del got, wrong
+    free(mesh.device)
+    if not agree(out["gate"]["ok"] if dist.get_rank() == 0 else True):
+        fail("train_granite22: the float32 cut's step left the tolerance "
+             "of rank 0 alone")
+    if not agree(all(w["rejected"] for w in out["wrong_steps"].values())
+                 if dist.get_rank() == 0 else True):
+        fail(f"train_granite22: the gate passed a wrong step "
+             f"{out['wrong_steps']}")
+    whole, mine = train_batch(base, b, seq, mesh, 5)
+    out["run"] = timed_train(base, mesh, whole, mine, accum, spec["steps"],
+                             "train_granite22")
+    if not agree(all(np.isfinite(out["run"]["losses"]))
+                 and wgmma_launches(out["run"], base, accum, spec["steps"])):
+        fail("train_granite22: a loss is not finite or the attention "
+             "kernel's launches are not two a layer and microbatch")
+    return {"train_granite22": out}
+
+
+def train_qwen_phase(spec, dev_kind):
+    """qwen1_5_110b at full width, 2 of its 80 layers, on (2, 2): a train
+    state one card cannot hold.  Gates: finite losses, every rank's
+    ``grad_norm`` equal."""
+    mesh = make_mesh((2, 2), ("data", "model"), device=dev_kind)
+    cfg = get_config(spec["arch"], smoke=spec["smoke"]).replace(
+        n_layers=spec["layers"])
+    whole, mine = train_batch(cfg, spec["batch"], spec["seq"], mesh, 6)
+    row = timed_train(cfg, mesh, whole, mine, spec["accum"], spec["steps"],
+                      "train_qwen22")
+    if not agree(all(np.isfinite(row["losses"]))
+                 and row["grad_norms_equal_on_every_rank"]
+                 and wgmma_launches(row, cfg, spec["accum"], spec["steps"])):
+        fail("train_qwen22: a loss is not finite or the ranks' grad norms "
+             "differ")
+    return {"train_qwen22": row}
+
+
+def prefill_qwen_phase(spec, dev_kind):
+    """qwen1_5_110b whole (80 layers) on (1, 4), bf16 weights placed as
+    the ``qwen`` decode phase places them, one prompt of ``seq`` tokens
+    through ``make_prefill_step``: two timed calls and one profiled.
+    Gates: finite last-position logits, the same on every rank."""
+    from repro_torch.launch.steps import make_prefill_step
+    mesh = make_mesh((1, 4), ("data", "model"), device=dev_kind)
+    dev = mesh.device
+    cfg = get_config(spec["arch"], smoke=spec["smoke"])
+    params = init_sharded_params(mdl.model_defs(cfg), shd.ShardingPlan(mesh),
+                                 mesh, seed=0, dtype=torch.bfloat16)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    toks = torch.randint(0, cfg.vocab_size, (1, spec["seq"]), generator=gen,
+                         device=dev)
+    step = make_prefill_step(cfg, mesh=mesh)
+    sync(dev)
+    resident = torch.cuda.memory_allocated(dev) / 1e9 \
+        if dev.type == "cuda" else 0.0
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    fa.reset_launches()
+    ms = []
+    for _ in range(2):
+        sync(dev)
+        t0 = time.perf_counter()
+        logits = step(params, {"tokens": toks})
+        sync(dev)
+        ms.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9 \
+        if dev.type == "cuda" else 0.0
+    launches = dict(fa.LAUNCHES)
+    prof = torch.profiler.profile(activities=[
+        torch.profiler.ProfilerActivity.CPU,
+        torch.profiler.ProfilerActivity.CUDA])
+    with prof:
+        t0 = time.perf_counter()
+        step(params, {"tokens": toks})
+        sync(dev)
+        wall = (time.perf_counter() - t0) * 1e3
+    summary = profile_summary(prof, wall, 1, TRAIN_RANGES)
+    finite = bool(torch.isfinite(logits).all())
+    same = same_on_every_rank(logits)
+    peaks = torch.tensor([peak], device=DEV[0])
+    dist.all_reduce(peaks, op=dist.ReduceOp.MAX)
+    row = {"arch": cfg.name, "n_layers": cfg.n_layers, "mesh": [1, 4],
+           "prompt": spec["seq"], "ms": ms,
+           "prompt_tokens_per_s": spec["seq"] / (ms[-1] / 1e3),
+           "resident_gb_rank0": resident, "peak_gb_max": float(peaks.item()),
+           "finite": finite, "same_on_every_rank": same,
+           "logits_shape": list(logits.shape), "launches": launches,
+           "profile": summary}
+    log(f"[prefill_qwen] {cfg.name} ({cfg.n_layers} layers) on (1, 4), "
+        f"1 x {spec['seq']}: {ms} ms (the second "
+        f"{row['prompt_tokens_per_s']:.1f} prompt tok/s), resident "
+        f"{resident:.2f} GB, peak {row['peak_gb_max']:.2f} GB a rank, "
+        f"finite {finite}, identical on every rank {same}, launches a rank "
+        f"{launches}; profiled call: "
+        f"{profile_line(summary, TRAIN_RANGES)}")
+    for key, t, n in summary["top_device_ms"]:
+        log(f"[prefill_qwen]   device {t:10.3f} ms  {n:6d}x  {key[:90]}")
+    del params, logits
+    free(dev)
+    want = 2 * cfg.n_layers if dev.type == "cuda" else 0
+    if not agree(finite and same
+                 and launches["flash_attention_wgmma"] == want):
+        fail("prefill_qwen: logits not finite, not the same on every rank, "
+             "or the attention kernel not launched once a layer")
+    return {"prefill_qwen": row}
+
+
+def prefill_pieces_phase(spec, dev_kind):
+    """qwen1.5's layer 0 at full width on (1, 4), the prefill's attention
+    sublayer (the rank's heads, kv heads split, ``wo``'s partial sums
+    all-reduced) and MLP against the same sublayer of the whole layer on
+    every rank, on the same input: bf16 at 1 x ``seq16``, float32 at 1 x
+    ``seq32``, each within the band of the output's largest magnitude
+    (``within_scale``, as ``pieces``)."""
+    base = get_config(spec["arch"], smoke=spec["smoke"]).replace(n_layers=1)
+    mesh = make_mesh((1, 4), ("data", "model"), device=dev_kind)
+    dev = mesh.device
+    rows = []
+    for dt, seq in (("bfloat16", spec["seq16"]), ("float32", spec["seq32"])):
+        cdt = getattr(torch, dt)
+        cfg = base.replace(compute_dtype=dt)
+        defs = mdl.model_defs(cfg)
+        blocks = init_sharded_params(defs, shd.ShardingPlan(mesh), mesh,
+                                     seed=0, dtype=cdt)["blocks"]["sub0"]
+        specs = mdl.train_specs(cfg, mesh)["blocks"]["sub0"]
+        lsp = {part: tree_map(lambda sp: sp[1:], specs[part])
+               for part in ("mixer", "ffn")}
+        mine = {part: tree_map(lambda a: a[0], blocks[part]) for part in lsp}
+        whole = {part: tree_map(lambda a, sp: shd.gather(a, sp, mesh),
+                                mine[part], lsp[part]) for part in lsp}
+        gen = torch.Generator(device=dev).manual_seed(5)
+        x = torch.randn(1, seq, cfg.d_model, device=dev,
+                        generator=gen).to(cdt)
+        pos = torch.arange(seq, device=dev)[None]
+        with torch.no_grad():
+            got = mdl.attn_apply(mine["mixer"], x, cfg, pos,
+                                 window=cfg.window, sp=lsp["mixer"],
+                                 mesh=mesh)
+            want = mdl.attn_apply(whole["mixer"], x, cfg, pos,
+                                  window=cfg.window)
+            rows.append({"sublayer": "attention", "dtype": dt, "seq": seq,
+                         "max_abs_diff": float((got - want).abs().max()),
+                         "max_abs": float(want.abs().max()),
+                         "ok": within_scale(got.float(), want.float())})
+            del got, want
+            got, _ = mdl.ffn_apply(mine["ffn"], x, "mlp", cfg,
+                                   sp=lsp["ffn"], mesh=mesh)
+            want, _ = mdl.ffn_apply(whole["ffn"], x, "mlp", cfg)
+            rows.append({"sublayer": "mlp", "dtype": dt, "seq": seq,
+                         "max_abs_diff": float((got - want).abs().max()),
+                         "max_abs": float(want.abs().max()),
+                         "ok": within_scale(got.float(), want.float())})
+        del blocks, mine, whole, got, want, x
+        free(dev)
+    for r in rows:
+        log(f"[prefill_pieces] qwen1.5 layer 0 {r['sublayer']} {r['dtype']} "
+            f"1 x {r['seq']}: max |diff| {r['max_abs_diff']!r} at max |y| "
+            f"{r['max_abs']!r}, within band {r['ok']}")
+    if not agree(all(r["ok"] for r in rows)):
+        fail("prefill_pieces: a sublayer on 4 ranks left the band of the "
+             "whole")
+    return {"prefill_pieces": rows}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--rehearse", action="store_true",
                     help="gloo ranks on the CPU, smoke configs")
     ap.add_argument("--phases",
                     default="pieces,qwen,granite22,collectives,pipeline,"
-                            "moe_pieces,mixtral,jamba")
+                            "moe_pieces,mixtral,jamba,prefill_pieces,"
+                            "prefill_qwen,train_granite22,train_qwen22")
     ap.add_argument("--out", default=None,
                     help="the result's file name under chiprun_out/")
     args = ap.parse_args()
@@ -1055,8 +1526,9 @@ def main() -> int:
         if dist.get_rank() == 0:
             from repro_torch.kernels import build
             t0 = time.perf_counter()
-            build.build(["flash_decode"])
-            log(f"[build] flash_decode in {time.perf_counter() - t0:.1f} s")
+            build.build(["flash_decode", "flash_attention"])
+            log(f"[build] flash_decode, flash_attention in "
+                f"{time.perf_counter() - t0:.1f} s")
         dist.barrier()
     if dist.get_world_size() != 4:
         raise SystemExit("chip_mesh runs on 4 ranks")
@@ -1090,6 +1562,14 @@ def main() -> int:
                 out.update(collectives_phase(sizes["sizes"], dev_kind))
             elif name == "pipeline":
                 out.update(pipeline_phase(dev_kind))
+            elif name == "train_granite22":
+                out.update(train_granite_phase(sizes[name], dev_kind))
+            elif name == "train_qwen22":
+                out.update(train_qwen_phase(sizes[name], dev_kind))
+            elif name == "prefill_qwen":
+                out.update(prefill_qwen_phase(sizes[name], dev_kind))
+            elif name == "prefill_pieces":
+                out.update(prefill_pieces_phase(sizes[name], dev_kind))
             else:
                 raise ValueError(name)
         except Exception as exc:          # report, and stop every rank
