@@ -73,16 +73,24 @@ version on the card:
      ``Trainer`` (final loss within rtol 1e-6 of the uninterrupted run),
      and the whisper and internvl2 smoke configs for 8 steps of
      ``make_train_step`` on card and CPU (losses within 1e-4);
-   - mesh_prefill, mesh_train: the prefill and train steps on
+   - mesh_prefill, mesh_train (granite_3_2b at 8 layers) and
+     mesh_prefill_<family>,
+     mesh_train_<family> (mamba2_370m whole, mixtral_8x7b at 2 layers,
+     jamba_v0_1_52b cut to the attention, Mamba-2 and MoE sublayers of its
+     pattern's positions 2 and 3, whisper_medium 24 + 24, internvl2_26b
+     at 4 layers; ``MESH_STEPS``): the prefill and train steps on
      ``single_device_mesh`` (the mesh code with every collective on an
-     axis of one rank) against the steps without a mesh, granite_3_2b at
-     full width: prefill 4 x 4096, bit-identical logits; one train step
-     at 2 x 4096 in 2 microbatches from the same seed-0 state,
-     bit-identical loss, ``grad_norm``, the gradient handed to AdamW
-     and every updated parameter and moment (at 40 layers the float32
+     axis of one rank: the MoE's dispatch, the Mamba-2 heads, the
+     encoder and the vision prefix) against the steps without a mesh at
+     full width: prefill 4 x 4096 (internvl2 2 x (256 + 3840), whisper's
+     1024 frames), bit-identical logits; one train step at 2 x 4096 in 2
+     microbatches from the same seed-0 state, bit-identical loss,
+     ``grad_norm``, the gradient handed to AdamW and every updated
+     parameter and moment (at whisper's 48 layers the float32
      ``grad_norm`` overflows, so the clip zeroes the update's gradient
      and the moments: the recorded gradient is what holds the backward);
-     the mesh steps' ``flash_attention`` launches (wgmma) counted alone;
+     each mesh step's ``flash_attention`` and ``ssd_scan`` launches
+     counted alone, every one the tensor-core variant;
    - the packet-vs-flow gates: the packet engine on the host (its wall,
      events/s and the host CPU logged) and the flow engine on the card,
      each flow side one phase:
@@ -337,10 +345,23 @@ PREFILL_CROSS = (("granite_3_2b", 2, 64), ("llama3_2_3b", 2, 64),
                  ("jamba_v0_1_52b", 2, 64), ("whisper_medium", 2, 64),
                  ("internvl2_26b", 2, 64))
 #: the train and prefill steps on ``single_device_mesh`` against the steps
-#: without a mesh, granite_3_2b at full width: (batch, positions,
-#: microbatches) of the train step, (batch, prompt) of the prefill step
-MESH_TRAIN = dict(batch=2, seq=4096, accum=2)
-MESH_PREFILL = dict(batch=4, seq=4096)
+#: without a mesh, at full width: (label suffix, arch, layers (0: the
+#: config's), the prefill's (batch, prompt tokens), the train step's
+#: (batch, positions, microbatches)).  granite is cut to 8 of its 40
+#: layers (whole, its two rows took 51 s of the run) to make room for the
+#: other families in the script's time.  jamba is cut to the two sublayers
+#: of its pattern that hold an attention, a Mamba-2 and a MoE sublayer
+#: (positions 2 and 3; any whole period of 8 holds four MoE sublayers of
+#: 16 experts, whose float32 train state does not fit 80 GB);
+#: internvl2's prompt is 256 vision positions and 3840 tokens
+MESH_STEPS = (("", "granite_3_2b", 8, (4, 4096), (2, 4096, 2)),
+              ("_mamba", "mamba2_370m", 0, (4, 4096), (2, 4096, 2)),
+              ("_mixtral", "mixtral_8x7b", 2, (4, 4096), (2, 4096, 2)),
+              ("_jamba", "jamba_v0_1_52b", 2, (4, 4096), (2, 4096, 2)),
+              ("_whisper", "whisper_medium", 0, (4, 4096), (2, 4096, 2)),
+              ("_internvl2", "internvl2_26b", 4, (2, 3840), (2, 4096, 2)))
+#: jamba's cut of its pattern in ``MESH_STEPS``
+JAMBA_CUT = slice(2, 4)
 #: ``flash_attention`` with ``q_offset``, the sequence-parallel attention
 #: of a mesh's ``model`` ranks: (name, seq, H, KVH, D, window, blocks):
 #: each block's rows at offset i seq / blocks against the whole K/V,
@@ -1913,19 +1934,43 @@ def run_train(phases=TRAIN):
 
 # ---------------------------------------------------------- mesh steps
 
-def mesh_prefill_phase(spec=MESH_PREFILL, label="mesh_prefill"):
-    """granite_3_2b at full width (seed-0 weights, bf16 compute):
-    ``make_prefill_step`` on ``single_device_mesh`` against the step
-    without a mesh on the same prompts: bit-identical logits, one
-    ``flash_attention`` (wgmma) a layer, counted for the mesh step
-    alone."""
+def mesh_cfg(arch, layers):
+    """``arch``'s published config cut to ``layers`` (``MESH_STEPS``;
+    jamba's pattern cut to ``JAMBA_CUT``)."""
     from repro_torch.configs.base import get_config
+    cfg = get_config(arch)
+    if arch == "jamba_v0_1_52b":
+        return cfg.replace(pattern=cfg.pattern[JAMBA_CUT], n_layers=layers)
+    return cfg.replace(n_layers=layers) if layers else cfg
+
+
+def check_launches(label, launches, want):
+    """Fail unless every kernel of ``want`` launched as many times, each
+    launch its tensor-core variant."""
+    if CARD != "cuda":
+        want = {k: 0 for k in want}
+    variant = {"flash_attention": "flash_attention_wgmma",
+               "ssd_scan": "ssd_scan_mma"}
+    for name, n in want.items():
+        for key in (name, variant[name]):
+            if launches[key] != n:
+                fail(f"{label}: {key} launched {launches[key]} times, not "
+                     f"{n}")
+
+
+def mesh_prefill_phase(cfg, batch, seq, label="mesh_prefill"):
+    """``cfg`` at full width (seed-0 weights, bf16 compute):
+    ``make_prefill_step`` on ``single_device_mesh`` against the step
+    without a mesh on the same prompts (``prefill_batch``: ``seq`` tokens
+    after a VLM's prefix, an encoder-decoder's frames): bit-identical
+    logits, one ``flash_attention`` (wgmma) an attention sublayer,
+    cross-attention and encoder layer and one ``ssd_scan`` (mma) a
+    Mamba-2 sublayer, counted for the mesh step alone."""
     from repro_torch.launch.mesh import single_device_mesh
     from repro_torch.launch.steps import make_prefill_step
     from repro_torch.models.model import Model
-    cfg = get_config("granite_3_2b")
     model = Model(cfg, seed=0, device=CARD)
-    inputs = prefill_batch(cfg, spec["batch"], spec["seq"], CARD)
+    inputs = prefill_batch(cfg, batch, seq, CARD)
     torch.cuda.synchronize()
     reset_counts()
     t0 = time.perf_counter()
@@ -1937,46 +1982,42 @@ def mesh_prefill_phase(spec=MESH_PREFILL, label="mesh_prefill"):
     want = make_prefill_step(cfg, device=CARD)(model.params, inputs)
     same = torch.equal(got, want)
     finite = bool(torch.isfinite(got).all())
-    row = {"arch": cfg.name, "n_layers": cfg.n_layers,
-           "batch": spec["batch"], "seq": spec["seq"], "wall_s": wall,
-           "identical_to_no_mesh": same, "logits_finite": finite,
-           "launches": launches}
+    row = {"arch": cfg.name, "n_layers": cfg.n_layers, "batch": batch,
+           "seq": seq, "wall_s": wall, "identical_to_no_mesh": same,
+           "logits_finite": finite, "launches": launches}
     log(f"[paths] {label}: make_prefill_step on single_device_mesh, "
-        f"{cfg.name} ({cfg.n_layers} layers) {spec['batch']} x "
-        f"{spec['seq']}: {wall:.3f} s (the first call), identical to the "
-        f"step without a mesh {same}, finite {finite}, launches {launches}")
-    want_n = cfg.n_layers if CARD == "cuda" else 0
+        f"{cfg.name} ({cfg.n_layers} layers) {batch} x {seq}: {wall:.3f} s "
+        f"(the first call), identical to the step without a mesh {same}, "
+        f"finite {finite}, launches {launches}")
     if not same or not finite:
         fail(f"{label}: identical {same}, finite {finite}")
-    for name in ("flash_attention", "flash_attention_wgmma"):
-        if launches[name] != want_n:
-            fail(f"{label}: {name} launched {launches[name]} times, not "
-                 f"{want_n}")
+    check_launches(label, launches, {
+        k: n for k, n in path_launches(cfg, decode=False).items() if n})
     del model, got, want
     torch.cuda.empty_cache()
     return row
 
 
-def mesh_train_phase(spec=MESH_TRAIN, label="mesh_train"):
-    """granite_3_2b at full width (all 40 layers, seed-0 float32
-    parameters and fresh moments drawn on the card, bf16 compute): one
-    ``make_train_step`` step on ``single_device_mesh`` and one without a
-    mesh from the same state and batch (``train_batches``' first):
-    bit-identical loss, ``grad_norm``, the gradient handed to AdamW and
-    every updated parameter and moment (the mesh run's copied to the
-    host, each leaf of the other compared with it).  The gradient must be
-    finite and nonzero: at 40 layers its float32 norm overflows to inf,
-    the clip factor is 0 and the moments stay zero, so it is the
-    gradient that shows the backward.  The mesh step's launches are counted alone: each
-    attention layer's kernel twice a microbatch (forward and remat
-    recompute), every one the wgmma variant."""
-    from repro_torch.configs.base import get_config
+def mesh_train_phase(cfg, spec, label="mesh_train"):
+    """``cfg`` at full width (seed-0 float32 parameters and fresh moments
+    drawn on the card, bf16 compute): one ``make_train_step`` step on
+    ``single_device_mesh`` and one without a mesh from the same state and
+    batch (``train_batches``' first, ``spec`` its batch, positions and
+    microbatches): bit-identical loss, ``grad_norm``, the gradient handed
+    to AdamW and every updated parameter and moment (the mesh run's
+    copied to the host, and each brought back to the card to be compared
+    with the other's leaf there).  The gradient must be finite and
+    nonzero: where its float32 norm overflows to inf (whisper's 48
+    layers; granite's whole 40) the clip factor is 0 and the moments
+    stay zero, so it is the gradient that shows the backward.  The mesh
+    step's launches are counted alone (``train_launches``: each kernel
+    twice a microbatch where the blocks are rematerialised, forward and
+    recompute), every one the tensor-core variant."""
     from repro_torch.launch.mesh import single_device_mesh
     from repro_torch.launch.steps import make_train_step
     from repro_torch.models.blocks import tree_leaves
     from repro_torch.models.model import Model
     from repro_torch.optim import adamw
-    cfg = get_config("granite_3_2b")
     batch = train_batches(cfg, spec["batch"], spec["seq"], 1, CARD)[0]
     kept, metrics, diff, walls = {}, {}, [], {}
     grads, gdiff, gsum = {}, [], {}
@@ -1994,7 +2035,7 @@ def mesh_train_phase(spec=MESH_TRAIN, label="mesh_train"):
             nz += int(torch.count_nonzero(t))
             if kind == "mesh":
                 grads[name] = t.to("cpu", copy=True)
-            elif not torch.equal(t.cpu(), grads[name]):
+            elif not torch.equal(t, grads[name].to(t.device)):
                 gdiff.append(name)
         gsum[kind] = {"norm_f64": sq ** 0.5, "max_abs": big,
                       "nonzero": nz}
@@ -2022,7 +2063,7 @@ def mesh_train_phase(spec=MESH_TRAIN, label="mesh_train"):
         for name, t in leaves:
             if kind == "mesh":
                 kept[name] = t.cpu()
-            elif not torch.equal(t.cpu(), kept[name]):
+            elif not torch.equal(t, kept[name].to(t.device)):
                 diff.append(name)
         del params, state, step, m, leaves
         torch.cuda.empty_cache()
@@ -2053,21 +2094,24 @@ def mesh_train_phase(spec=MESH_TRAIN, label="mesh_train"):
     if not gsum["mesh"]["nonzero"] or not np.isfinite(
             gsum["mesh"]["max_abs"]):
         fail(f"{label}: the gradient is zero or not finite {gsum['mesh']}")
-    want_n = 2 * spec["accum"] * cfg.n_layers if CARD == "cuda" else 0
-    for name in ("flash_attention", "flash_attention_wgmma"):
-        if launches[name] != want_n:
-            fail(f"{label}: {name} launched {launches[name]} times, not "
-                 f"{want_n}")
+    check_launches(label, launches, train_launches(cfg, spec["accum"]))
     del kept, grads
+    torch.cuda.empty_cache()
     return row
 
 
-def run_mesh_steps():
+def run_mesh_steps(steps=MESH_STEPS):
     """The prefill and train steps on ``single_device_mesh`` against the
-    steps without a mesh (the one-card case of the mesh code)."""
+    steps without a mesh (the one-card case of the mesh code), every
+    family of ``steps``."""
     t0 = time.perf_counter()
-    out = {"mesh_prefill": mesh_prefill_phase(),
-           "mesh_train": mesh_train_phase()}
+    out = {}
+    for suffix, arch, layers, (pb, ps), (tb, ts, accum) in steps:
+        cfg = mesh_cfg(arch, layers)
+        out[f"mesh_prefill{suffix}"] = mesh_prefill_phase(
+            cfg, pb, ps, f"mesh_prefill{suffix}")
+        out[f"mesh_train{suffix}"] = mesh_train_phase(
+            cfg, dict(batch=tb, seq=ts, accum=accum), f"mesh_train{suffix}")
     log(f"[paths] mesh steps: {time.perf_counter() - t0:.1f} s")
     return out
 

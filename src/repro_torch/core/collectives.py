@@ -27,18 +27,20 @@ and butterfly schedules need a power-of-two axis (``_log2``), and every
 function returns its input untouched on an axis of size 1, with no
 process group used.
 
-``psum``, ``pmax``, ``all_gather`` and ``reduce_scatter`` are the
-library's own collectives, the counterparts of the reference's ``psum`` /
-``pmax`` / ``all_gather`` / ``psum_scatter``: the ``xla`` schedule, and
-the communication GSPMD would place around the model's sharded products.
-The other schedules never call a library collective.  Under autograd
-(prefill and training on a mesh) each has the backward ``shard_map``
-gives it: ``psum`` identity (its result is used alike on every rank),
+``psum``, ``pmax``, ``all_gather``, ``reduce_scatter`` and
+``all_to_all`` are the library's own collectives, the counterparts of
+the reference's ``psum`` / ``pmax`` / ``all_gather`` / ``psum_scatter`` /
+``all_to_all``: the ``xla`` schedule, and the communication GSPMD would
+place around the model's sharded products (``all_to_all`` is the MoE's
+expert-parallel dispatch and return, ``models/moe.py``).  The other
+schedules never call a library collective.  Under autograd (prefill and
+training on a mesh) each has the backward ``shard_map`` gives it:
+``psum`` identity (its result is used alike on every rank),
 ``all_gather`` the reduce-scatter of the gradient (or this rank's block
-of it, ``replicated=True``), ``reduce_scatter`` the all-gather, ``pmax``
-none; and ``grad_psum`` is the identity whose backward is the psum, for a
-tensor every rank holds alike entering a computation split over the
-axes.
+of it, ``replicated=True``), ``reduce_scatter`` the all-gather,
+``all_to_all`` the same exchange back, ``pmax`` none; and ``grad_psum``
+is the identity whose backward is the psum, for a tensor every rank
+holds alike entering a computation split over the axes.
 """
 from __future__ import annotations
 
@@ -415,6 +417,51 @@ def reduce_scatter(x, mesh, axes: Sequence[str], dim: int):
     if _grad(x) and _split_on(mesh, axes):
         return _ReduceScatter.apply(x, mesh, axes, dim)
     return _scatter(x, mesh, axes, dim)
+
+
+def _exchange(x, mesh, axis, split_dim, concat_dim):
+    """``x`` cut into the axis's n blocks along ``split_dim``, block i
+    sent to rank i, and the n blocks received concatenated along
+    ``concat_dim`` in rank order: one ``all_to_all_single`` on the axis's
+    group (gloo and NCCL both take it)."""
+    n = mesh.shape[axis]
+    src = x.detach().movedim(split_dim, 0).contiguous()
+    out = torch.empty_like(src)
+    dist.all_to_all_single(out, src, group=mesh.group(axis))
+    blocks = out.view(n, src.shape[0] // n, *src.shape[1:]).unbind(0)
+    return torch.cat([b.movedim(0, split_dim) for b in blocks],
+                     dim=concat_dim)
+
+
+class _AllToAll(torch.autograd.Function):
+    """all_to_all; backward the same exchange back (split and concat
+    dims swapped), as ``shard_map`` transposes it."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axis, split_dim, concat_dim):
+        ctx.args = (mesh, axis, concat_dim, split_dim)
+        return _exchange(x, mesh, axis, split_dim, concat_dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _exchange(g, *ctx.args), None, None, None, None
+
+
+def all_to_all(x, mesh, axis: str, split_dim: int, concat_dim: int):
+    """The reference's ``all_to_all(x, axis, split_dim, concat_dim)``:
+    ``x`` cut into ``mesh.shape[axis]`` equal blocks along ``split_dim``,
+    block i sent to the axis's rank i, the blocks received from ranks 0,
+    1, ... concatenated along ``concat_dim``.  Under autograd its
+    backward is the exchange back.  An axis of one rank returns ``x``."""
+    if mesh.shape[axis] == 1:
+        return x
+    if x.shape[split_dim] % mesh.shape[axis]:
+        raise ValueError(f"dim {split_dim} of {tuple(x.shape)} does not "
+                         f"split over the {mesh.shape[axis]} ranks of "
+                         f"{axis!r}")
+    if _grad(x):
+        return _AllToAll.apply(x, mesh, axis, split_dim, concat_dim)
+    return _exchange(x, mesh, axis, split_dim, concat_dim)
 
 
 def grad_psum(x, mesh, axes: Sequence[str]):

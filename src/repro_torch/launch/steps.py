@@ -37,10 +37,16 @@ The port of the reference package's ``launch/steps.py``.
   this rank's block of every input of a cell's step, without
   allocating anything.
 
+Every configuration trains and prefills on a mesh: the batch's
+``frames`` (an encoder-decoder's) and ``vision_embed`` (a VLM's) are
+split over the batch axes like the tokens and cut into microbatches with
+them (``microbatches``), and ``sync_grads`` sums the gradients of the
+encoder's, the vision projection's, the experts' and the Mamba-2
+layers' leaves like any other.
+
 The dry-run lowering (``lowering_spec``, ``lower_cell``) lowers through
 XLA in the reference and waits for the port's dry-run slice (ROADMAP
-queue 1 item 8, after the other families' prefill and training on a
-mesh and the ``Server`` on a mesh).
+queue 1 item 8.3, after the ``Trainer`` and the ``Server`` on a mesh).
 """
 from __future__ import annotations
 
@@ -115,7 +121,6 @@ def make_prefill_step(cfg: ArchConfig, *, mesh=None, device="cuda"):
     rows (split over the batch axes), the logits whole over the
     vocabulary (all-gathered over ``model`` where ``lm_head`` splits).  A
     (1, 1) mesh is the one-device step."""
-    mdl._mesh_families(cfg, mesh)
     dev = mdl._forward_device(mesh, device)
     specs = mdl.train_specs(cfg, mesh)
 
@@ -266,7 +271,6 @@ def make_train_step(cfg: ArchConfig, opt_cfg=None, accum_steps: int = 1, *,
     blocks over the mesh and updates each rank's blocks.  The metrics are
     the same on every rank.  ``mesh`` None and a (1, 1) mesh run the same
     code, every collective on an axis of one rank a no-op."""
-    mdl._mesh_families(cfg, mesh)
     dev = mdl._forward_device(mesh, device)
     opt_cfg = opt_cfg or adamw.AdamWConfig()
     specs = mdl.train_specs(cfg, mesh)

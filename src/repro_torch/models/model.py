@@ -79,9 +79,12 @@ whose backward sums the ranks' parts.  Attention runs ``attn_core``'s
 branch for the split: heads, kv heads replicated, or the
 sequence-parallel fallback with ``q_offset``.  The loss assembles a
 vocabulary split over ``model`` across ranks and is that of the whole
-batch.  Only the dense and sliding-window decoders run there; MoE,
-Mamba-2, the hybrid, the encoder-decoder and the VLM raise on a mesh of
-more than one rank (ROADMAP queue 1 item 8).
+batch.  Every configuration runs there: a MoE sublayer dispatches its
+tokens to the experts' owners with ``all_to_all`` (``models/moe.py``), a
+Mamba-2 one scans the rank's heads (``models/ssm.ssm_apply``), the
+encoder's bidirectional blocks and the decoder's cross-attention run on
+the rank's heads over the encoder memory of the rank's rows, and the
+VLM's prefix is projected by its FSDP-gathered ``vis_proj``.
 """
 from __future__ import annotations
 
@@ -333,22 +336,24 @@ def _cross(p, x, memory, cfg, cd, core, sp=None, mesh=None):
     through ``xnorm``/``xwq``, k and v from the encoder memory, ``core``
     the attention itself.  On a mesh (``sp`` the specs of this rank's
     blocks) it runs on the rank's heads of ``xwq`` / ``xwk`` / ``xwv``
-    over the rank's rows of the memory, and ``xwo``'s partial sums are
-    all-reduced."""
+    over the rank's rows of the memory (whole over its length), and
+    ``xwo``'s partial sums are all-reduced.  Under autograd x's norm and
+    the memory, which every rank of the heads' axes holds alike, enter
+    the split products through ``grad_psum``."""
     hx = rms_norm(x, p["xnorm"], cfg.norm_eps).to(cd)
-    qx = torch.einsum("bsd,dhk->bshk", hx, _weight(p, "xwq", cd, sp, mesh))
     mem = memory.to(cd)
+    if _split(mesh, _axes(sp, "xwq", 1)):
+        hx = coll.grad_psum(hx, mesh, _axes(sp, "xwq", 1))
+    if _split(mesh, _axes(sp, "xwk", 1)):
+        mem = coll.grad_psum(mem, mesh, _axes(sp, "xwk", 1))
+    qx = torch.einsum("bsd,dhk->bshk", hx, _weight(p, "xwq", cd, sp, mesh))
     kx = torch.einsum("bsd,dhk->bshk", mem, _weight(p, "xwk", cd, sp, mesh))
     vx = torch.einsum("bsd,dhk->bshk", mem, _weight(p, "xwv", cd, sp, mesh))
     if _axes(sp, "xwq", 1) != _axes(sp, "xwk", 1):
         raise ValueError(f"{cfg.name}: the plan splits the cross-attention's "
                          f"q heads and kv heads differently")
     ox = core(qx, kx, vx)
-    wo, axes = _weight(p, "xwo", cd, sp, mesh), _axes(sp, "xwo", 0)
-    if not _split(mesh, axes):
-        return x + torch.einsum("bshk,hkd->bsd", ox.to(cd), wo)
-    part = wide_mm(ox.to(cd).flatten(2), wo.flatten(0, 1))
-    return x + coll.psum(part, mesh, axes).to(cd)
+    return _out_proj(x, ox, p, "xwo", cd, sp, mesh)
 
 
 def attn_decode_apply(p, x, cache, positions, insert, core, cfg,
@@ -729,7 +734,7 @@ def _gather_heads(parts, axes, mesh):
 
 
 def _split(mesh, axes) -> bool:
-    return any(mesh.shape[a] > 1 for a in axes)
+    return mesh is not None and any(mesh.shape[a] > 1 for a in axes)
 
 
 # ================================================================ forward
@@ -751,24 +756,6 @@ def _batch_axes(mesh) -> tuple:
         return ()
     return tuple(a for a in BATCH_AXES if a in mesh.axis_names
                  and mesh.shape[a] > 1)
-
-
-def _mesh_families(cfg, mesh) -> None:
-    """Raise where prefill and training on ``mesh`` (of more than one
-    rank) would meet a family not ported to it yet: only the dense and
-    sliding-window decoders run there."""
-    if _on_one_device(mesh):
-        return
-    other = ([m for m, _ in cfg.pattern if m != "attn"]
-             + [f for _, f in cfg.pattern if f not in (None, "mlp")]
-             + (["an encoder"] if cfg.enc_layers > 0 else [])
-             + (["a vision prefix"] if cfg.vision_prefix > 0 else []))
-    if other:
-        raise NotImplementedError(
-            f"{cfg.name}: prefill and training on a mesh of more than one "
-            f"rank are ported for the dense and sliding-window decoders; "
-            f"{', '.join(sorted(set(other)))} on a mesh are not (ROADMAP "
-            f"queue 1 item 8)")
 
 
 def attn_core(q, k, v, cfg, *, causal, window, sp=None, mesh=None):
@@ -836,10 +823,11 @@ def _out_proj(x, o, p, name, cd, sp, mesh):
 def attn_apply(p, x, cfg, positions, *, causal=True, window=0,
                memory=None, sp=None, mesh=None):
     """The self-attention sublayer over a whole sequence, then the
-    cross-attention over ``memory`` (bidirectional) when given (one
-    device).  On a mesh ``p`` holds this rank's blocks and ``sp`` their
-    specs (``attn_core``; ``wo``'s partial sums all-reduced over the
-    heads' axes)."""
+    cross-attention over ``memory`` (bidirectional) when given.  On a mesh
+    ``p`` holds this rank's blocks and ``sp`` their specs (``attn_core``
+    for both, the cross-attention's branch chosen by ``xwq`` / ``xwk``;
+    ``wo``'s and ``xwo``'s partial sums all-reduced over the heads'
+    axes)."""
     cd = getattr(torch, cfg.compute_dtype)
     h = rms_norm(x, p["norm"], cfg.norm_eps).to(cd)
     q, k, v = _project_qkv(p, h, cfg, cd, sp=sp, mesh=mesh)
@@ -850,9 +838,12 @@ def attn_apply(p, x, cfg, positions, *, causal=True, window=0,
                   mesh=mesh)
     x = _out_proj(x, o, p, "wo", cd, sp, mesh)
     if memory is not None:
+        xsp = sp and {"wq": sp["xwq"], "wk": sp["xwk"]}
         x = _cross(p, x, memory, cfg, cd,
                    lambda qx, kx, vx: attn_core(qx, kx, vx, cfg,
-                                                causal=False, window=0))
+                                                causal=False, window=0,
+                                                sp=xsp, mesh=mesh),
+                   sp, mesh)
     return x
 
 
@@ -860,7 +851,8 @@ def sublayer_apply(sub, x, mixer, ffn, cfg, positions, *, causal=True,
                    memory=None, sp=None, mesh=None):
     """One (mixer, ffn) sublayer: attention or Mamba-2, then an MLP, a
     MoE or nothing.  Returns ``(x, aux)``.  On a mesh ``sp`` holds the
-    specs of this rank's blocks of ``sub``."""
+    specs of this rank's blocks of ``sub`` and x's rows are split over
+    the batch axes."""
     sp = sp or {}
     if mixer == "attn":
         x = attn_apply(sub["mixer"], x, cfg, positions, causal=causal,
@@ -868,10 +860,13 @@ def sublayer_apply(sub, x, mixer, ffn, cfg, positions, *, causal=True,
                        sp=sp.get("mixer"), mesh=mesh)
     else:
         hm = rms_norm(x, sub["mixer"]["norm"], cfg.norm_eps)
-        y, _ = ssm_mod.ssm_apply(_mixer_params(sub["mixer"]), hm, cfg)
+        msp = sp.get("mixer")
+        y, _ = ssm_mod.ssm_apply(_mixer_params(sub["mixer"]), hm, cfg,
+                                 sp=_mixer_params(msp) if msp else None,
+                                 mesh=mesh)
         x = x + y
     return ffn_apply(sub.get("ffn"), x, ffn, cfg, sp=sp.get("ffn"),
-                     mesh=mesh)
+                     mesh=mesh, batch_axes=_batch_axes(mesh))
 
 
 def block_layers(blocks):
@@ -938,14 +933,16 @@ def build_inputs(params, batch, cfg, *, specs=None, mesh=None):
     """The decoder input sequence: the embedded ``batch["tokens"]`` (B,
     S), after the vision prefix ``batch["vision_embed"] @ vis_proj`` (B,
     P, D) where the model has one, plus sinusoidal positions for an
-    encoder-decoder.  On a mesh the tokens are this rank's rows (split
-    over the batch axes) and the table the rank's block."""
+    encoder-decoder.  On a mesh the tokens and the prefix are this rank's
+    rows (split over the batch axes), the table the rank's block and
+    ``vis_proj`` gathered whole over its FSDP dim."""
     cd = getattr(torch, cfg.compute_dtype)
     x = embed_tokens(params, batch["tokens"], cfg, cd, mesh=mesh,
                      spec=specs["embed"] if specs else (),
                      batch_axes=_batch_axes(mesh))
     if cfg.vision_prefix > 0:
-        vis = batch["vision_embed"].to(cd) @ params["vis_proj"].to(cd)
+        vis = batch["vision_embed"].to(cd) @ _weight(params, "vis_proj", cd,
+                                                     specs, mesh)
         x = torch.cat([vis, x], dim=1)
     if not cfg.use_rope and cfg.enc_layers > 0:
         x = x + sinusoidal_positions(x.shape[1], cfg.d_model,
@@ -953,17 +950,23 @@ def build_inputs(params, batch, cfg, *, specs=None, mesh=None):
     return x
 
 
-def encode(params, batch, cfg):
+def encode(params, batch, cfg, *, specs=None, mesh=None):
     """The encoder of an encoder-decoder over ``batch["frames"]`` (B, F,
     D), the precomputed frame embeddings of the audio stub:
-    bidirectional attention blocks, then ``enc_norm``."""
+    bidirectional attention blocks, then ``enc_norm``.  On a mesh the
+    frames and the memory are this rank's rows, whole over their length
+    and alike on every ``model`` rank; ``enc_in`` is gathered whole over
+    its FSDP dim and the blocks run on the rank's blocks (``specs`` those
+    of the whole tree), their attention through ``attn_core``'s branches
+    with ``causal=False``."""
     cd = getattr(torch, cfg.compute_dtype)
-    x = batch["frames"].to(cd) @ params["enc_in"].to(cd)
+    x = batch["frames"].to(cd) @ _weight(params, "enc_in", cd, specs, mesh)
     x = x + sinusoidal_positions(x.shape[1], cfg.d_model,
                                  device=x.device).to(cd)[None]
     pos = torch.arange(x.shape[1], device=x.device).expand(x.shape[:2])
     x, _ = run_blocks(params["enc_blocks"], x, cfg, pos,
-                      pattern=(("attn", "mlp"),), causal=False)
+                      pattern=(("attn", "mlp"),), causal=False,
+                      specs=specs["enc_blocks"] if specs else None, mesh=mesh)
     return rms_norm(x, params["enc_norm"], cfg.norm_eps)
 
 
@@ -994,19 +997,18 @@ def forward_hidden(params, batch, cfg, *, mesh=None, device="cuda"):
     products over weights split over ``model`` keep their outputs split
     (q, k, v over heads, the MLP's inner dim) and all-reduce the partial
     sums of the products that contract them (``wo``, the MLP's down
-    projection); attention runs ``attn_core``'s branch for the split.  A
-    (1, 1) mesh is the one-device path: every collective is on an axis
-    of one rank.  Only the dense and sliding-window decoders run on a
-    mesh of more than one rank (``NotImplementedError`` otherwise, before
-    any work)."""
-    _mesh_families(cfg, mesh)
+    projection); attention runs ``attn_core``'s branch for the split, a
+    MoE sublayer its expert-parallel dispatch, a Mamba-2 one its scan on
+    the rank's heads.  A (1, 1) mesh is the one-device path: every
+    collective is on an axis of one rank."""
     dev = _forward_device(mesh, device)
     _check_on(dev, params, "forward")
     specs = train_specs(cfg, mesh)
     batch = {k: torch.as_tensor(v).to(dev) for k, v in batch.items()
              if k in BATCH_INPUTS}
     x = build_inputs(params, batch, cfg, specs=specs, mesh=mesh)
-    memory = encode(params, batch, cfg) if cfg.enc_layers > 0 else None
+    memory = (encode(params, batch, cfg, specs=specs, mesh=mesh)
+              if cfg.enc_layers > 0 else None)
     pos = torch.arange(x.shape[1], device=dev).expand(x.shape[:2])
     x, aux = run_blocks(params["blocks"], x, cfg, pos, causal=True,
                         memory=memory,
@@ -1123,7 +1125,6 @@ def loss_fn(params, batch, cfg, *, mesh=None, device="cuda"):
     the batch is this rank's rows and the loss that of the whole batch,
     the same on every rank; its gradient on each rank is the part of the
     rank's rows (``launch/steps.make_train_step`` sums the parts)."""
-    _mesh_families(cfg, mesh)
     dev = _forward_device(mesh, device)
     x, aux = forward_hidden(params, batch, cfg, mesh=mesh, device=dev)
     mask = batch.get("loss_mask")

@@ -35,9 +35,28 @@ the profiler range ``moe_combine``).  An ``embed`` dim split over the
 batch axes (FSDP) is gathered first, as the reference's ``_gather``
 does.  The batch goes over the batch axes that divide it
 (``_batch_spec``), rows whole on a rank taken to its block and gathered
-back.  ``moe_train``'s expert-parallel
-``all_to_all`` dispatch is not ported (prefill and training on a mesh,
-ROADMAP queue 1 item 8).
+back.
+
+``moe_train`` runs on a mesh too (prefill and training), as the
+reference's ``shard_map`` body does, under autograd.  In ``"ep"`` mode
+each rank routes its slice of the sequence (the rank's rows, its
+``S / model`` positions), cuts its (token, k) rows into one buffer of
+``cap = max(8, ⌈cf n / ep / 8⌉ 8)`` slots a destination rank (the rows
+stably sorted by owner, rows past ``cap`` dropped, empty slots the
+sentinel), sends each rank its part with ``core/collectives.all_to_all``
+(the one-to-many dispatch, the profiler range ``moe_dispatch``), runs its
+experts on what it received (``_bucket_ffn`` at ``_cap(ep cap, e_local,
+1)``), sends the outputs back the same way (the many-to-one return,
+``moe_return``), and adds each token's gate-weighted rows; the sequence
+is then all-gathered whole over ``model``.  In ``"etp"`` mode every rank
+runs every expert on its slice of ``moe_d_ff`` over all its rows, the
+partial rows added over ``model`` in float32 and rounded once.  A
+sequence that ``model`` does not divide takes ``moe_decode``'s body, as
+the reference's ``moe_apply`` chooses.  The router loss is averaged over
+``model`` and the batch axes.  Under autograd the input and the router,
+which every ``model`` rank holds alike, enter through
+``collectives.grad_psum``: each rank's gradient of them is the part of
+its tokens or its experts.
 
 The capacity drops are part of the result.  Under autograd (training)
 the gradient reaches the gates (the top-k probabilities renormalised),
@@ -174,8 +193,17 @@ def _combine(y, k):
     return out
 
 
-def moe_train(p, x, cfg):
-    """Forward over a sequence.  x (B, S, D) -> (y (B, S, D), aux)."""
+def moe_train(p, x, cfg, *, sp=None, mesh=None):
+    """Forward over a sequence.  x (B, S, D) -> (y (B, S, D), aux).  On a
+    mesh ``p`` holds this rank's blocks (``sp`` their specs) and ``x``
+    this rank's rows, whole over the sequence and alike on every rank of
+    ``model``; y is too (``_dispatch`` in ``"ep"`` mode, ``_expert_tp``
+    in ``"etp"``)."""
+    if mesh is not None:
+        mode, _, ig, _ = _specs(cfg, mesh)
+        _check_placement(cfg, sp, mode, ig, mesh)
+        body = _dispatch if mode == "ep" else _expert_tp
+        return body(p, x, cfg, sp, mesh)
     cd = getattr(torch, cfg.compute_dtype)
     b, s, d = x.shape
     k, e = cfg.top_k, cfg.n_experts
@@ -189,6 +217,116 @@ def moe_train(p, x, cfg):
     y = _bucket_ffn(x2[idx // k], eids, e, _cap(cap, e, 1.0),
                     p["we_i"], p["we_g"], p["we_o"], cd)
     y = y * gates.reshape(-1, 1).to(y.dtype)
+    return _combine(y, k).reshape(b, s, d).to(x.dtype), aux
+
+
+def _check_placement(cfg, sp, mode, ig, mesh):
+    if mesh.shape["model"] > 1 and "model" not in shd.entry_axes(
+            sp["we_i"], 0 if mode == "ep" else 2):
+        raise ValueError(f"{cfg.name}: the plan places the experts as "
+                         f"{sp['we_i']}, {mode!r} mode needs {ig}")
+
+
+def _mesh_router(p, x2, cfg, mesh):
+    """The router of a mesh body: ``(gates, ids, aux)`` of ``x2`` (T, D),
+    the router weight taken in through ``grad_psum`` over ``model`` (each
+    rank's gradient of it is the part of its tokens and experts) and the
+    aux loss averaged over ``model`` and the batch axes (the reference's
+    pmeans; its gradient is each rank's share)."""
+    wr = coll.grad_psum(p["router"], mesh, ("model",))
+    gates, ids, aux = _router(x2, wr, cfg.top_k)
+    axes = ("model",) + _fsdp_axes(mesh)
+    n = math.prod(mesh.shape[a] for a in axes)
+    return gates, ids, coll.psum(aux, mesh, axes) / n
+
+
+def _experts(p, sp, mesh):
+    """The rank's expert weights, whole along their FSDP dims."""
+    return {n: shd.fsdp_whole(p[n], sp[n], mesh)
+            for n in ("we_i", "we_g", "we_o")}
+
+
+def _dispatch(p, x, cfg, sp, mesh):
+    """``moe_train``'s ``"ep"`` body (the reference's expert-parallel
+    dispatch, ``models/moe.py:moe_train``): the rank's slice of the
+    sequence routed, its (token, k) rows sent to their experts' owners
+    (two ``all_to_all``s: the rows, then their expert ids) and the
+    outputs brought back (one).  The slots of a destination are the
+    rows stably sorted by owner, ``rank < cap`` kept; an empty or dropped
+    slot carries token -1 and the sentinel expert ``e_local``, and gives
+    nothing.  Each token's k rows are weighted by their gates and added
+    in k order (``_combine``, the one-device order; the reference
+    scatter-adds them in slot order, which is the same sum for top-k 2).
+    """
+    cd = getattr(torch, cfg.compute_dtype)
+    b, s, d = x.shape
+    ep, index = mesh.shape["model"], mesh.axis_index("model")
+    k, e_local = cfg.top_k, cfg.n_experts // mesh.shape["model"]
+    s_l = s // ep
+    xl = coll.grad_psum(x, mesh, ("model",)).narrow(1, index * s_l, s_l)
+    x2 = xl.reshape(b * s_l, d)
+    gates, ids, aux = _mesh_router(p, x2, cfg, mesh)
+    n = ids.numel()
+    cap = max(8, int(math.ceil(cfg.capacity_factor * n / ep / 8)) * 8)
+    flat_e = ids.reshape(-1)
+    dest = flat_e // e_local
+    order = torch.sort(dest, stable=True).indices
+    sorted_dest = dest[order]
+    counts = torch.bincount(dest, minlength=ep)
+    offsets = torch.cumsum(counts, 0) - counts
+    rank = torch.arange(n, device=x.device) - offsets[sorted_dest]
+    slot = torch.where(rank < cap, sorted_dest * cap + rank, ep * cap)
+    # every dropped row lands in the extra last slot, which is cut off
+    buf_src = torch.full((ep * cap + 1,), n, dtype=torch.long,
+                         device=x.device).index_copy_(0, slot, order)[:-1]
+    buf_eid = torch.full((ep * cap + 1,), e_local, dtype=torch.long,
+                         device=x.device).index_copy_(
+                             0, slot, flat_e[order] % e_local)[:-1]
+    sent = buf_src < n
+    buf_tok = torch.where(sent, buf_src // k, -1)
+    send_x = torch.where(sent[:, None], x2[torch.clamp(buf_tok, min=0)],
+                         0).to(cd)
+    with torch.profiler.record_function("moe_dispatch"):
+        recv_x = coll.all_to_all(send_x.reshape(ep, cap, d), mesh, "model",
+                                 0, 0)
+        recv_eid = coll.all_to_all(buf_eid.reshape(ep, cap), mesh, "model",
+                                   0, 0)
+    w = _experts(p, sp, mesh)
+    y = _bucket_ffn(recv_x.reshape(ep * cap, d), recv_eid.reshape(-1),
+                    e_local, _cap(ep * cap, e_local, 1.0), w["we_i"],
+                    w["we_g"], w["we_o"], cd)
+    with torch.profiler.record_function("moe_return"):
+        back = coll.all_to_all(y.reshape(ep, cap, d), mesh, "model", 0, 0)
+    # each slot's output to its (token, k) row; unsent rows stay 0
+    rows = torch.zeros((n + 1, d), dtype=back.dtype, device=x.device)
+    rows = rows.index_copy(0, torch.where(sent, buf_src, n),
+                           back.reshape(ep * cap, d))[:-1]
+    rows = rows * gates.reshape(-1, 1).to(rows.dtype)
+    out = _combine(rows, k).reshape(b, s_l, d).to(x.dtype)
+    return coll.all_gather(out, mesh, ("model",), 1, replicated=True), aux
+
+
+def _expert_tp(p, x, cfg, sp, mesh):
+    """``moe_train``'s ``"etp"`` body: every rank's rows on every expert's
+    slice of ``moe_d_ff`` (``_bucket_ffn`` at ``_cap(T k, E, cf)``), each
+    (token, k) row weighted by its gate; the rows' partial sums added
+    over ``model`` in float32 (at least) and rounded once, then each
+    token's k rows added in k order."""
+    cd = getattr(torch, cfg.compute_dtype)
+    b, s, d = x.shape
+    k, e = cfg.top_k, cfg.n_experts
+    x2 = coll.grad_psum(x, mesh, ("model",)).reshape(b * s, d)
+    gates, ids, aux = _mesh_router(p, x2, cfg, mesh)
+    n = ids.numel()
+    tok = torch.arange(n, device=x.device) // k
+    w = _experts(p, sp, mesh)
+    y = _bucket_ffn(x2[tok], ids.reshape(-1), e,
+                    _cap(n, e, cfg.capacity_factor), w["we_i"], w["we_g"],
+                    w["we_o"], cd)
+    y = y * gates.reshape(-1, 1).to(y.dtype)
+    wide = torch.promote_types(y.dtype, torch.float32)
+    with torch.profiler.record_function("moe_combine"):
+        y = coll.psum(y.to(wide), mesh, ("model",)).to(y.dtype)
     return _combine(y, k).reshape(b, s, d).to(x.dtype), aux
 
 
@@ -218,16 +356,20 @@ def expert_block(p, x2, gates, ids, cfg, *, rank=0, n_ranks=1):
     return _combine(y, k)
 
 
-def moe_decode(p, x, cfg, *, sp=None, mesh=None, batch_axes=()):
+def moe_decode(p, x, cfg, *, sp=None, mesh=None, batch_axes=(),
+               train=False):
     """Few-token step.  x (B, S, D) -> (y (B, S, D), aux).  On a mesh
     ``p`` holds this rank's blocks (``sp`` their specs), ``x`` this
     rank's rows (split over ``batch_axes``, whole where that is empty);
     y is the same on every rank of "model".  aux is the router loss of
     the rows the rank routes, not averaged over the ranks: no decode
     step reads it (the reference's ``pmean`` of it is dead code under
-    ``jit``), and that average would be an all-reduce a layer.  A mesh
-    of one rank runs the mesh code, every collective on an axis of one
-    rank."""
+    ``jit``), and that average would be an all-reduce a layer.  With
+    ``train`` (``moe_train``'s branch for a sequence that ``model`` does
+    not divide) it is averaged over ``model`` and the batch axes, and the
+    input and router enter through ``grad_psum`` (``_mesh_router``).  A
+    mesh of one rank runs the mesh code, every collective on an axis of
+    one rank."""
     b, s, d = x.shape
     x2 = x.reshape(b * s, d)
     if mesh is None:
@@ -236,10 +378,7 @@ def moe_decode(p, x, cfg, *, sp=None, mesh=None, batch_axes=()):
         return out.reshape(b, s, d).to(x.dtype), aux
     m = mesh.shape["model"]
     mode, _, ig, o = _specs(cfg, mesh)
-    if m > 1 and "model" not in shd.entry_axes(sp["we_i"],
-                                               0 if mode == "ep" else 2):
-        raise ValueError(f"{cfg.name}: the plan places the experts as "
-                         f"{sp['we_i']}, {mode!r} mode needs {ig}")
+    _check_placement(cfg, sp, mode, ig, mesh)
     rows = _batch_spec(mesh, shd.BATCH_AXES, b * math.prod(
         mesh.shape[a] for a in batch_axes))
     if tuple(batch_axes) not in ((), rows):
@@ -249,9 +388,12 @@ def moe_decode(p, x, cfg, *, sp=None, mesh=None, batch_axes=()):
     if split:                       # this rank's block of whole rows
         index, count = shd.block(mesh, split)
         x2 = x2.narrow(0, index * (b * s // count), b * s // count)
-    gates, ids, aux = _router(x2, p["router"], cfg.top_k)
-    w = {n: shd.fsdp_whole(p[n], sp[n], mesh)
-         for n in ("we_i", "we_g", "we_o")}
+    if train:
+        x2 = coll.grad_psum(x2, mesh, ("model",))
+        gates, ids, aux = _mesh_router(p, x2, cfg, mesh)
+    else:
+        gates, ids, aux = _router(x2, p["router"], cfg.top_k)
+    w = _experts(p, sp, mesh)
     out = expert_block(w, x2, gates, ids, cfg, rank=mesh.axis_index("model"),
                        n_ranks=m)
     # the many-to-one combine: the ranks' outputs in the compute dtype,
@@ -266,10 +408,12 @@ def moe_decode(p, x, cfg, *, sp=None, mesh=None, batch_axes=()):
 
 def moe_apply(p, x, cfg, decode=False, *, sp=None, mesh=None,
               batch_axes=()):
-    """``moe_decode`` for a decode step, else ``moe_train`` (on one device
-    the reference's sequence-divisibility test always holds).  On a mesh
-    (``sp``, ``mesh``, ``batch_axes`` as ``moe_decode`` takes them) only
-    the decode step runs."""
+    """``moe_decode`` for a decode step, else ``moe_train``, as the
+    reference chooses: a sequence that the ``model`` axis does not divide
+    takes ``moe_decode``'s body (always divided on one device).  On a
+    mesh ``sp``, ``mesh`` and ``batch_axes`` are as ``moe_decode`` takes
+    them; ``moe_train`` takes x's rows as they come (split over the batch
+    axes)."""
     if cfg.moe_impl != "bucket":
         raise NotImplementedError(
             f"{cfg.name}: moe_impl {cfg.moe_impl!r} is not ported; the "
@@ -277,8 +421,7 @@ def moe_apply(p, x, cfg, decode=False, *, sp=None, mesh=None,
             f"1 item 7)")
     if decode:
         return moe_decode(p, x, cfg, sp=sp, mesh=mesh, batch_axes=batch_axes)
-    if mesh is not None and any(n > 1 for n in mesh.dims):
-        raise NotImplementedError(
-            f"{cfg.name}: moe_train on a mesh of more than one rank is not "
-            f"ported (ROADMAP queue 1 item 8)")
-    return moe_train(p, x, cfg)
+    if mesh is not None and x.shape[1] % mesh.shape["model"]:
+        return moe_decode(p, x, cfg, sp=sp, mesh=mesh, batch_axes=batch_axes,
+                          train=True)
+    return moe_train(p, x, cfg, sp=sp, mesh=mesh)

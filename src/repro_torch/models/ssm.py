@@ -9,8 +9,10 @@ on a CUDA tensor, its plain version on a CPU tensor, differentiable on
 both.  B and C are one group (G = 1) shared by every head.  The
 single-token decode step (``ssm_decode_init``, ``ssm_decode_step``) is
 plain PyTorch, as the reference's is jnp: a (B, H, N, P) state update a
-token, which no kernel of the reference computes.  It also runs on a
-mesh of ranks, each on its block of the heads (``ssm_decode_step``).
+token, which no kernel of the reference computes.  Both run on a mesh
+of ranks, each on its block of the heads (``ssm_apply``,
+``ssm_decode_step``): the scan needs no collective, since B and C are
+whole on every rank.
 """
 from __future__ import annotations
 
@@ -63,18 +65,56 @@ def _causal_conv(x, w):
     return out
 
 
-def ssm_apply(p, x, cfg, *, chunk=256):
+def _head_axes(cfg, sp):
+    """The mesh axes that split the heads and their channels (none off a
+    mesh); a plan must split both alike."""
+    if not sp:
+        return ()
+    axes = shd.entry_axes(sp["wx"], 1)
+    if axes != shd.entry_axes(sp["wdt"], 1):
+        raise ValueError(f"{cfg.name}: the plan splits the SSM channels "
+                         f"over {axes}, its heads otherwise")
+    return axes
+
+
+#: the leaves every rank of the heads' axes holds whole (the one group's
+#: B and C projections and taps)
+SHARED = ("wB", "wC", "conv_B", "conv_C")
+
+
+def ssm_apply(p, x, cfg, *, chunk=256, sp=None, mesh=None):
     """Full-sequence Mamba-2 block.  x (B, S, D) -> (y (B, S, D), state).
 
     The scan gets x in the compute dtype and gives y back in f32, as the
     reference's ``ssd_chunked`` does at this call site: ``D * x`` is
     added and the cast to the compute dtype made after it.  (A float64
     compute dtype keeps all of it in float64.)
-    """
+
+    On a mesh ``p`` holds this rank's blocks (``sp`` their specs), as the
+    reference's GSPMD places them: its heads (``wdt``, ``dt_bias``,
+    ``A_log``, ``D``) and their channels (``wz``, ``wx``, ``conv_x``,
+    ``gnorm``, ``wo``) over ``model``, ``SHARED`` whole, dims split over
+    the batch axes gathered first (FSDP); x is the rank's rows, alike on
+    every ``model`` rank.  The scan runs on the rank's heads
+    (``ops.ssd_scan``) with no collective; the gated norm's sum of squares
+    and ``wo``'s float32 partial sums are all-reduced (the sum rounded to
+    the compute dtype once, ``wide_mm``); the state is the rank's heads.
+    Under autograd x and ``SHARED`` enter through ``grad_psum``: each
+    rank's gradient of them is the part of its heads."""
     cd = getattr(torch, cfg.compute_dtype)
     acc = torch.promote_types(cd, torch.float32)
     d_in, h, hp, n, k = ssm_dims(cfg)
+    axes = _head_axes(cfg, sp)
+    split = bool(axes) and any(mesh.shape[a] > 1 for a in axes)
+    if sp:
+        p = {name: shd.fsdp_whole(t, sp[name], mesh) for name, t in p.items()}
     xc = x.to(cd)
+    if split:
+        xc = coll.grad_psum(xc, mesh, axes)
+        p = {**p, **dict(zip(SHARED, coll.grad_psum(
+            tuple(p[name] for name in SHARED), mesh, axes)))}
+    count = shd.block(mesh, axes)[1] if axes else 1
+    d_loc, h_loc = d_in // count, h // count
     z = xc @ p["wz"].to(cd)
     xin = xc @ p["wx"].to(cd)
     B_ = xc @ p["wB"].to(cd)
@@ -85,12 +125,18 @@ def ssm_apply(p, x, cfg, *, chunk=256):
     C_ = silu(_causal_conv(C_, p["conv_C"].to(cd)))
     dt = F.softplus(dt_raw.to(acc) + p["dt_bias"].to(acc))
     a = -torch.exp(p["A_log"].to(acc)) * dt                # (B, S, H)
-    xh = xin.reshape(*xin.shape[:2], h, hp)
+    xh = xin.reshape(*xin.shape[:2], h_loc, hp)
     y, state = ops.ssd_scan(xh, dt, a, B_, C_, chunk=chunk, y_dtype=acc)
     y = y + p["D"].to(acc)[:, None] * xh.to(acc)
-    y = y.reshape(*x.shape[:2], d_in)
-    y = rms_norm(y.to(cd) * silu(z), p["gnorm"], cfg.norm_eps)
-    return y @ p["wo"].to(cd), state
+    y = y.reshape(*x.shape[:2], d_loc)
+    if not split:
+        y = rms_norm(y.to(cd) * silu(z), p["gnorm"], cfg.norm_eps)
+        return y @ p["wo"].to(cd), state
+    y = _gated_norm(y.to(cd) * silu(z), p["gnorm"], cfg.norm_eps, mesh, axes,
+                    d_in)
+    with torch.profiler.record_function("model_psum"):
+        out = coll.psum(wide_mm(y, p["wo"].to(cd)), mesh, axes)
+    return out.to(cd), state
 
 
 def ssm_decode_init(cfg, batch, dtype=torch.float32, *, device="cuda"):
@@ -110,10 +156,12 @@ def _gated_norm(y, scale, eps, mesh, axes, width):
     """``rms_norm`` of a row whose ``width`` channels are split over
     ``axes``: the sum of squares of the rank's block all-reduced in
     float32 (at least) before the scale, so every rank divides by the
-    whole row's mean square."""
+    whole row's mean square.  Each rank uses that sum on its own channels,
+    so under autograd its gradient is all-reduced too (``grad_psum``)."""
     dt = y.dtype
     yf = y.to(torch.promote_types(dt, torch.float32))
-    ss = coll.psum((yf * yf).sum(-1, keepdim=True), mesh, axes)
+    ss = coll.grad_psum(coll.psum((yf * yf).sum(-1, keepdim=True), mesh,
+                                  axes), mesh, axes)
     yf = yf * torch.rsqrt(ss / width + eps)
     return (yf * scale.to(yf.dtype)).to(dt)
 
@@ -139,12 +187,8 @@ def ssm_decode_step(p, x, cache, cfg, *, sp=None, mesh=None):
     cd = getattr(torch, cfg.compute_dtype)
     acc = torch.promote_types(cd, torch.float32)
     d_in, h, hp, n, k = ssm_dims(cfg)
-    axes = ()
+    axes = _head_axes(cfg, sp)
     if sp:
-        axes = shd.entry_axes(sp["wx"], 1)
-        if axes != shd.entry_axes(sp["wdt"], 1):
-            raise ValueError(f"{cfg.name}: the plan splits the SSM channels "
-                             f"over {axes}, its heads otherwise")
         p = {name: shd.fsdp_whole(t, sp[name], mesh) for name, t in p.items()}
     index, count = shd.block(mesh, axes) if axes else (0, 1)
     d_loc, h_loc = d_in // count, h // count

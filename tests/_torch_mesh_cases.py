@@ -51,6 +51,41 @@ def collective_inputs(n, seed=0):
             "acc": rng.standard_normal((2 * n, 3, 4)).astype(f32)}
 
 
+#: (split dim, concat dim) of the all_to_all cases, on a (2n, 3, 2n)
+#: block a rank
+ALL_TO_ALL_DIMS = ((0, 0), (0, 2), (2, 0), (2, 1))
+
+
+def all_to_all_inputs(n, seed=0):
+    """Each rank's block ``x`` (n, 2n, 3, 2n) of the all_to_all cases and
+    the weights ``w`` of its output's loss, one a case (indexed by the
+    case's position in ``ALL_TO_ALL_DIMS``): rank r's are ``x[r]``,
+    ``w[case][r]``."""
+    rng = np.random.default_rng(seed + 10 * n)
+    x = rng.standard_normal((n, 2 * n, 3, 2 * n)).astype(np.float32)
+    w = [rng.standard_normal((n,) + all_to_all_shape(x.shape[1:], n, s, c))
+         .astype(np.float32) for s, c in ALL_TO_ALL_DIMS]
+    return {"x": x, "w": w}
+
+
+def all_to_all_shape(shape, n, split, concat):
+    """The shape all_to_all gives a block of ``shape`` on n ranks."""
+    out = list(shape)
+    out[split] //= n
+    out[concat] *= n
+    return tuple(out)
+
+
+def all_to_all_want(x, split, concat):
+    """Every rank's all_to_all output from the ranks' blocks ``x`` (n,
+    ...): rank i's is block i (along ``split``) of each rank's, those
+    concatenated along ``concat`` in rank order."""
+    n = len(x)
+    return np.stack([np.concatenate(
+        [np.split(x[r], n, axis=split)[i] for r in range(n)], axis=concat)
+        for i in range(n)])
+
+
 # ------------------------------------------------------------ pipeline
 
 PIPE = dict(stages=8, layers=16, d=32, n_micro=4, mb=2)
@@ -350,3 +385,104 @@ def train_inputs(cfg, seed=0):
             "loss_mask": mask,
             "prefill16": rng.integers(0, cfg.vocab_size,
                                       (b, BF16_SEQ)).astype(np.int32)}
+
+
+# ------------------------------------------------------------ train step,
+# the other families
+
+#: the families of ``tests/test_torch_mesh_train_families.py``
+TRAIN_FAMILY_ARCHES = FAMILY_ARCHES
+#: the 4-rank world's meshes for every family; the 8-rank world's:
+#: mixtral on (1, 8) (its 4 experts in ``"etp"`` mode) and jamba on (2, 4)
+TRAIN_FAMILY_MESHES = ((1, 4), (2, 2))
+TRAIN_FAMILY_WIDE = (("mixtral_8x7b", (1, 8)), ("jamba_v0_1_52b", (2, 4)))
+#: a MoE case whose sequence the model axis does not divide: its MoE
+#: sublayers take ``moe_decode``'s body, as the reference's ``moe_apply``
+#: chooses
+ODD_SEQ_CASE = ("qwen3_moe_235b_a22b", (1, 4), 62)
+#: bf16 prefill of one MoE and one SSM configuration, the port on each of
+#: ``TRAIN_FAMILY_MESHES`` against the port on one device
+BF16_FAMILY_ARCHES = ("mixtral_8x7b", "mamba2_370m")
+#: the whole frames' length and the VLM's text length at ``TRAIN_SEQ``
+FRAMES = 16
+
+
+def family_train_key(arch, shape, seq=TRAIN_SEQ):
+    return train_key(arch, shape) + ("" if seq == TRAIN_SEQ else f"/s{seq}")
+
+
+def family_train_cases():
+    """``(key, arch, shape, seq)`` of every family on every mesh of its
+    world (``TRAIN_SEQ`` positions), and ``ODD_SEQ_CASE``."""
+    out = [(a, s, TRAIN_SEQ) for a in TRAIN_FAMILY_ARCHES
+           for s in TRAIN_FAMILY_MESHES]
+    out += [(a, s, TRAIN_SEQ) for a, s in TRAIN_FAMILY_WIDE]
+    out.append(ODD_SEQ_CASE)
+    return [(family_train_key(*c),) + c for c in out]
+
+
+def bf16_family_cases():
+    """``(key, arch, shape)`` of the bf16 prefill runs."""
+    return [(train_key(a, s), a, s) for a in BF16_FAMILY_ARCHES
+            for s in TRAIN_FAMILY_MESHES]
+
+
+#: wrong versions of the MoE dispatch the checks must reject: the
+#: all_to_all return skipped (each rank keeps its own experts' outputs of
+#: the rows it received, in its own slots), and ``"ep"`` without the
+#: psum over ``model`` of its input's gradient
+MOE_MUTANTS = (("no_return", "mixtral_8x7b/1x4"),
+               ("no_input_psum", "mixtral_8x7b/1x4"))
+
+
+class MoEMutant:
+    """The collectives module ``coll`` as ``models/moe.py`` sees it under
+    the mutant ``name`` of ``MOE_MUTANTS`` (patched in as ``moe.coll``):
+    ``no_return`` skips every third ``all_to_all`` (a layer's return,
+    after its rows and expert ids), ``no_input_psum`` takes the input
+    without ``grad_psum`` (the router's weight, 2-D, keeps it).  Shared
+    by the gloo worlds and ``tools/chip_mesh.py``'s four-card gate."""
+
+    def __init__(self, name, coll):
+        self.name, self.coll, self.calls = name, coll, 0
+
+    def __getattr__(self, name):
+        return getattr(self.coll, name)
+
+    def all_to_all(self, x, *args):
+        self.calls += 1
+        if self.name == "no_return" and self.calls % 3 == 0:
+            return x
+        return self.coll.all_to_all(x, *args)
+
+    def grad_psum(self, x, mesh, axes):
+        if self.name == "no_input_psum" and getattr(x, "dim", int)() == 3:
+            return x
+        return self.coll.grad_psum(x, mesh, axes)
+
+
+def family_train_inputs(cfg, seq=TRAIN_SEQ, seed=0, batch=TRAIN_BATCH):
+    """``train_inputs`` of ``batch`` rows at ``seq`` positions of text
+    (``seq - vision_prefix`` for a VLM, whose prefix fills the rest),
+    with the encoder-decoder's ``frames`` (B, ``FRAMES``, D) and the
+    VLM's ``vision_embed`` (B, prefix, D), N(0, 1) float32."""
+    rng = np.random.default_rng(seed + 4)
+    b, s = batch, seq - cfg.vision_prefix
+    rows = rng.integers(0, cfg.vocab_size, (b, s + 1)).astype(np.int32)
+    mask = (rng.random((b, s)) > 0.2).astype(np.float32)
+    for r in range(b):
+        mask[r, :4 * r] = 0.0
+    out = {"tokens": rows[:, :-1], "targets": rows[:, 1:], "loss_mask": mask,
+           "prefill16": rng.integers(0, cfg.vocab_size,
+                                     (b, BF16_SEQ)).astype(np.int32)}
+    if cfg.enc_layers:
+        out["frames"] = rng.standard_normal(
+            (b, FRAMES, cfg.d_model)).astype(np.float32)
+    if cfg.vision_prefix:
+        out["vision_embed"] = rng.standard_normal(
+            (b, cfg.vision_prefix, cfg.d_model)).astype(np.float32)
+    return out
+
+
+#: a batch's modality inputs beside the tokens
+MODALITIES = ("frames", "vision_embed")

@@ -4,7 +4,8 @@
 
 Joins the world NAME through a ``FileStore`` under WORKDIR (60 s
 timeout), runs JOB and writes this rank's results to
-``WORKDIR/NAME_<rank>.pkl``.  Imports torch, numpy
+``WORKDIR/NAME_<rank>.pkl``: rank 0 all of them, another rank only what
+its test reads (``RANK_VIEW``).  Imports torch, numpy
 and the port, never jax or the reference package (checked at the end).
 Each rank runs one CPU thread.
 """
@@ -57,6 +58,9 @@ def job_collectives(rank, world, workdir):
             got = f(parts, mesh, ("x",), schedule=arg)
         out[key] = [t.numpy() for t in got] if isinstance(got, tuple) \
             else got.numpy()
+    for case, (split, concat) in enumerate(cases.ALL_TO_ALL_DIMS):
+        out[f"all_to_all/{split}{concat}"] = _all_to_all_case(
+            rank, world, mesh, case, split, concat)
     # an axis of size 1 returns its input untouched
     one = make_mesh((1, world), ("one", "x"), device="cpu")
     for fn in ("tree_broadcast", "unicast_broadcast", "ring_broadcast"):
@@ -66,6 +70,27 @@ def job_collectives(rank, world, workdir):
         got = coll.softmax_combine(parts, one, ("one",), schedule=sched)
         assert all(torch.equal(g, p) for g, p in zip(got, parts)), sched
     return out
+
+
+def _all_to_all_case(rank, world, mesh, case, split, concat):
+    """``coll.all_to_all`` of this rank's block and the gradient of its
+    output's weighted sum, beside the same exchange done by ``all_gather``
+    (differentiable, its backward the reduce-scatter) and slicing:
+    ``[out, grad, out by all_gather, grad by all_gather]``."""
+    inp = cases.all_to_all_inputs(world)
+    w = torch.from_numpy(inp["w"][case][rank])
+    outs = []
+    for exchange in ("all_to_all", "all_gather"):
+        x = torch.from_numpy(inp["x"][rank]).requires_grad_()
+        if exchange == "all_to_all":
+            y = coll.all_to_all(x, mesh, "x", split, concat)
+        else:
+            whole = coll.all_gather(x[None], mesh, ("x",), 0)
+            y = torch.cat([b.chunk(world, split)[rank] for b in whole],
+                          dim=concat)
+        (g,) = torch.autograd.grad((y * w).sum(), x)
+        outs += [y.detach().numpy(), g.numpy()]
+    return outs
 
 
 def job_pipeline(rank, world, workdir):
@@ -373,14 +398,18 @@ def _family_pieces(world, workdir):
     return out
 
 
-def _train_run(arch, mesh, embed, workdir, dtype, mutant=None):
+def _train_run(arch, mesh, embed, workdir, dtype, mutant=None,
+               data_name=None):
     """``arch``'s smoke config in ``dtype`` on ``mesh``, every result
     gathered whole: the loss, metrics and every gradient leaf of
     ``loss_fn`` over the whole batch (``accumulate_grads`` then
     ``sync_grads``, the train step's own parts), and one
     ``make_train_step`` step at ``TRAIN_ACCUM`` (its metrics, the
     gradient it hands AdamW and the updated parameters).  ``mutant``
-    replaces one part by a wrong one (``cases.TRAIN_MUTANTS``)."""
+    replaces one part by a wrong one (``cases.TRAIN_MUTANTS``,
+    ``cases.MOE_MUTANTS``).  The inputs are ``WORKDIR/<data_name>.npz``
+    (``train_<arch>`` by default): the parameters, the batch and its
+    modality inputs."""
     from repro_torch.configs.base import get_config
     from repro_torch.launch import steps
     from repro_torch.models import model as mdl
@@ -390,14 +419,16 @@ def _train_run(arch, mesh, embed, workdir, dtype, mutant=None):
     from repro_torch.parallel import sharding as shd
     cfg = get_config(arch, smoke=True).replace(
         compute_dtype=str(dtype)[6:], embed_impl=embed)
-    data = np.load(os.path.join(workdir, f"train_{arch}.npz"))
+    data = np.load(os.path.join(workdir,
+                                f"{data_name or 'train_' + arch}.npz"))
     whole = unflatten({k[2:]: torch.from_numpy(data[k]).to(dtype)
                        for k in data if k.startswith("p:")})
     defs = mdl.model_defs(cfg)
     specs = mdl.train_specs(cfg, mesh)
     rows = (mdl._bspec(mesh), None)
     batch = {k: shd.shard(torch.from_numpy(data[k]), rows, mesh)
-             for k in ("tokens", "targets", "loss_mask")}
+             for k in ("tokens", "targets", "loss_mask") + cases.MODALITIES
+             if k in data}
     batch["loss_mask"] = batch["loss_mask"].to(dtype)
 
     def gather(tree):
@@ -410,10 +441,13 @@ def _train_run(arch, mesh, embed, workdir, dtype, mutant=None):
     def recorded(opt_cfg, params, state, grads, **kw):
         seen.append(gather(grads))
         return apply(opt_cfg, params, state, grads, **kw)
+    from repro_torch.models import moe
     wrong = {"no_model_psum": (coll, "grad_psum", lambda x, mesh, axes: x),
              "own_mask_sum": (mdl, "_mask_total",
                               lambda mask, mesh, axes: mask.sum()),
-             "own_rows_microbatches": (steps, "microbatches", _own_rows)}
+             "own_rows_microbatches": (steps, "microbatches", _own_rows),
+             **{name: (moe, "coll", cases.MoEMutant(name, coll))
+                for name, _ in cases.MOE_MUTANTS}}
     patches = [(adamw, "apply", recorded)]
     if mutant:
         patches.append(wrong[mutant])
@@ -490,6 +524,55 @@ def job_train(rank, world, workdir):
     return out
 
 
+def job_train_families(rank, world, workdir):
+    """Each case of ``cases.family_train_cases`` on this world's meshes:
+    ``_train_run`` in float32 and float64, the prefill step's
+    last-position logits in float32 (and bf16 for
+    ``cases.bf16_family_cases``), and the mutants of
+    ``cases.MOE_MUTANTS``."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch import steps
+    from repro_torch.models import model as mdl
+    from repro_torch.models.blocks import shard_params, unflatten
+    from repro_torch.parallel import sharding as shd
+    meshes, out = {}, {}
+    bf16 = {key for key, _, _ in cases.bf16_family_cases()}
+    for key, arch, shape, seq in cases.family_train_cases():
+        if shape[0] * shape[1] != world:
+            continue
+        if shape not in meshes:
+            meshes[shape] = make_mesh(shape, ("data", "model"), device="cpu")
+        mesh = meshes[shape]
+        name = f"family_train_{arch}_s{seq}"
+        res = {dt: _train_run(arch, mesh, "gather", workdir,
+                              getattr(torch, dt), data_name=name)
+               for dt in ("float32", "float64")}
+        data = np.load(os.path.join(workdir, f"{name}.npz"))
+        whole = unflatten({k[2:]: torch.from_numpy(data[k]) for k in data
+                           if k.startswith("p:")})
+        rows = (mdl._bspec(mesh), None)
+        for dt, toks in (("float32", "tokens"), ("bfloat16", "prefill16")):
+            if dt == "bfloat16" and key not in bf16:
+                continue
+            cfg = get_config(arch, smoke=True).replace(compute_dtype=dt)
+            params = shard_params(whole, mdl.model_defs(cfg),
+                                  shd.ShardingPlan(mesh), mesh)
+            batch = {k: shd.shard(torch.from_numpy(data[k]), rows, mesh)
+                     for k in cases.MODALITIES if k in data}
+            batch["tokens"] = shd.shard(torch.from_numpy(data[toks]), rows,
+                                        mesh)
+            logits = steps.make_prefill_step(cfg, mesh=mesh)(params, batch)
+            res[f"prefill_{dt}"] = shd.gather(logits, rows + (None,),
+                                              mesh).numpy()
+        for mutant, mkey in cases.MOE_MUTANTS:
+            if mkey == key:
+                res[mutant] = _train_run(arch, mesh, "gather", workdir,
+                                         torch.float32, mutant,
+                                         data_name=name)
+        out[key] = res
+    return out
+
+
 def job_ckpt_save(rank, world, workdir):
     """Shard a granite smoke tree on a (2, 2) mesh, gather it whole and
     write it from rank 0 (a checkpoint written on 4 ranks)."""
@@ -535,6 +618,18 @@ def job_ckpt_restore(rank, world, workdir):
             "local_wq": tuple(tree["blocks"]["sub0"]["mixer"]["wq"].shape)}
 
 
+#: what a rank other than 0 writes of a job's results, where its test
+#: reads less than rank 0's (the others write everything)
+RANK_VIEW = {
+    "serve": lambda out: {},
+    "families": lambda out: {"pieces": out["pieces"]},
+    "train": lambda out: {key: {"float32": {"step": {
+        "metrics": res["float32"]["step"]["metrics"]}}}
+        for key, res in out.items()},
+}
+RANK_VIEW["train_families"] = RANK_VIEW["train"]
+
+
 def main():
     job, rank, world, workdir, name = sys.argv[1], int(sys.argv[2]), \
         int(sys.argv[3]), sys.argv[4], sys.argv[5]
@@ -551,6 +646,8 @@ def main():
     leaked = [m for m in sys.modules if m == "jax" or m.startswith(
         ("jax.", "repro.")) or m == "repro"]
     assert not leaked, leaked
+    if rank and job in RANK_VIEW:
+        out = RANK_VIEW[job](out)
     with open(os.path.join(workdir, f"{name}_{rank}.pkl"), "wb") as fh:
         pickle.dump(out, fh)
 

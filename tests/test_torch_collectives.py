@@ -10,10 +10,12 @@ butterfly with the combines ``add``, ``min`` and ``_softmax_merge``,
 value (a tree reduce's partials on the ranks other than the root too).
 The reference runs the same cases under ``shard_map`` on the first n of
 8 host devices, once per module; the port in three gloo worlds
-(``tests/_torch_dist.py``, 120 s each, hard), all at once.  Then the
+(``tests/_torch_dist.py``: under its lock, each limit ``MARGIN`` times
+the time measured alone), all at once.  Then the
 pipeline: ``tests/test_pipeline.py``'s case (8 stages of 2 layers, 4
 microbatches) on 8 ranks against the reference's pipelined and
-sequential results.
+sequential results.  And ``all_to_all`` at every world size and four
+(split, concat) pairs: its output and its gradient.
 """
 from __future__ import annotations
 
@@ -21,7 +23,8 @@ import numpy as np
 import pytest
 
 import _torch_mesh_cases as cases
-from _torch_dist import start_reference, start_world
+from _torch_dist import (exclusive, limit, run, start_reference,
+                         start_world)
 
 REF_SRC = r"""
 import os, pickle, sys
@@ -108,6 +111,12 @@ with open(os.path.join(sys.argv[1], "reference_0.pkl"), "wb") as fh:
     pickle.dump({"collectives": out, "pipeline": pipe}, fh)
 """
 
+#: seconds each world and the reference took with this module alone on an
+#: 8-CPU host, the largest of the runs measured (their limits are
+#: ``_torch_dist.limit`` of these: ``MARGIN`` times, at least
+#: ``MIN_LIMIT``)
+ALONE = {"collectives2": 8.8, "collectives4": 9.6, "collectives8": 11.3,
+         "pipeline8": 11.3, "reference": 27.9}
 ALL_CASES = [(n,) + c for n in cases.WORLDS for c in cases.collective_cases(n)]
 BROADCASTS = ("tree_broadcast", "unicast_broadcast", "ring_broadcast")
 
@@ -115,12 +124,17 @@ BROADCASTS = ("tree_broadcast", "unicast_broadcast", "ring_broadcast")
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     workdir = tmp_path_factory.mktemp("collectives")
-    ref = start_reference("reference", REF_SRC, 8, workdir, timeout=400)
-    worlds = {n: start_world("collectives", n, workdir) for n in cases.WORLDS}
-    pipe = start_world("pipeline", cases.PIPE["stages"], workdir)
+    with exclusive():
+        ref = start_reference("reference", REF_SRC, 8, workdir,
+                              timeout=limit(ALONE["reference"]))
+        worlds = {n: start_world("collectives", n, workdir,
+                                 timeout=limit(ALONE[f"collectives{n}"]))
+                  for n in cases.WORLDS}
+        pipe = start_world("pipeline", cases.PIPE["stages"], workdir,
+                           timeout=limit(ALONE["pipeline8"]))
+        run(*worlds.values(), pipe, ref)
     port = {}
     for n, w in worlds.items():
-        w.wait()
         ranks = [w.result(r) for r in range(n)]
         for key in ranks[0]:
             per = [r[key] for r in ranks]
@@ -128,9 +142,7 @@ def runs(tmp_path_factory):
                                for i in range(len(per[0]))]
                               if isinstance(per[0], list)
                               else np.concatenate(per))
-    pipe.wait()
     stages = [pipe.result(r) for r in range(cases.PIPE["stages"])]
-    ref.wait()
     return {"port": port, "pipeline": stages, "ref": ref.result()}
 
 
@@ -154,6 +166,28 @@ def test_collective_matches_reference(runs, case):
         root_block = cases.collective_inputs(n)["v"][root * rows:
                                                      (root + 1) * rows]
         np.testing.assert_array_equal(got[0], np.tile(root_block, (n, 1)))
+
+
+@pytest.mark.parametrize("dims", cases.ALL_TO_ALL_DIMS,
+                         ids=lambda d: f"split{d[0]}_concat{d[1]}")
+@pytest.mark.parametrize("n", cases.WORLDS)
+def test_all_to_all_and_its_gradient(runs, n, dims):
+    """``collectives.all_to_all`` on gloo: each rank's output is block
+    ``rank`` of every rank's input concatenated in rank order, and its
+    gradient (the exchange back) is autograd's of the same exchange done
+    by a differentiable ``all_gather`` and slicing, bit for bit."""
+    split, concat = dims
+    out, grad, out_ref, grad_ref = runs["port"][(n, f"all_to_all/"
+                                                 f"{split}{concat}")]
+    inp = cases.all_to_all_inputs(n)
+    want = cases.all_to_all_want(inp["x"], split, concat)
+    np.testing.assert_array_equal(out, np.concatenate(want))
+    np.testing.assert_array_equal(out_ref, out)
+    np.testing.assert_array_equal(grad, grad_ref)
+    # the gradient is the weights exchanged back
+    w = np.stack(inp["w"][cases.ALL_TO_ALL_DIMS.index(dims)])
+    np.testing.assert_array_equal(grad, np.concatenate(
+        cases.all_to_all_want(w, concat, split)))
 
 
 def test_pipeline_matches_reference(runs):

@@ -15,7 +15,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_dist import start_world
+from _torch_dist import exclusive, limit, run, start_world
 from repro.checkpoint.sharded import CheckpointManager as RefCkpt
 from repro.configs import base as ref_base
 from repro.launch.mesh import single_device_mesh as ref_single
@@ -68,6 +68,12 @@ def test_group_epoch_fencing_matches_reference():
     assert groups[0].epoch == groups[1].epoch == 2
 
 
+#: seconds each world took with this module alone on an 8-CPU host (their
+#: limits are ``_torch_dist.limit`` of these: ``MARGIN`` times, at least
+#: ``MIN_LIMIT``)
+ALONE = {"ckpt_save4": 2.1, "ckpt_restore2": 2.0}
+
+
 @pytest.fixture(scope="module")
 def written(tmp_path_factory):
     """The tree written from a 4-rank (2, 2) world, then restored in a
@@ -75,8 +81,11 @@ def written(tmp_path_factory):
     workdir = tmp_path_factory.mktemp("elastic")
     tree = granite_tree()
     np.savez(workdir / "tree.npz", **dict(port_blocks.tree_leaves(tree)))
-    save = start_world("ckpt_save", 4, workdir).wait()
-    restore = start_world("ckpt_restore", 2, workdir).wait()
+    with exclusive():
+        save, = run(start_world("ckpt_save", 4, workdir,
+                                timeout=limit(ALONE["ckpt_save4"])))
+        restore, = run(start_world("ckpt_restore", 2, workdir,
+                                   timeout=limit(ALONE["ckpt_restore2"])))
     return {"tree": tree, "dir": workdir, "save": save.result(),
             "restore": [restore.result(r) for r in range(2)]}
 

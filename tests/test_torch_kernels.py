@@ -1416,43 +1416,6 @@ def test_cuda_wide_mm_gradient_is_the_products_in_the_inputs_dtype():
     assert all(torch.equal(x, y) for x, y in zip(got, want))
 
 
-#: the families whose prefill and training on a mesh are not ported yet
-MESH_LATER = ("mixtral_8x7b", "mamba2_370m", "jamba_v0_1_52b",
-              "whisper_medium", "internvl2_26b")
-
-
-@pytest.mark.parametrize("arch", MESH_LATER)
-def test_training_and_prefill_on_a_mesh_raise_for_the_other_families(arch):
-    """MoE, Mamba-2, the hybrid, the encoder-decoder and the VLM raise
-    ``NotImplementedError`` naming ROADMAP queue 1 item 8 on a 4-rank
-    mesh, from ``forward_hidden`` and ``loss_fn`` before any work (no
-    process group is touched), and from the train and prefill steps when
-    they are made."""
-    from repro_torch.configs.base import get_config
-    from repro_torch.launch import mesh as port_mesh
-    from repro_torch.launch import steps as port_steps
-    from repro_torch.models import model as port_model
-    from repro_torch.optim import adamw
-    cfg = get_config(arch, smoke=True)
-    mesh = port_mesh.Mesh(("data", "model"), (1, 4), coords=(0, 0),
-                          lines=((0,), (0, 1, 2, 3)), groups=(None, None),
-                          device=torch.device("cpu"))
-    model = port_model.Model(cfg, device="cpu")
-    tokens = torch.zeros((1, 16), dtype=torch.long)
-    batch = {"tokens": tokens, "targets": tokens}
-    calls = [lambda: port_model.forward_hidden(model.params, batch, cfg,
-                                               mesh=mesh),
-             lambda: port_model.loss_fn(model.params, batch, cfg, mesh=mesh),
-             lambda: port_steps.make_prefill_step(cfg, mesh=mesh)(
-                 model.params, batch),
-             lambda: port_steps.make_train_step(cfg, mesh=mesh)(
-                 model.params, adamw.init(model.params), batch)]
-    for call in calls:
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP queue 1 item 8"):
-            call()
-
-
 # ================================================================ ssd scan
 
 #: tests/test_kernels.py's SSD_CASES, then mamba2_370m's head shape

@@ -18,9 +18,10 @@ reference package.
   other families' serve steps are held in
   ``tests/test_torch_mesh_families.py``.
 
-The reference runs once per module in a subprocess on 8 host devices and
-the port in two gloo worlds (4 and 8 ranks, ``tests/_torch_dist.py``:
-120 s each, hard), all three at once.  The reference runs under ``jit``
+The reference runs once per module, one subprocess an arch on 8 host
+devices each, and the port in two gloo worlds (4 and 8 ranks,
+``tests/_torch_dist.py``: under its lock, each limit ``MARGIN`` times the
+time measured alone), all at once.  The reference runs under ``jit``
 with ``--xla_allow_excess_precision=false``: XLA then rounds to bf16
 wherever the code asks (as op by op, bit for bit, checked at (1, 4)),
 where by default it keeps float32 inside fusions and moves bf16 logits
@@ -42,7 +43,8 @@ import pytest
 import torch
 
 import _torch_mesh_cases as cases
-from _torch_dist import SRC, start_reference, start_world
+from _torch_dist import (SRC, exclusive, limit, merged, run,
+                         start_references, start_world)
 from repro.configs import base as ref_base
 from repro.models import blocks as ref_blocks
 from repro.models import model as ref_model
@@ -225,7 +227,7 @@ def unflatten(flat):
 out = {}
 for case in cases.serve_cases():
     key = cases.ref_key(case[1:])
-    if key in out:
+    if key in out or case[1] not in GROUP:
         continue
     arch, shape, bs, sched, dt, _, embed = case[1:]
     cfg = get_config(arch, smoke=True).replace(
@@ -254,7 +256,7 @@ for case in cases.serve_cases():
 # input_specs: every argument's block shape and dtype under the
 # reference's shardings
 blocks = {}
-for arch, shape_name, shape in cases.INPUT_SPEC_CELLS:
+for arch, shape_name, shape in cases.INPUT_SPEC_CELLS if FIRST else ():
     spec = ref_steps.lowering_spec(get_config(arch), shape_name,
                                    mesh_of(shape))
     args = jax.tree_util.tree_leaves(spec.args)
@@ -269,7 +271,7 @@ order = {shape: np.vectorize(lambda d: d.id)(
     jax.make_mesh(shape, ("data", "model")).devices).tolist()
     for shape in ((2, 4), (4, 2), (1, 8))}
 
-with open(os.path.join(workdir, "reference_0.pkl"), "wb") as fh:
+with open(os.path.join(workdir, f"{NAME}_0.pkl"), "wb") as fh:
     pickle.dump({"serve": out, "input_specs": blocks, "order": order}, fh)
 """
 
@@ -286,16 +288,19 @@ def runs(tmp_path_factory):
         np.savez(workdir / f"serve_{arch}.npz",
                  **{f"p:{k}": v for k, v in params.items()},
                  **cases.serve_inputs(arch, cfg))
-    ref = start_reference("reference", REF_SRC, 8, workdir, timeout=400,
-                          xla_flags="--xla_allow_excess_precision=false")
-    worlds = [start_world("serve", n, workdir) for n in (4, 8)]
-    for w in worlds:
-        w.wait()
-    ref.wait()
+    with exclusive():
+        refs = start_references(
+            "reference", REF_SRC, [(a,) for a in cases.SERVE_ARCHES], 8,
+            workdir, timeout=limit(ALONE["reference"]),
+            xla_flags="--xla_allow_excess_precision=false")
+        worlds = [start_world("serve", n, workdir,
+                              timeout=limit(ALONE[f"serve{n}"]))
+                  for n in (4, 8)]
+        run(*worlds, *refs)
     port = {}
     for w in worlds:
         port.update(w.result())
-    return {"port": port, "ref": ref.result(), "dir": workdir}
+    return {"port": port, "ref": merged(refs), "dir": workdir}
 
 
 @functools.lru_cache(maxsize=None)
@@ -322,6 +327,11 @@ def one_device(arch, dt, workdir):
 
 #: (compute dtype, tolerance against the reference on the same mesh)
 SERVE_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+#: seconds each world and the reference took with this module alone on an
+#: 8-CPU host, the largest of the runs measured (their limits are
+#: ``_torch_dist.limit`` of these: ``MARGIN`` times, at least
+#: ``MIN_LIMIT``)
+ALONE = {"serve4": 33.2, "serve8": 42.0, "reference": 81.5}
 
 
 @pytest.mark.parametrize("case", cases.serve_cases(), ids=lambda c: c[0])

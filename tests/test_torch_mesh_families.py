@@ -23,10 +23,11 @@ decoder, against the reference package.
 
 Parameters are drawn with every leaf random
 (``_torch_mesh_cases.drawn_params``), every cache leaf filled from a
-seed.  The reference runs once per module in a subprocess on 8 host
-devices under ``jit`` with ``--xla_allow_excess_precision=false`` (as
+seed.  The reference runs once per module, in three subprocesses side by
+side (``REF_GROUPS``), each on 8 host devices, under ``jit`` with ``--xla_allow_excess_precision=false`` (as
 ``tests/test_torch_mesh.py`` runs it), beside the port's 4-rank and
-8-rank gloo worlds (``tests/_torch_dist.py``).
+8-rank gloo worlds (``tests/_torch_dist.py``: under its lock, each limit
+``MARGIN`` times the time measured alone).
 """
 from __future__ import annotations
 
@@ -38,7 +39,8 @@ import pytest
 import torch
 
 import _torch_mesh_cases as cases
-from _torch_dist import start_reference, start_world
+from _torch_dist import (exclusive, limit, merged, run, start_references,
+                         start_world)
 from repro_torch.configs import base as port_base
 from repro_torch.launch import mesh as port_mesh
 from repro_torch.launch import steps as port_steps
@@ -50,6 +52,11 @@ from repro_torch.parallel import sharding as port_sharding
 
 #: (compute dtype, tolerance against the reference on the same mesh)
 SERVE_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+#: seconds each world and the reference took with this module alone on an
+#: 8-CPU host, the largest of the runs measured (their limits are
+#: ``_torch_dist.limit`` of these: ``MARGIN`` times, at least
+#: ``MIN_LIMIT``)
+ALONE = {"families4": 35.3, "families8": 35.3, "reference": 75.3}
 
 REF_SRC = r"""
 import os, pickle, sys
@@ -85,6 +92,8 @@ def leaves(tree, prefix=""):
 
 out = {}
 for key, arch, shape, bs, sched, dt in cases.family_cases():
+    if arch not in GROUP:
+        continue
     cfg = get_config(arch, smoke=True).replace(compute_dtype=dt,
                                                collective_schedule=sched)
     data = np.load(os.path.join(workdir, f"family_{arch}.npz"))
@@ -112,9 +121,14 @@ for key, arch, shape, bs, sched, dt in cases.family_cases():
                 **{f"c:{n}": np.asarray(t.astype(jnp.float32))
                    for n, t in leaves(caches)}}
 
-with open(os.path.join(workdir, "reference_0.pkl"), "wb") as fh:
+with open(os.path.join(workdir, f"{NAME}_0.pkl"), "wb") as fh:
     pickle.dump(out, fh)
 """
+
+
+#: the reference's cases by arch, one process a group, side by side
+REF_GROUPS = (("jamba_v0_1_52b",), ("mixtral_8x7b", "qwen3_moe_235b_a22b"),
+              ("mamba2_370m", "whisper_medium", "internvl2_26b"))
 
 
 def _structs(cfg):
@@ -136,14 +150,16 @@ def runs(tmp_path_factory):
                  **{f"p:{k}": v for k, v in params.items()},
                  **cases.family_inputs(cfg, _structs(cfg),
                                        cases.FAMILY_START[arch]))
-    ref = start_reference("reference", REF_SRC, 8, workdir, timeout=400,
-                          xla_flags="--xla_allow_excess_precision=false "
-                                    "--xla_backend_optimization_level=0")
-    worlds = [start_world("families", n, workdir, timeout=240)
-              for n in (4, 8)]
-    for w in worlds:
-        w.wait()
-    ref.wait()
+    with exclusive():
+        refs = start_references(
+            "reference", REF_SRC, REF_GROUPS, 8, workdir,
+            timeout=limit(ALONE["reference"]),
+            xla_flags="--xla_allow_excess_precision=false "
+                      "--xla_backend_optimization_level=0")
+        worlds = [start_world("families", n, workdir,
+                              timeout=limit(ALONE[f"families{n}"]))
+                  for n in (4, 8)]
+        run(*worlds, *refs)
     port, port64, pieces = {}, {}, {}
     for w in worlds:
         for r in range(len(w.procs)):
@@ -154,7 +170,7 @@ def runs(tmp_path_factory):
             for key, res in got["pieces"].items():
                 pieces.setdefault(key, []).append(res)
     return {"port": port, "port64": port64, "pieces": pieces,
-            "ref": ref.result(), "dir": workdir}
+            "ref": merged(refs), "dir": workdir}
 
 
 @functools.lru_cache(maxsize=None)
@@ -385,19 +401,18 @@ def test_expert_blocks_of_the_ranks_sum_to_the_layer(arch, dtype):
         torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
 
 
-def test_moe_train_on_a_mesh_raises():
-    """``moe_train``'s expert-parallel dispatch is not ported (prefill and
-    training on a mesh, ROADMAP queue 1 item 8): ``moe_apply`` raises for
-    it on a mesh of more than one rank, and runs it on a (1, 1) one."""
+def test_moe_train_on_a_mesh_of_one_is_the_one_device_layer():
+    """``moe_apply`` on a (1, 1) mesh runs ``moe_train``'s mesh code (the
+    dispatch with every all_to_all on an axis of one rank) and gives the
+    one-device layer's output and router loss bit for bit."""
     cfg = port_base.get_config("mixtral_8x7b", smoke=True)
     model = port_model.Model(cfg, device="cpu")
     p = {k: v[0] for k, v in model.params["blocks"]["sub0"]["ffn"].items()
          if k != "norm"}
+    mesh = port_mesh.single_device_mesh("cpu")
+    sp = {k: v[1:] for k, v in port_blocks.tree_leaves(
+        port_model.train_specs(cfg, mesh)["blocks"]["sub0"]["ffn"])}
     x = torch.randn(2, 8, cfg.d_model)
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-        port_moe.moe_apply(p, x, cfg, mesh=port_mesh.abstract_mesh(
-            (1, 4), ("data", "model")))
-    y, aux = port_moe.moe_apply(p, x, cfg,
-                                mesh=port_mesh.single_device_mesh("cpu"))
+    y, aux = port_moe.moe_apply(p, x, cfg, mesh=mesh, sp=sp)
     want, want_aux = port_moe.moe_train(p, x, cfg)
     assert torch.equal(y, want) and torch.equal(aux, want_aux)

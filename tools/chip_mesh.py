@@ -107,6 +107,31 @@ recorded.
     2), the same batch and numbers.  Gates: finite losses, every rank's
     ``grad_norm`` equal.
 
+14. ``train_mixtral14``: mixtral_8x7b at full width cut to 2 layers
+    (3.17 B parameters) on (1, 4), its 8 experts 2 a rank (``"ep"``):
+    each rank's quarter of the sequence dispatched to the experts'
+    owners and back by ``all_to_all`` on NCCL.  Gate: the float32 cut,
+    one step at 2 x 2048 in 2 against the same step on rank 0 alone by
+    ``train_granite22``'s rule (``gate_faults``), at capacity factor 4
+    (``gate_capacity``: neither side can drop a row there; the mesh drops
+    at each source's slots a destination, one device at each expert's,
+    so at the config's 1.25 the two can drop different rows), with no
+    dropped row on either side (``Drops`` counts them, at 1.25 too), the
+    router loss left out of its gradient (a mesh's is the mean of the
+    ranks' own, the reference's pmean, not the one device's), and the two
+    ``MOE_WRONG_STEPS`` (the return skipped, the input's gradient psum
+    left out) rejected by it.  Then bf16 compute,
+    ``steps`` steps and one profiled: ms a step, peak GB a rank, and
+    ``TRAIN_RANGES`` with ``moe_dispatch`` and ``moe_return`` (device and
+    host ms against the wall step); finite losses, every rank's
+    ``grad_norm`` equal.
+15. ``probe_mixtral14`` (only when named): that gate taken apart.  The
+    mesh step against rank 0 alone in float64 compute at 1 layer (the
+    attention through its plain version), and rank 0 pushed by 1e-7
+    against itself in float32 by the gate's own rule.  With
+    ``--rehearse --d-model 512`` both mixtral phases run on gloo ranks
+    at the full vocabulary, head counts and gate batch.
+
 Four cards for the new families alone (~10 min of command):
 
     python3 -m torch.distributed.run --standalone --nproc-per-node 4 \\
@@ -115,6 +140,8 @@ Four cards for the new families alone (~10 min of command):
 from __future__ import annotations
 
 import argparse
+import contextlib
+import datetime
 import json
 import math
 import os
@@ -128,7 +155,9 @@ import torch.distributed as dist
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.join(REPO, "src"))
 sys.path.insert(0, REPO)          # chip_smoke.model_flops
+sys.path.insert(0, os.path.join(REPO, "tests"))   # the MoE mutants
 
+import _torch_mesh_cases as cases  # noqa: E402
 from repro_torch.configs.base import get_config  # noqa: E402
 from repro_torch.core import collectives as coll  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
@@ -137,6 +166,7 @@ from repro_torch.launch.mesh import make_mesh, single_device_mesh  # noqa: E402
 from repro_torch.launch.steps import make_serve_step  # noqa: E402
 from repro_torch.models import model as mdl  # noqa: E402
 from repro_torch.models import attention as attn  # noqa: E402
+from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models import ssm as ssm_mod  # noqa: E402
 from repro_torch.models.blocks import (count_params, init_sharded_params,  # noqa: E402
                                        param_specs, rms_norm, tree_leaves,
@@ -165,6 +195,11 @@ FULL = dict(qwen=dict(arch="qwen1_5_110b", smoke=False, batch=4, seq=32768,
                                  seq=4096, accum=2, steps=3),
             train_qwen22=dict(arch="qwen1_5_110b", smoke=False, layers=2,
                               batch=4, seq=4096, accum=2, steps=3),
+            # the gate's float32 step on rank 0 alone holds the whole
+            # 50.7 GB state: its batch is cut to 2 x 2048
+            train_mixtral14=dict(arch="mixtral_8x7b", smoke=False, layers=2,
+                                 batch=4, seq=4096, accum=2, steps=3,
+                                 gate=(2, 2048)),
             prefill_qwen=dict(arch="qwen1_5_110b", smoke=False, seq=32768),
             prefill_pieces=dict(arch="qwen1_5_110b", smoke=False,
                                 seq16=32768, seq32=4096))
@@ -184,6 +219,9 @@ SMALL = dict(qwen=dict(arch="qwen1_5_110b", smoke=True, batch=4, seq=64,
                                   seq=64, accum=2, steps=2),
              train_qwen22=dict(arch="qwen1_5_110b", smoke=True, layers=2,
                                batch=4, seq=64, accum=2, steps=2),
+             train_mixtral14=dict(arch="mixtral_8x7b", smoke=True, layers=2,
+                                  batch=4, seq=64, accum=2, steps=2,
+                                  gate=(4, 64)),
              prefill_qwen=dict(arch="qwen1_5_110b", smoke=True, seq=64),
              prefill_pieces=dict(arch="qwen1_5_110b", smoke=True, seq16=64,
                                  seq32=32))
@@ -310,6 +348,9 @@ RANGES = ("softmax_combine", "moe_combine")
 TRAIN_RANGES = ("fsdp_gather", "model_psum", "grad_psum",
                 "grad_reduce_scatter", "train_step.grad_sync",
                 "train_step.adamw")
+#: the MoE train step's ranges besides: the expert-parallel dispatch
+#: (the rows and their expert ids, all_to_all) and the return
+MOE_TRAIN_RANGES = TRAIN_RANGES + ("moe_dispatch", "moe_return")
 
 
 def _short(name):
@@ -1097,6 +1138,12 @@ WRONG_STEPS = {"no_model_psum": (coll, "grad_psum",
                                  lambda x, mesh, axes: x),
                "own_mask_sum": (mdl, "_mask_total",
                                 lambda mask, mesh, axes: mask.sum())}
+
+
+#: wrong expert-parallel steps that ``train_mixtral14``'s gate must reject
+#: (``tests/_torch_mesh_cases.MOE_MUTANTS``, the gloo worlds' own)
+MOE_WRONG_STEPS = {name: (moe_mod, "coll", cases.MoEMutant(name, coll))
+                   for name, _ in cases.MOE_MUTANTS}
 #: the card's bf16 peak (dense, H100 SXM), for mfu
 PEAK_BF16 = 989e12
 
@@ -1124,7 +1171,8 @@ def gate_step(cfg, mesh, batch, accum, push=0.0, wrong=None):
     ``push`` scales 1% of every leaf's elements by (1 + push) first (a
     rounding-sized push on one rank alone: the yardstick of how far the
     gradient moves with a float32 rounding).  ``wrong`` names one of
-    ``WRONG_STEPS`` to put in place of the right part for this step."""
+    ``WRONG_STEPS`` to put in place of the right part for this step.
+    The gathered trees are kept on rank 0 alone (None elsewhere)."""
     from repro_torch.launch.steps import make_train_step
     from repro_torch.optim import adamw
     defs = mdl.model_defs(cfg)
@@ -1137,10 +1185,13 @@ def gate_step(cfg, mesh, batch, accum, push=0.0, wrong=None):
         t.copy_(torch.where(pick, t * (1 + push), t))
 
     def whole(tree):
-        # a copy: AdamW scales the gradient by the clip factor in place
-        return {n: shd.gather(t, sp, mesh).to("cpu", copy=True)
-                for (n, t), (_, sp) in zip(tree_leaves(tree),
-                                           tree_leaves(specs))}
+        # a copy (AdamW scales the gradient by the clip factor in place),
+        # kept on rank 0 alone, the one that compares
+        keep = dist.get_rank() == 0
+        return {n: g.to("cpu", copy=True) if keep else None
+                for n, g in ((n, shd.gather(t, sp, mesh))
+                             for (n, t), (_, sp) in zip(
+                                 tree_leaves(tree), tree_leaves(specs)))}
     seen, apply = [], adamw.apply
 
     def recorded(opt_cfg, p, state, grads, **kw):
@@ -1148,7 +1199,7 @@ def gate_step(cfg, mesh, batch, accum, push=0.0, wrong=None):
         return apply(opt_cfg, p, state, grads, **kw)
     patches = [(adamw, "apply", recorded)]
     if wrong:
-        patches.append(WRONG_STEPS[wrong])
+        patches.append({**WRONG_STEPS, **MOE_WRONG_STEPS}[wrong])
     saved = [(module, name, getattr(module, name))
              for module, name, _ in patches]
     for module, name, fn in patches:
@@ -1163,7 +1214,7 @@ def gate_step(cfg, mesh, batch, accum, push=0.0, wrong=None):
     return ({k: float(v) for k, v in m.items()}, seen[0], whole(params))
 
 
-def gate_faults(got, want, pushed=None):
+def gate_faults(got, want, pushed=None, push_faults=None):
     """Where the (2, 2) step leaves rank 0 alone: the loss and
     ``grad_norm`` beyond ``TRAIN_TOL``; every updated leaf beyond it
     outside the elements whose first AdamW step is held by the float64
@@ -1179,25 +1230,28 @@ def gate_faults(got, want, pushed=None):
     ill-conditioned (a 1e-7 push on 1% of the parameters moves it by up
     to 1e-3 of its largest magnitude), so that share is far above the
     smoke configs' 1%, and the gradient itself is held to the push as
-    well.  ``WRONG_STEPS`` are the faults this gate must reject."""
+    well.  ``WRONG_STEPS`` are the faults this gate must reject.  The
+    trees lie on the host; each leaf is compared on the rank's device."""
     (m, g, p), (m1, g1, p1) = got, want
     out = {"metrics": [k for k in ("loss", "grad_norm")
                        if abs(m[k] - m1[k]) > TRAIN_TOL * (1 + abs(m1[k]))],
            "leaves": {}, "grad_rel": {}}
     noise = total = 0
-    for name, w in p1.items():
-        err = float((g[name] - g1[name]).abs().max())
-        out["grad_rel"][name] = err / max(float(g1[name].abs().max()),
-                                          1e-30)
-        kept = (g1[name] == 0) | (g1[name].abs() > err)
+    for name in p1:
+        gn, g1n, pn, w = (t[name].to(DEV[0]) for t in (g, g1, p, p1))
+        err = float((gn - g1n).abs().max())
+        out["grad_rel"][name] = err / max(float(g1n.abs().max()), 1e-30)
+        kept = (g1n == 0) | (g1n.abs() > err)
         noise += int((~kept).sum())
         total += kept.numel()
-        far = (p[name] - w).abs() > TRAIN_TOL * (1 + w.abs())
+        far = (pn - w).abs() > TRAIN_TOL * (1 + w.abs())
         if bool((far & kept).any()):
-            out["leaves"][name] = float((p[name] - w).abs()[kept].max())
+            out["leaves"][name] = float((pn - w).abs()[kept].max())
+        del gn, g1n, pn, w, kept, far
     out["noise_share"] = noise / total
     if pushed is not None:
-        out["pushed_1e-7_grad_rel"] = gate_faults(pushed, want)["grad_rel"]
+        push_faults = push_faults or gate_faults(pushed, want)
+        out["pushed_1e-7_grad_rel"] = push_faults["grad_rel"]
         out["grads"] = {n: r for n, r in out["grad_rel"].items()
                         if r > ORACLE_FACTOR * max(
                             out["pushed_1e-7_grad_rel"][n], 1e-7)}
@@ -1206,7 +1260,8 @@ def gate_faults(got, want, pushed=None):
     return out
 
 
-def timed_train(cfg, mesh, whole, mine, accum, steps, label):
+def timed_train(cfg, mesh, whole, mine, accum, steps, label,
+                ranges=TRAIN_RANGES):
     """``steps`` steps of ``make_train_step`` on ``mesh`` from the seed-0
     float32 state (``init_sharded_params``), then one more under
     torch.profiler: ms a step (after the first), tok/s, mfu (the
@@ -1245,7 +1300,7 @@ def timed_train(cfg, mesh, whole, mine, accum, steps, label):
         float(m["loss"])
         sync(dev)
         wall = (time.perf_counter() - t0) * 1e3
-    summary = profile_summary(prof, wall, 1, TRAIN_RANGES)
+    summary = profile_summary(prof, wall, 1, ranges)
     peak = torch.cuda.max_memory_allocated(dev) / 1e9 \
         if dev.type == "cuda" else 0.0
     b, seq = whole["tokens"].shape
@@ -1273,7 +1328,7 @@ def timed_train(cfg, mesh, whole, mine, accum, steps, label):
         f"{row['ms_per_step']:.1f} ms a step after the first ({ms}), "
         f"{row['tokens_per_s']:.1f} tok/s, mfu {row['mfu']:.4f}, peak "
         f"{row['peak_gb_max']:.2f} GB a rank, launches a rank {launches}; "
-        f"profiled step: {profile_line(summary, TRAIN_RANGES)}")
+        f"profiled step: {profile_line(summary, ranges)}")
     for key, t, n in summary["top_device_ms"]:
         log(f"[{label}]   device {t:10.3f} ms  {n:6d}x  {key[:90]}")
     del params, state, step
@@ -1368,6 +1423,227 @@ def train_qwen_phase(spec, dev_kind):
         fail("train_qwen22: a loss is not finite or the ranks' grad norms "
              "differ")
     return {"train_qwen22": row}
+
+
+class Drops:
+    """``models/moe._bucket_ffn`` counting the (token, k) rows the experts
+    keep: an expert keeps its first ``cap_e`` rows (the stable rank), so
+    ``sum(min(rows_e, cap_e))``; a row dropped before (at a mesh source's
+    ``cap`` slots a destination) never reaches it.  ``calls`` counts the
+    rank's calls (one a MoE sublayer and microbatch)."""
+
+    def __enter__(self):
+        self.real, self.kept, self.calls = moe_mod._bucket_ffn, 0, 0
+        moe_mod._bucket_ffn = self.counted
+        return self
+
+    def __exit__(self, *exc):
+        moe_mod._bucket_ffn = self.real
+
+    def counted(self, rows, eids, n_exp, cap_e, *args):
+        per = torch.bincount(eids[eids < n_exp], minlength=n_exp)
+        self.kept += int(torch.clamp(per, max=cap_e).sum())
+        self.calls += 1
+        return self.real(rows, eids, n_exp, cap_e, *args)
+
+
+def dropped_rows(cfg, mesh, batch, accum, global_tokens):
+    """The (token, k) rows ``cfg``'s MoE forward drops on ``mesh`` (all
+    ranks together) from ``gate_step``'s seed-0 float32 state, over the
+    ``accum`` microbatches of ``batch`` (this rank's rows of a batch of
+    ``global_tokens``): every row routed less every row an expert kept,
+    summed over the sublayers.  Forward only."""
+    from repro_torch.launch.steps import microbatches
+    params = init_sharded_params(mdl.model_defs(cfg), shd.ShardingPlan(mesh),
+                                 mesh, seed=0, dtype=torch.float32)
+    with torch.no_grad(), Drops() as seen:
+        for mb in microbatches(batch, accum, mesh):
+            mdl.loss_fn(params, mb, cfg, mesh=mesh)
+    kept = torch.tensor([seen.kept], device=DEV[0])
+    if mesh.size > 1:
+        dist.all_reduce(kept)
+    routed = seen.calls * global_tokens // accum * cfg.top_k
+    del params
+    free(mesh.device)
+    return routed - int(kept.item())
+
+
+def gate_capacity(cfg, ep):
+    """The least capacity factor at which neither side of the MoE gate
+    can drop a row: a mesh source's ``cap`` slots a destination
+    (``cf n / ep`` of its n rows) hold them all when cf >= ep, and an
+    expert's slots (``cf n / E`` on one device; ``ep cap / e_local``, the
+    same, on the mesh) hold every token once when cf >= E / k (a token's
+    k rows go to k different experts)."""
+    return float(max(ep, cfg.n_experts / cfg.top_k))
+
+
+def mixtral_base(spec):
+    """The mixtral phases' config: ``spec``'s depth, and its ``width``
+    where given (the head counts, vocabulary and experts kept)."""
+    cfg = get_config(spec["arch"], smoke=spec["smoke"]).replace(
+        n_layers=spec["layers"])
+    if "width" in spec:
+        w = spec["width"]
+        cfg = cfg.replace(d_model=w, head_dim=w // cfg.n_heads, d_ff=2 * w,
+                          moe_d_ff=2 * w)
+    return cfg
+
+
+def train_mixtral_phase(spec, dev_kind):
+    """mixtral_8x7b at full width, 2 of its 32 layers, on (1, 4) with
+    expert-parallel dispatch: the float32 cut's step against rank 0 alone
+    (``train_granite22``'s gate, at ``gate_capacity``, where neither side
+    can drop a row; the rows each side drops at the config's own capacity
+    factor and at that one counted), then bf16 compute, ``steps`` steps
+    and one profiled with the dispatch's ranges."""
+    label = "train_mixtral14"
+    mesh = make_mesh((1, 4), ("data", "model"), device=dev_kind)
+    base = mixtral_base(spec)
+    b, seq, accum = spec["batch"], spec["seq"], spec["accum"]
+    # the router loss of a mesh is the mean of each rank's over its own
+    # tokens (the reference's pmean), not the one device's over all of
+    # them: the gate's step leaves it out of the gradient.  A mesh drops
+    # rows at each source's slots a destination, one device at each
+    # expert's slots: the gate runs where neither drops any
+    cf = gate_capacity(base, mesh.shape["model"])
+    cut = base.replace(compute_dtype="float32", router_aux_coef=0.0,
+                       capacity_factor=cf)
+    whole, mine = train_batch(cut, *spec["gate"], mesh, 7)
+    tokens = spec["gate"][0] * spec["gate"][1]
+    cfs = (base.capacity_factor, cf)
+    drops = {"mesh": {c: dropped_rows(cut.replace(capacity_factor=c), mesh,
+                                      mine, accum, tokens) for c in cfs}}
+    got = gate_step(cut, mesh, mine, accum)
+    wrong = {name: gate_step(cut, mesh, mine, accum, wrong=name)
+             for name in MOE_WRONG_STEPS}
+    free(mesh.device)
+    out = {}
+    if dist.get_rank() == 0:
+        one = single_device_mesh(device=str(mesh.device))
+        drops["alone"] = {c: dropped_rows(cut.replace(capacity_factor=c),
+                                          one, whole, accum, tokens)
+                          for c in cfs}
+        drops["rows"] = tokens * cut.top_k * cut.n_layers
+        want = gate_step(cut, one, whole, accum)
+        free(mesh.device)
+        pushed = gate_step(cut, one, whole, accum, push=1e-7)
+        out["gate"] = gate_faults(got, want, pushed)
+        out["gate"]["capacity_factor"] = cf
+        out["gate"]["dropped_rows"] = drops
+        out["gate"]["ok"] &= drops["mesh"][cf] == drops["alone"][cf] == 0
+        out["wrong_steps"] = {}
+        for name, res in wrong.items():
+            faults = gate_faults(res, want, pushed)
+            out["wrong_steps"][name] = {
+                "rejected": not faults["ok"], "metrics": faults["metrics"],
+                "leaves_off": len(faults["leaves"]),
+                "grad_leaves_off": len(faults["grads"]),
+                "noise_share": faults["noise_share"],
+                "largest_grad_rel": max(faults["grad_rel"].values())}
+            log(f"[{label}] wrong step {name}: {out['wrong_steps'][name]}")
+        del pushed
+        out["gate"].update(loss=got[0]["loss"], loss_alone=want[0]["loss"],
+                           grad_norm=got[0]["grad_norm"],
+                           grad_norm_alone=want[0]["grad_norm"])
+        log(f"[{label}] float32 on (1, 4) vs rank 0 alone, one step at "
+            f"{spec['gate'][0]} x {spec['gate'][1]} in {accum}, capacity "
+            f"factor {cf}: loss {got[0]['loss']!r} / {want[0]['loss']!r}, "
+            f"grad_norm {got[0]['grad_norm']!r} / "
+            f"{want[0]['grad_norm']!r}, metrics off "
+            f"{out['gate']['metrics']}, leaves off {out['gate']['leaves']}, "
+            f"gradient leaves off {out['gate']['grads']}, share held by "
+            f"the float64 rule {out['gate']['noise_share']!r}, gradient "
+            f"distance / max by leaf {out['gate']['grad_rel']}; rank 0 alone "
+            f"pushed by 1e-7 on 1% of each leaf: "
+            f"{out['gate']['pushed_1e-7_grad_rel']}; (token, k) rows "
+            f"dropped by capacity factor {drops}; ok {out['gate']['ok']}")
+        del want
+    del got, wrong
+    free(mesh.device)
+    if not agree(out["gate"]["ok"] if dist.get_rank() == 0 else True):
+        fail(f"{label}: the float32 step left the tolerance of rank 0 "
+             f"alone, or a side dropped rows")
+    if not agree(all(w["rejected"] for w in out["wrong_steps"].values())
+                 if dist.get_rank() == 0 else True):
+        fail(f"{label}: the gate passed a wrong step {out['wrong_steps']}")
+    whole, mine = train_batch(base, b, seq, mesh, 8)
+    out["run"] = timed_train(base, mesh, whole, mine, accum, spec["steps"],
+                             label, MOE_TRAIN_RANGES)
+    if not agree(all(np.isfinite(out["run"]["losses"]))
+                 and out["run"]["grad_norms_equal_on_every_rank"]
+                 and wgmma_launches(out["run"], base, accum, spec["steps"])):
+        fail(f"{label}: a loss is not finite, the ranks' grad norms differ "
+             f"or the attention kernel's launches are not two a layer and "
+             f"microbatch")
+    return {label: out}
+
+
+@contextlib.contextmanager
+def plain_attention(on):
+    """``kernels.flash_attention`` through its plain version
+    (``ref.mha_reference``) while ``on``: float64 attention, which no
+    kernel takes.  A probe's switch, never the gate's."""
+    real = fa.flash_attention
+    if on:
+        fa.flash_attention = (lambda q, k, v, **kw:
+                              fa.ref.mha_reference(q, k, v, **kw))
+    try:
+        yield
+    finally:
+        fa.flash_attention = real
+
+
+def probe_mixtral_phase(spec, dev_kind):
+    """``train_mixtral14``'s gate taken apart.  (a) The mesh step against
+    rank 0 alone in float64 compute (weights, gradient and AdamW state
+    float32; attention through its plain version, as no kernel takes
+    float64), cut to 1 layer to fit one card: the program's arithmetic
+    at full width on NCCL, where a fault would read far above the
+    float32 storage of the gradient.  (b) The float32 gate's yardstick,
+    rank 0 alone pushed by 1e-7 against itself, by the gate's own rule:
+    how far a rounding-sized push moves the metrics, the leaves and the
+    share of the float64 rule."""
+    label = "probe_mixtral14"
+    mesh = make_mesh((1, 4), ("data", "model"), device=dev_kind)
+    base = mixtral_base(spec).replace(router_aux_coef=0.0)
+    base = base.replace(capacity_factor=gate_capacity(
+        base, mesh.shape["model"]))
+    accum, out = spec["accum"], {}
+    for dt, layers in (("float64", 1), ("float32", spec["layers"])):
+        cut = base.replace(compute_dtype=dt, n_layers=layers)
+        whole, mine = train_batch(cut, *spec["gate"], mesh, 7)
+        with plain_attention(dt == "float64"):
+            got = gate_step(cut, mesh, mine, accum) if dt == "float64" \
+                else None
+            free(mesh.device)
+            if dist.get_rank() == 0:
+                one = single_device_mesh(device=str(mesh.device))
+                want = gate_step(cut, one, whole, accum)
+                free(mesh.device)
+                pushed = gate_step(cut, one, whole, accum, push=1e-7)
+        if dist.get_rank() == 0:
+            res = {"push": gate_faults(pushed, want)}
+            pairs = [("push", pushed)]
+            if got is not None:
+                res["mesh"] = gate_faults(got, want, pushed, res["push"])
+                pairs.append(("mesh", got))
+            for name, (m, _, _) in pairs:
+                res[name].update(
+                    loss_off=abs(m["loss"] - want[0]["loss"]),
+                    grad_norm_off=abs(m["grad_norm"] - want[0]["grad_norm"]),
+                    grad_norm_alone=want[0]["grad_norm"])
+                log(f"[{label}] {dt}, {layers} layers, {name} vs rank 0 "
+                    f"alone: " + str({k: res[name][k] for k in (
+                        "loss_off", "grad_norm_off", "grad_norm_alone",
+                        "metrics", "leaves", "noise_share", "grad_rel",
+                        "ok")}))
+            out[dt] = res
+            del want, pushed
+        del got
+        free(mesh.device)
+        dist.barrier()
+    return {label: out}
 
 
 def prefill_qwen_phase(spec, dev_kind):
@@ -1504,11 +1780,20 @@ def main() -> int:
     ap.add_argument("--phases",
                     default="pieces,qwen,granite22,collectives,pipeline,"
                             "moe_pieces,mixtral,jamba,prefill_pieces,"
-                            "prefill_qwen,train_granite22,train_qwen22")
+                            "prefill_qwen,train_granite22,train_qwen22,"
+                            "train_mixtral14")
+    ap.add_argument("--d-model", type=int, default=None,
+                    help="with --rehearse: the mixtral phases at full "
+                         "vocabulary, head counts and gate batch, at this "
+                         "width (head_dim d / 32, moe_d_ff 2 d)")
     ap.add_argument("--out", default=None,
                     help="the result's file name under chiprun_out/")
     args = ap.parse_args()
     sizes = SMALL if args.rehearse else FULL
+    if args.rehearse and args.d_model:
+        sizes = dict(sizes, train_mixtral14=dict(
+            FULL["train_mixtral14"], width=args.d_model, batch=4, seq=64,
+            steps=2))
     if args.rehearse:
         dev_kind = "cpu"
         dist.init_process_group("gloo")
@@ -1518,7 +1803,10 @@ def main() -> int:
             return 2
         local = int(os.environ.get("LOCAL_RANK", 0))
         torch.cuda.set_device(local)
-        dist.init_process_group("nccl",
+        # rank 0 alone runs a gate's reference steps and compares whole
+        # float32 trees on the host while the others wait in a collective:
+        # at mixtral's width that outlasted NCCL's default 10 minutes
+        dist.init_process_group("nccl", timeout=datetime.timedelta(hours=1),
                                 device_id=torch.device("cuda", local))
         dev_kind = "cuda"
         DEV[0] = torch.device("cuda", local)
@@ -1566,6 +1854,11 @@ def main() -> int:
                 out.update(train_granite_phase(sizes[name], dev_kind))
             elif name == "train_qwen22":
                 out.update(train_qwen_phase(sizes[name], dev_kind))
+            elif name == "train_mixtral14":
+                out.update(train_mixtral_phase(sizes[name], dev_kind))
+            elif name == "probe_mixtral14":
+                out.update(probe_mixtral_phase(sizes["train_mixtral14"],
+                                               dev_kind))
             elif name == "prefill_qwen":
                 out.update(prefill_qwen_phase(sizes[name], dev_kind))
             elif name == "prefill_pieces":
