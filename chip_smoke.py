@@ -113,6 +113,15 @@ version on the card:
      apps: ``tools/check_apps.py``'s archs and mesh: train-step time per
      transport and the serving generator's achieved QPS within 10%,
      ``param_count == count_params(model_defs)``;
+   - dryrun: the dry run's predictions (``launch/steps.lower_cell`` on a
+     (1, 1) mesh of fake tensors, traced on the host) for the steps of
+     train_granite, prefill_granite, the granite serve step of ``mesh``
+     and train_mixtral, held to the card: kernel calls a step equal to
+     the phase's launches and to ``train_launches`` / ``path_launches``,
+     argument bytes equal to the real tensors' sum (both exact), the
+     predicted peak of live bytes within 10% of the step's measured
+     peak; the counted FLOPs beside the model FLOPs and the measured
+     step time, and ``roofline_fraction`` at that time, printed;
 3. **kernels** every kernel input the paths produced: the max-min
    kernels in float32 and float64, plus random many-round problems and
    the +inf-bottleneck lane (the kernel against its plain version:
@@ -174,12 +183,20 @@ import numpy as np
 import torch
 
 REPO = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, os.path.join(REPO, "src"))
 
-#: H100 SXM peaks (NVIDIA data sheet): HBM bytes/s; FLOP/s by the dtype
-#: of the inputs (float32/64 outside the tensor cores, bf16 dense on them)
-PEAK_BYTES = 3.35e12
-PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 34e12,
-              torch.bfloat16: 989e12}
+# the card's yardsticks, defined once in the package: H100 SXM datasheet
+# peaks (HBM bytes/s; FLOP/s by the dtype of the inputs), each kernel's
+# operations and bytes, the model FLOPs of a train step, and the kernel
+# calls a path makes
+from repro_torch.kernels import flash_attention as fa_cost  # noqa: E402
+from repro_torch.kernels import flash_decode as fd_cost  # noqa: E402
+from repro_torch.kernels import ssd_scan as ssd_cost  # noqa: E402
+from repro_torch.kernels.flash_attention import attn_pairs  # noqa: E402
+from repro_torch.kernels.ssd_scan import ssd_ops  # noqa: E402
+from repro_torch.launch.roofline import (  # noqa: E402
+    HBM_BW as PEAK_BYTES, PEAK_FLOPS, path_launches, train_launches,
+    train_step_flops as model_flops)
 
 #: kernel -> (the TPU kernel it replaces, its source in the port)
 KERNELS = {
@@ -388,6 +405,15 @@ TRAIN = (("train_granite", "granite_3_2b", 0, 4, 4096, 2, "trainer"),
          ("train_internvl2", "internvl2_26b", 4, 2, 4096, 1, "step"))
 #: steps of each train phase; one more is traced with torch.profiler
 TRAIN_STEPS = 3
+#: the dry run's predictions held to the card: (phase whose step is
+#: traced, its kind); each phase's config, batch, sequence and
+#: microbatches are its own entry's (``TRAIN``, ``PREFILL``; the granite
+#: serve step of ``mesh``: ``MESH``, float32 weights as the serve phase
+#: draws them)
+DRYRUN = (("train_granite", "train"), ("prefill_granite", "prefill"),
+          ("mesh", "decode"), ("train_mixtral", "train"))
+#: the predicted peak of live bytes against the step's measured peak
+DRYRUN_PEAK_TOL = 0.10
 #: the card-vs-CPU check of training: smoke configs in float32 (TF32
 #: off), steps, batch, sequence; through the ``Trainer`` (with the
 #: checkpoint period and the injected crash of the restart check) and
@@ -837,19 +863,21 @@ class DecodeRecorder:
         return self._call(q, k, v, kv_len)
 
 
-def path_launches(cfg, decode):
-    """Kernel launches the path makes: a decode step one ``flash_decode``
-    per attention sublayer (two with a cross-attention); a prefill one
-    ``flash_attention`` per attention sublayer of the decoder (two with a
-    cross-attention) and of the encoder, one ``ssd_scan`` per Mamba-2
-    sublayer."""
-    kinds = [m for m, _ in cfg.pattern] * cfg.n_blocks
-    n_attn, n_mamba = kinds.count("attn"), kinds.count("mamba")
-    per_attn = 2 if cfg.enc_layers else 1
-    if decode:
-        return {"flash_decode": n_attn * per_attn}
-    return {"flash_attention": n_attn * per_attn + cfg.enc_layers,
-            "ssd_scan": n_mamba}
+def tree_bytes(*trees, card_only=False) -> int:
+    """``numel x element_size`` summed over the tensors (and the host
+    arrays, unless ``card_only``) of nested dicts, lists and tuples."""
+    n = 0
+    for t in trees:
+        if isinstance(t, torch.Tensor):
+            n += t.numel() * t.element_size() \
+                if t.is_cuda or not card_only else 0
+        elif isinstance(t, np.ndarray):
+            n += 0 if card_only else t.nbytes
+        elif isinstance(t, dict):
+            n += tree_bytes(*t.values(), card_only=card_only)
+        elif isinstance(t, (list, tuple)):
+            n += tree_bytes(*t, card_only=card_only)
+    return n
 
 
 def scheduled_steps(prompt_lens, max_new, pool):
@@ -1114,14 +1142,23 @@ def mesh_phase(model, device="cuda", spec=MESH, label="mesh"):
                               tree_leaves(caches[1])):
         c.copy_(a)
     toks = torch.from_numpy(np.random.default_rng(0).integers(
-        0, cfg.vocab_size, (spec["steps"], b, 1))).to(device)
+        0, cfg.vocab_size, (spec["steps"], b, 1))).to(device, torch.int32)
     got, want = [], []
+    # the step's arguments (the position an int32, as the reference takes
+    # it), and the first step's peak above what else the card holds
+    args = (model.params, caches[0], toks[0])
+    arg_bytes = tree_bytes(*args) + 4
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
     reset_counts()
     t0 = time.perf_counter()
     for i in range(spec["steps"]):
         got.append(step(model.params, caches[0], toks[i],
                         spec["start"] + i)[0])
+        if i == 0:
+            step_peak = torch.cuda.max_memory_allocated() - base \
+                + tree_bytes(*args, card_only=True)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = counts()
@@ -1140,7 +1177,8 @@ def mesh_phase(model, device="cuda", spec=MESH, label="mesh"):
            "plan": "inference" if not step.cfg.fsdp_weights else "default",
            "ms_per_step": wall / spec["steps"] * 1e3,
            "identical_to_decode_forward": same, "logits_finite": finite,
-           "launches": launches}
+           "launches": launches, "argument_bytes": arg_bytes,
+           "step_peak_bytes": step_peak}
     log(f"[paths] {label}: make_serve_step on single_device_mesh, "
         f"{cfg.name} ({cfg.n_layers} layers) {b} x {spec['seq']} slots, "
         f"{spec['steps']} steps from {spec['start']}: "
@@ -1401,7 +1439,8 @@ def prefill_batch(cfg, batch, seq, device):
     normals, as the reference's ``batch_structs`` shapes them."""
     rng = np.random.default_rng(0)
     out = {"tokens": torch.tensor(rng.integers(0, cfg.vocab_size,
-                                               (batch, seq)), device=device)}
+                                               (batch, seq)),
+                                  dtype=torch.int32, device=device)}
     gen = torch.Generator(device=device).manual_seed(0)
 
     def embed(n):
@@ -1428,13 +1467,19 @@ def prefill_phase(label, cfg, batch, seq, rec, profile=False,
     inputs = prefill_batch(cfg, batch, seq, device)
     want_launches = path_launches(cfg, decode=False)
     rec.arm(label, want_launches)
+    arg_bytes = tree_bytes(model.params, inputs)
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
     reset_counts()
     t0 = time.perf_counter()
     logits = step(model.params, inputs)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = counts()
+    # the step's peak above what else the card holds (the recorder's
+    # captured kernel inputs count in it)
+    step_peak = torch.cuda.max_memory_allocated() - base + arg_bytes
     rec.phase = None
     finite = bool(torch.isfinite(logits).all())
     row = {"arch": cfg.name, "n_layers": cfg.n_layers,
@@ -1444,7 +1489,8 @@ def prefill_phase(label, cfg, batch, seq, rec, profile=False,
            "wall_s": wall, "prompt_tokens_per_s": batch * seq / wall,
            "logits_shape": list(logits.shape), "logits_finite": finite,
            "launches": launches,
-           "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "argument_bytes": arg_bytes, "step_peak_bytes": step_peak}
     if profile:
         torch.cuda.synchronize()
         prof = torch.profiler.profile(activities=[
@@ -1548,76 +1594,6 @@ def run_prefill(rec, phases=PREFILL):
 
 # ---------------------------------------------------------------- train
 
-def ssd_ops(b, s, h, p, n, chunk):
-    """Operations of the SSD scan's products (see ``ssd_bound``)."""
-    lens = [min(chunk, s - c0) for c0 in range(0, s, chunk)]
-    return sum(b * ln * (ln + 1) * n + b * h * (ln * (ln + 1) * p
-                                               + 4 * ln * n * p)
-               for ln in lens)
-
-
-def model_flops(cfg, batch, seq):
-    """Model FLOPs of one train step of ``batch`` sequences of ``seq``
-    decoder positions, forward and backward (3 x the forward): 2 x the
-    weights each position passes (a decoder position the blocks' weights,
-    of an MoE ffn only its ``top_k`` of ``n_experts`` experts, a text
-    position also the LM head, a vision position ``vis_proj``, an encoder
-    frame ``enc_in``, the encoder's blocks and every decoder layer's
-    cross-attention k and v), plus the attention products the mask keeps
-    (q Kᵀ and P V: 4 D a kept (query, key) pair and head: causal or
-    windowed self-attention, the encoder's bidirectional attention, the
-    cross-attention of every decoder position over every frame) or the
-    SSD scan's products."""
-    from repro_torch.models.blocks import count_params
-    from repro_torch.models.model import model_defs
-    from repro_torch.models.ssm import ssm_dims
-    defs = model_defs(cfg)
-    d = cfg.d_model
-    frames = max(seq // max(cfg.audio_stride, 1), 8) if cfg.enc_layers else 0
-    text = seq - cfg.vision_prefix
-    blocks = count_params(defs["blocks"])
-    per_frame = 0
-    for j, (mixer, ffn) in enumerate(cfg.pattern):
-        sub = defs["blocks"][f"sub{j}"]
-        if ffn == "moe":
-            experts = sum(count_params(sub["ffn"][k])
-                          for k in ("we_i", "we_g", "we_o"))
-            blocks -= experts * (1 - cfg.top_k / cfg.n_experts)
-        if cfg.enc_layers and mixer == "attn":
-            cross_kv = count_params(sub["mixer"]["xwk"]) \
-                + count_params(sub["mixer"]["xwv"])
-            blocks -= cross_kv
-            per_frame += cross_kv
-    fwd = 2 * batch * (seq * blocks + text * d * cfg.vocab_size
-                       + cfg.vision_prefix * d * d)
-    hd_heads = 4 * cfg.hd * cfg.n_heads * batch
-    for mixer, _ in cfg.pattern:
-        if mixer == "attn":
-            fwd += cfg.n_blocks * hd_heads * (
-                attn_pairs(seq, seq, True, cfg.window)
-                + (attn_pairs(seq, frames, False, 0) if frames else 0))
-        else:
-            _, h, p, n_state, _ = ssm_dims(cfg)
-            fwd += cfg.n_blocks * ssd_ops(batch, seq, h, p, n_state,
-                                          min(256, seq))
-    if frames:
-        per_frame += count_params(defs["enc_blocks"]) + d * d
-        fwd += 2 * batch * frames * per_frame + cfg.enc_layers * hd_heads \
-            * attn_pairs(frames, frames, False, 0)
-    return 3 * fwd
-
-
-def train_launches(cfg, passes):
-    """Kernel launches of ``passes`` forward-and-backward passes: the
-    prefill path's launches (``path_launches``: each attention sublayer,
-    its cross-attention and each encoder layer one ``flash_attention``,
-    each Mamba-2 sublayer one ``ssd_scan``) each pass, twice where the
-    config rematerialises its blocks (the recompute in the backward)."""
-    per = 2 if cfg.remat != "none" else 1
-    return {k: n * per * passes
-            for k, n in path_launches(cfg, decode=False).items() if n}
-
-
 def train_batches(cfg, batch, seq, steps, device):
     """``steps`` train batches shaped by ``launch/steps.batch_structs``,
     drawn from ``torch.Generator(device).manual_seed(0)``: tokens and
@@ -1712,13 +1688,25 @@ def train_phase(label, cfg, batch, seq, accum, route):
             def one_more():
                 runner.step(runner.params, runner.opt_state,
                             batches[TRAIN_STEPS])
+        # the step's arguments (a Trainer's batch is a host array, copied
+        # to the card inside the step), and the steps' peak above what
+        # else the card holds
+        args = (runner.params, runner.opt_state,
+                runner.pipeline.batch_at(0) if route == "trainer"
+                else batches[0])
+        arg_bytes = tree_bytes(*args)
         torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
         reset_counts()
         t0 = time.perf_counter()
         out = run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = counts()
+        step_peak = torch.cuda.max_memory_allocated() - base \
+            + tree_bytes(*args, card_only=True)
+        del args
         prof = torch.profiler.profile(activities=[
             torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA])
@@ -1748,6 +1736,7 @@ def train_phase(label, cfg, batch, seq, accum, route):
            "model_flops_per_step": flops,
            "mfu": flops / step_s / PEAK_FLOPS[torch.bfloat16],
            "peak_gb": peak, "launches": launches,
+           "argument_bytes": arg_bytes, "step_peak_bytes": step_peak,
            "profile": profile_summary(prof, prof_ms, 1), "log": lines}
     tr = row["profile"]
     by_range = tr["range_device_ms_per_step"]
@@ -2113,6 +2102,98 @@ def run_mesh_steps(steps=MESH_STEPS):
         out[f"mesh_train{suffix}"] = mesh_train_phase(
             cfg, dict(batch=tb, seq=ts, accum=accum), f"mesh_train{suffix}")
     log(f"[paths] mesh steps: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+# ---------------------------------------------------------------- dry run
+
+def dryrun_cell(label, kind):
+    """``(cfg, cell, steps)`` of a ``DRYRUN`` phase: its config, a
+    ``launch/steps.SHAPE_TABLE``-style cell of its batch, sequence and
+    microbatches, and the steps the phase counted launches over."""
+    from repro_torch.configs.base import get_config
+    if kind == "decode":
+        cfg = get_config(SERVE["arch"])
+        return cfg, dict(seq=MESH["seq"], batch=MESH["batch"], kind=kind,
+                         param_dtype=torch.float32), MESH["steps"]
+    table = TRAIN if kind == "train" else PREFILL
+    entry = next(e for e in table if e[0] == label)
+    arch, layers, batch, seq = entry[1:5]
+    cfg = get_config(arch)
+    if layers:
+        cfg = cfg.replace(n_layers=layers)
+    cell = dict(seq=seq, batch=batch, kind=kind)
+    if kind == "train":
+        cell["accum"] = entry[5]
+    return cfg, cell, TRAIN_STEPS if kind == "train" else 1
+
+
+def run_dryrun(paths, phases=DRYRUN):
+    """The dry run's predictions (``launch/steps.lower_cell`` on a (1, 1)
+    mesh of fake tensors, on the host) for steps the phases ran, held to
+    what the card measured: each kernel's calls a step equal to the
+    launches the phase counted a step and to ``train_launches`` /
+    ``path_launches`` (exact); the argument bytes equal to the sum of the
+    phase's real parameters, moments, batch or caches (exact); the
+    predicted peak of live bytes within ``DRYRUN_PEAK_TOL`` of the step's
+    measured peak (``max_memory_allocated`` above what else the card
+    held, plus the arguments).  Printed, not gated: the counted FLOPs
+    beside the model FLOPs and the measured step time, and
+    ``roofline_fraction`` at the measured time."""
+    from repro_torch.launch import roofline, steps
+    from repro_torch.launch.mesh import single_device_mesh
+    mesh = single_device_mesh("cpu")
+    out = {}
+    for label, kind in phases:
+        row = paths[label]
+        cfg, cell, n_steps = dryrun_cell(label, kind)
+        t0 = time.perf_counter()
+        counts, spec = steps.lower_cell(cfg, label, mesh,
+                                        table={label: cell})
+        t_trace = time.perf_counter() - t0
+        if kind == "decode":
+            want = roofline.path_launches(cfg, decode=True)
+            step_s = row["ms_per_step"] / 1e3
+        elif kind == "prefill":
+            want = roofline.path_launches(cfg, decode=False)
+            step_s = row["wall_s"]
+        else:
+            want = roofline.train_launches(cfg, spec.accum)
+            step_s = row["ms_per_step"] / 1e3
+        want = {k: n for k, n in want.items() if n}
+        traced = {k: v["calls"] for k, v in counts["kernels"].items()}
+        card = {k: row["launches"][k] / n_steps for k in want}
+        flops = roofline.train_step_flops(cfg, cell["batch"], cell["seq"]) \
+            if kind == "train" else roofline.model_flops(
+                cfg, cell, spec.n_params, 1)
+        t_star = flops / roofline.PEAK_FLOPS[getattr(torch,
+                                                      cfg.compute_dtype)]
+        pred, meas = counts["peak_bytes"], row["step_peak_bytes"]
+        rec = {"phase": label, "arch": cfg.name, "n_layers": cfg.n_layers,
+               **cell, "param_dtype": str(cell.get("param_dtype", "")),
+               "accum": spec.accum, "trace_s": t_trace,
+               "kernel_calls_traced": traced, "kernel_calls_card": card,
+               "kernel_calls_formula": want,
+               "argument_bytes_traced": counts["argument_bytes"],
+               "argument_bytes_card": row["argument_bytes"],
+               "peak_bytes_traced": pred, "peak_bytes_card": meas,
+               "peak_ratio": pred / meas,
+               "flops_traced": counts["flops"], "model_flops": flops,
+               "bytes_traced": counts["bytes"], "step_s_card": step_s,
+               "roofline_fraction_at_card_time": t_star / step_s}
+        log(f"[dryrun] {json.dumps(rec)}")
+        if not traced == card == want:
+            fail(f"dryrun {label}: kernel calls a step traced {traced}, "
+                 f"on the card {card}, by formula {want}")
+        if counts["argument_bytes"] != row["argument_bytes"]:
+            fail(f"dryrun {label}: argument bytes traced "
+                 f"{counts['argument_bytes']}, on the card "
+                 f"{row['argument_bytes']}")
+        if not abs(pred - meas) <= DRYRUN_PEAK_TOL * meas:
+            fail(f"dryrun {label}: predicted peak {pred} bytes, measured "
+                 f"{meas} (ratio {pred / meas:.4f}, band "
+                 f"{DRYRUN_PEAK_TOL})")
+        out[label] = rec
     return out
 
 
@@ -2796,12 +2877,11 @@ def run_kernels(rec, paths):
 
 def decode_bound(q, k, kv_len):
     """The valid cache prefix's keys and values read once, q read and
-    out, m, l written once; ~4 f32 operations per (key, q head, dim)."""
-    b, h, d = q.shape
+    out, m, l written once; ~4 f32 operations per (key, q head, dim)
+    (``kernels/flash_decode.cost``)."""
     n_keys = int(kv_len.clamp(0, k.shape[1]).sum())
-    n_bytes = (n_keys * k.shape[2] * d * 2 * k.element_size()
-               + 2 * q.numel() * q.element_size() + 2 * b * h * 4)
-    return bound(n_bytes, 4 * n_keys * h * d, torch.float32), n_keys
+    ops, n_bytes = fd_cost.cost(q, k, n_keys)
+    return bound(n_bytes, ops, torch.float32), n_keys
 
 
 def sdpa_ms(q, k, v, kv_len):
@@ -2909,27 +2989,12 @@ def run_decode_kernels(rec, paths):
     return rows
 
 
-def attn_pairs(sq, skv, causal, window, q_offset=0):
-    """(query, key) pairs inside the mask: what the kernel must compute
-    (query row s at position ``q_offset + s``)."""
-    qpos = torch.arange(sq) + q_offset
-    hi = torch.clamp(qpos + 1, max=skv) if causal \
-        else torch.full_like(qpos, skv)
-    lo = torch.clamp(qpos - window + 1, min=0) if window \
-        else torch.zeros_like(qpos)
-    return int(torch.clamp(hi - lo, min=0).sum())
-
-
 def attn_bound(q, k, causal, window, q_offset=0):
     """q, k, v read once and out written once; 4 D operations per head and
     (query, key) pair inside the causal band or window (the two
     products), at the peak of the inputs' dtype (bf16 on the tensor
-    cores)."""
-    b, sq, h, d = q.shape
-    n_bytes = 2 * q.numel() * q.element_size() \
-        + 2 * k.numel() * k.element_size()
-    ops = 4 * d * b * h * attn_pairs(sq, k.shape[1], causal, window,
-                                     q_offset)
+    cores) (``kernels/flash_attention.cost``)."""
+    ops, n_bytes = fa_cost.cost(q, k, causal, window, q_offset)
     return bound(n_bytes, ops, q.dtype), ops
 
 
@@ -3027,16 +3092,8 @@ def check_attention(name, q, k, v, causal, window, fa, ref, launches=0,
 
 def ssd_bound(x, B_, chunk, y_dtype):
     """x, dt, a, B_, C_ read once, y and the final state written once;
-    per (row, chunk of L) C B^T over the causal half, L(L+1) N operations
-    (shared by the heads), and per (row, head, chunk) its product with
-    x, L(L+1) P, plus C S_prev and B^T x, 2 L N P each."""
-    b, s, h, p = x.shape
-    n = B_.shape[-1]
-    es = torch.finfo(y_dtype).bits // 8
-    n_bytes = (x.numel() * x.element_size() + 2 * B_.numel()
-               * B_.element_size() + 2 * b * s * h * 4 + x.numel() * es
-               + b * h * n * p * 4)
-    ops = ssd_ops(b, s, h, p, n, chunk)
+    ``ssd_ops`` operations (``kernels/ssd_scan.cost``)."""
+    ops, n_bytes = ssd_cost.cost(x, B_, chunk, y_dtype)
     return bound(n_bytes, ops, x.dtype), ops
 
 
@@ -3443,6 +3500,7 @@ def main() -> int:
     paths.update(run_train())
     paths.update(run_mesh_steps())
     paths.update(run_packet(rec))
+    dryrun = run_dryrun(paths)
     rows = run_kernels(rec, paths) + run_decode_kernels(decode_rec, paths) \
         + run_split_kv() + run_prefill_kernels(prefill_rec, paths) \
         + run_train_kernels(prefill_rec) + run_q_offset_kernels()
@@ -3452,7 +3510,8 @@ def main() -> int:
     os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
     with open(os.path.join(REPO, "chiprun_out", "chip_smoke.json"),
               "w") as fh:
-        json.dump({"card": card, "paths": paths, "kernel_rows": rows,
+        json.dump({"card": card, "paths": paths, "dryrun": dryrun,
+                   "kernel_rows": rows,
                    "kernels": line["kernels"], "failures": FAILURES,
                    "seconds": time.perf_counter() - t_start}, fh, indent=1)
     if FAILURES:

@@ -41,6 +41,15 @@ of it, ``replicated=True``), ``reduce_scatter`` the all-gather,
 ``all_to_all`` the same exchange back, ``pmax`` none; and ``grad_psum``
 is the identity whose backward is the psum, for a tensor every rank
 holds alike entering a computation split over the axes.
+
+While a dry run counts (``trace.counting``), every call that moves data
+adds the bytes of its result on this rank to ``trace.collective``, by
+the reference's kind: ``all-reduce`` (``psum``, ``psum_``, ``pmax``),
+``all-gather``, ``reduce-scatter``, ``all-to-all``, and
+``collective-permute`` for each round of ``ppermute`` (the tree, ring
+and butterfly schedules), by the bytes this rank receives; each with
+the ranks of the axis line it ran on.  A fake tensor (``device.traced``)
+takes the card's path, so the library reduce-scatter.
 """
 from __future__ import annotations
 
@@ -50,6 +59,8 @@ from typing import Callable, Sequence
 import torch
 import torch.distributed as dist
 
+from repro_torch import trace
+from repro_torch.device import on_card
 # The analytic alpha-beta JCT model lives in core/metrics.py with the
 # rest of the accounting; re-exported here as the reference does.
 from repro_torch.core.metrics import schedule_cost  # noqa: F401
@@ -71,6 +82,11 @@ def _flat(x):
         return [x[k] for k in keys], lambda leaves: dict(zip(keys, leaves))
     kind = type(x)
     return list(x), lambda leaves: kind(leaves)
+
+
+def _ranks(mesh, axis: str):
+    """The global ranks of this rank's line along ``axis``."""
+    return mesh.lines[mesh.axis_names.index(axis)]
 
 
 def _tree_map(fn, *trees):
@@ -121,7 +137,11 @@ def ppermute(x, mesh, axis: str, perm):
     if ops:
         for req in dist.batch_isend_irecv(ops):
             req.wait()
-    return None if recv is None else rebuild(unpack(recv))
+    if recv is None:
+        return None
+    trace.collective("collective-permute",
+                     sum(trace.nbytes(b) for b in recv), _ranks(mesh, axis))
+    return rebuild(unpack(recv))
 
 
 # ---------------------------------------------------------------- schedules
@@ -242,6 +262,8 @@ def _reduce(x, mesh, axes, op):
             if out is None:
                 out = x.detach().clone(memory_format=torch.contiguous_format)
             dist.all_reduce(out, op=op, group=mesh.group(ax))
+            trace.collective("all-reduce", trace.nbytes(out),
+                             _ranks(mesh, ax))
     return x if out is None else out
 
 
@@ -254,6 +276,7 @@ def _gather(x, mesh, axes, dim):
         parts = [torch.empty_like(x) for _ in range(n)]
         dist.all_gather(parts, x, group=mesh.group(ax))
         x = torch.cat(parts, dim=dim)
+        trace.collective("all-gather", trace.nbytes(x), _ranks(mesh, ax))
     return x
 
 
@@ -271,15 +294,18 @@ def _own(x, mesh, axes, dim):
 def _scatter(x, mesh, axes, dim):
     """The sum of ``x`` over ``axes``, this rank's block of it along
     ``dim``: a library reduce-scatter on each axis of more than one rank
-    (the major axis first), an all-reduce and a cut on gloo."""
+    (the major axis first), an all-reduce and a cut on gloo (a real CPU
+    tensor)."""
     for ax in axes:
         n = mesh.shape[ax]
         if n == 1:
             continue
-        if x.is_cuda:
+        if on_card(x):
             src = x.detach().movedim(dim, 0).contiguous()
             out = src.new_empty((src.shape[0] // n,) + src.shape[1:])
             dist.reduce_scatter_tensor(out, src, group=mesh.group(ax))
+            trace.collective("reduce-scatter", trace.nbytes(out),
+                             _ranks(mesh, ax))
             x = out.movedim(0, dim)
         else:
             x = _own(_reduce(x, mesh, (ax,), dist.ReduceOp.SUM), mesh,
@@ -381,6 +407,7 @@ def psum_(x, mesh, axes: Sequence[str]):
     for ax in axes:
         if mesh.shape[ax] > 1:
             dist.all_reduce(x, group=mesh.group(ax))
+            trace.collective("all-reduce", trace.nbytes(x), _ranks(mesh, ax))
     return x
 
 
@@ -428,6 +455,7 @@ def _exchange(x, mesh, axis, split_dim, concat_dim):
     src = x.detach().movedim(split_dim, 0).contiguous()
     out = torch.empty_like(src)
     dist.all_to_all_single(out, src, group=mesh.group(axis))
+    trace.collective("all-to-all", trace.nbytes(out), _ranks(mesh, axis))
     blocks = out.view(n, src.shape[0] // n, *src.shape[1:]).unbind(0)
     return torch.cat([b.movedim(0, split_dim) for b in blocks],
                      dim=concat_dim)

@@ -2,6 +2,7 @@
 from __future__ import annotations
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
 
 
 def resolve_device(device) -> torch.device:
@@ -21,10 +22,19 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
+def traced(t: torch.Tensor) -> bool:
+    """True for a fake tensor: the dry run's stand-in for a tensor on the
+    card (``launch/steps.lower_cell``), which has shapes and dtypes and
+    no data, whatever device it names."""
+    return isinstance(t, FakeTensor)
+
+
 def on_card(t: torch.Tensor) -> bool:
     """A kernel wrapper's dispatch: True for a CUDA tensor (launch the
-    kernel), False for a CPU one (the plain version); others raise."""
-    if t.device.type == "cuda":
+    kernel) and for a fake one (``traced``: it takes the card's path,
+    and a wrapper counts the kernel's call instead of launching it),
+    False for a real CPU one (the plain version); others raise."""
+    if t.device.type == "cuda" or traced(t):
         return True
     if t.device.type == "cpu":
         return False

@@ -8,13 +8,17 @@ of ``q``: a CPU tensor takes the plain PyTorch version
 Hopper kernels of ``csrc/flash_attention.cu``, or raises; nothing falls
 back.  The kernels mask their own ragged tiles, so nothing is padded.
 The public entry with the reference's name is
-``kernels/ops.py:flash_attention``.
+``kernels/ops.py:flash_attention``.  A fake tensor (the dry run's,
+``device.traced``) launches nothing: the call adds ``cost`` to the dry
+run's count (``trace.kernel``) and returns an empty output.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-from repro_torch.device import on_card
+from repro_torch import trace
+from repro_torch.device import on_card, traced
 from repro_torch.kernels import ref
 
 #: kernel launches since the last ``reset_launches()``: the total, and
@@ -47,6 +51,28 @@ def variant(q, k) -> str:
     return "simt"
 
 
+def attn_pairs(sq, skv, causal, window, q_offset=0) -> int:
+    """(query, key) pairs inside the mask: what the kernel must compute
+    (query row s at position ``q_offset + s``)."""
+    qpos = np.arange(sq, dtype=np.int64) + q_offset
+    hi = np.minimum(qpos + 1, skv) if causal else np.full_like(qpos, skv)
+    lo = np.maximum(qpos - window + 1, 0) if window \
+        else np.zeros_like(qpos)
+    return int(np.maximum(hi - lo, 0).sum())
+
+
+def cost(q, k, causal, window, q_offset=0) -> tuple[int, int]:
+    """``(operations, bytes)`` of one call at q's and k's shapes and
+    dtypes: q, k, v read once and out written once; 4 D operations per
+    head and (query, key) pair inside the causal band or window (the two
+    products), at the peak of q's dtype (bf16 on the tensor cores)."""
+    b, sq, h, d = q.shape
+    n_bytes = 2 * q.numel() * q.element_size() \
+        + 2 * k.numel() * k.element_size()
+    return 4 * d * b * h * attn_pairs(sq, k.shape[1], causal, window,
+                                      q_offset), n_bytes
+
+
 def _check(q, k, v, window, q_offset=0):
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
         raise ValueError(f"flash_attention: q must be (B, Sq, H, D) and k, "
@@ -74,9 +100,8 @@ def _check(q, k, v, window, q_offset=0):
             raise ValueError(f"flash_attention: tensors on {t.device} and "
                              f"{q.device}")
     for t in (q, k, v):
-        if not t.is_contiguous() or t.data_ptr() % 16:
-            raise ValueError("flash_attention: q, k, v must be contiguous "
-                             "and 16-byte aligned")
+        if not t.is_contiguous():
+            raise ValueError("flash_attention: q, k, v must be contiguous")
     if variant(q, k) == "wgmma" \
             and max(sq * h, skv * kvh) * d * 2 >= MAX_TMA_STRIDE:
         raise ValueError(f"flash_attention: a batch stride of "
@@ -102,8 +127,16 @@ def flash_attention(q, k, v, *, causal=True, window=0, q_offset=0):
     if not on_card(q):
         return ref.mha_reference(q, k, v, causal=causal, window=window,
                                  q_offset=q_offset)
-    from repro_torch.kernels import build
     _check(q, k, v, window, q_offset)
+    if traced(q):
+        trace.kernel("flash_attention",
+                     *cost(q, k, causal, window, q_offset))
+        return torch.empty_like(q)
+    from repro_torch.kernels import build
+    for t in (q, k, v):
+        if t.data_ptr() % 16:
+            raise ValueError("flash_attention: q, k, v must be 16-byte "
+                             "aligned")
     kind = variant(q, k)
     b, sq, h, d = q.shape
     skv, kvh = k.shape[1], k.shape[2]

@@ -18,7 +18,8 @@ import functools
 
 import torch
 
-from repro_torch.device import on_card
+from repro_torch import trace
+from repro_torch.device import on_card, traced
 from repro_torch.kernels import ref
 
 #: kernel launches since the last ``reset_launches()``: the total, and
@@ -116,6 +117,17 @@ def _plan(q_shape, k_shape, v_shape, q_dtype, k_dtype, v_dtype, sms):
             d ** -0.5)
 
 
+def cost(q, k, n_keys: int) -> tuple[int, int]:
+    """``(operations, bytes)`` of one call over ``n_keys`` valid cache
+    positions in all (the sum of kv_len): those keys and values read
+    once, q read and out, m, l written once; ~4 float32 operations per
+    (key, q head, dim)."""
+    b, h, d = q.shape
+    n_bytes = (n_keys * k.shape[2] * d * 2 * k.element_size()
+               + 2 * q.numel() * q.element_size() + 2 * b * h * 4)
+    return 4 * n_keys * h * d, n_bytes
+
+
 def _check(q, k, v, kv_len):
     """What may change between calls of one plan: kv_len, the devices,
     the layout."""
@@ -127,9 +139,8 @@ def _check(q, k, v, kv_len):
             raise ValueError(f"flash_decode: tensors on {t.device} and "
                              f"{q.device}")
     for t in (q, k, v):
-        if not t.is_contiguous() or t.data_ptr() % 16:
-            raise ValueError("flash_decode: q, k, v must be contiguous and "
-                             "16-byte aligned")
+        if not t.is_contiguous():
+            raise ValueError("flash_decode: q, k, v must be contiguous")
 
 
 def flash_decode(q, k, v, kv_len, out_dtype=None):
@@ -150,13 +161,25 @@ def flash_decode(q, k, v, kv_len, out_dtype=None):
                          f"a bf16 cache, got {q.dtype} q, {k.dtype} cache")
     if not on_card(q):
         return ref.decode_reference(q, k, v, kv_len, out_dtype)
-    from repro_torch.kernels import build
     dev = q.device
+    b, h, d = q.shape
+    if traced(q):
+        # the splits, which the SM count decides, do not change the work
+        _plan(q.shape, k.shape, v.shape, q.dtype, k.dtype, v.dtype, 1)
+        _check(q, k, v, kv_len)
+        trace.kernel("flash_decode", *cost(q, k, b * k.shape[1]))
+        m, l = torch.empty((2, b, h), dtype=torch.float32,
+                           device=dev).unbind(0)
+        return torch.empty_like(q, dtype=out_dtype), m, l
+    from repro_torch.kernels import build
     q_code, kv_code, kind, splits, scale = _plan(
         q.shape, k.shape, v.shape, q.dtype, k.dtype, v.dtype,
         _sm_count(dev.index))
     _check(q, k, v, kv_len)
-    b, h, d = q.shape
+    for t in (q, k, v):
+        if t.data_ptr() % 16:
+            raise ValueError("flash_decode: q, k, v must be 16-byte "
+                             "aligned")
     out = torch.empty_like(q, dtype=out_dtype)
     m, l = torch.empty((2, b, h), dtype=torch.float32, device=dev).unbind(0)
     args = (q_code, kv_code, _DTYPE_CODE[out_dtype], q.data_ptr(),

@@ -13,13 +13,17 @@ states, the carry across chunks, the outputs), f32 x the FMA variant
 the ragged last chunk, so nothing is padded.  ``SSDScan`` gives y a
 gradient (plain PyTorch: the TPU kernel has no backward).  The public
 entry with the reference's name, ``kernels/ops.py:ssd_scan``, goes
-through it.
+through it.  A fake tensor (the dry run's, ``device.traced``) launches
+nothing: the call adds ``cost`` to the dry run's count
+(``trace.kernel``) and returns empty outputs, after allocating the
+scratch the kernels would.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.device import on_card
+from repro_torch import trace
+from repro_torch.device import on_card, traced
 from repro_torch.kernels import ref
 
 #: kernel launches since the last ``reset_launches()``: the total, and
@@ -63,6 +67,30 @@ def chunk_states_shape(b: int, s: int, h: int, n: int, p: int,
     return (b, nc, h, n, p), (b, nc, h)
 
 
+def ssd_ops(b, s, h, p, n, chunk) -> int:
+    """Operations of the scan's products: per (row, chunk of L) C Bᵀ
+    over the causal half, L(L+1) N operations (shared by the heads), and
+    per (row, head, chunk) its product with x, L(L+1) P, plus C S_prev
+    and Bᵀ x, 2 L N P each."""
+    lens = [min(chunk, s - c0) for c0 in range(0, s, chunk)]
+    return sum(b * ln * (ln + 1) * n + b * h * (ln * (ln + 1) * p
+                                               + 4 * ln * n * p)
+               for ln in lens)
+
+
+def cost(x, B_, chunk, y_dtype) -> tuple[int, int]:
+    """``(operations, bytes)`` of one call at x's and B_'s shapes and
+    dtypes: x, dt, a, B_, C_ read once, y (in ``y_dtype``) and the final
+    state written once; ``ssd_ops`` operations."""
+    b, s, h, p = x.shape
+    n = B_.shape[-1]
+    es = torch.finfo(y_dtype).bits // 8
+    n_bytes = (x.numel() * x.element_size() + 2 * B_.numel()
+               * B_.element_size() + 2 * b * s * h * 4 + x.numel() * es
+               + b * h * n * p * 4)
+    return ssd_ops(b, s, h, p, n, chunk), n_bytes
+
+
 def _check(x, dt, a, B_, C_, chunk, y_dtype):
     if x.dim() != 4 or dt.dim() != 3 or a.shape != dt.shape \
             or B_.dim() != 3 or C_.shape != B_.shape:
@@ -93,9 +121,8 @@ def _check(x, dt, a, B_, C_, chunk, y_dtype):
             raise ValueError(f"ssd_scan: tensors on {t.device} and "
                              f"{x.device}")
     for t in (x, dt, a, B_, C_):
-        if not t.is_contiguous() or t.data_ptr() % 16:
-            raise ValueError("ssd_scan: inputs must be contiguous and "
-                             "16-byte aligned")
+        if not t.is_contiguous():
+            raise ValueError("ssd_scan: inputs must be contiguous")
 
 
 def ssd_scan(x, dt, a, B_, C_, *, chunk=128, y_dtype=None):
@@ -108,7 +135,6 @@ def ssd_scan(x, dt, a, B_, C_, *, chunk=128, y_dtype=None):
     if not on_card(x):
         y, state = ref.ssd_reference(x, dt, a, B_, C_)
         return y.to(y_dtype), state
-    from repro_torch.kernels import build
     _check(x, dt, a, B_, C_, chunk, y_dtype)
     b, s, h, p = x.shape
     n = B_.shape[-1]
@@ -120,6 +146,13 @@ def ssd_scan(x, dt, a, B_, C_, *, chunk=128, y_dtype=None):
         st_shape, dec_shape = chunk_states_shape(b, s, h, n, p, chunk)
         states = torch.empty(st_shape, dtype=torch.float32, device=x.device)
         decay = torch.empty(dec_shape, dtype=torch.float32, device=x.device)
+    if traced(x):
+        trace.kernel("ssd_scan", *cost(x, B_, chunk, y_dtype))
+        return y, state
+    from repro_torch.kernels import build
+    for t in (x, dt, a, B_, C_):
+        if t.data_ptr() % 16:
+            raise ValueError("ssd_scan: inputs must be 16-byte aligned")
     lib = build.library("ssd_scan")
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream

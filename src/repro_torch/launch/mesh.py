@@ -16,9 +16,15 @@ sharding planner needs: the reference plans 512-device meshes without
 devices, and so does the port.  ``single_device_mesh`` needs no process
 group: every sharding rule resolves to a whole tensor there, and the
 model runs its one-device path unchanged.
+
+``fake_world`` gives rank 0's mesh of a world of any size on torch's
+``fake`` process-group backend, whose collectives return at once: the
+dry run (``launch/dryrun.py``) traces one rank of the production meshes
+with it, on no card.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 import os
 
@@ -122,8 +128,20 @@ def make_mesh(shape, axes, *, device="cuda", backend=None) -> Mesh:
         raise ValueError(f"a {shape} mesh needs {math.prod(shape)} ranks, "
                          f"the world has {world}")
     dev = rank_device(device)
+    mesh = _rank_mesh(shape, axes, rank, dev, backend)
+    probe = torch.ones(1, device=dev)
+    for g in mesh.groups:
+        if g is not None:
+            dist.all_reduce(probe, group=g)
+    return mesh
+
+
+def _rank_mesh(shape, axes, rank, dev, backend=None) -> Mesh:
+    """Rank ``rank``'s mesh: its row-major coordinates, and on each axis
+    of more than one rank its line and that line's group (every line's
+    group is created, as ``dist.new_group`` asks of every rank)."""
     coords = tuple(int(c) for c in np.unravel_index(rank, shape))
-    grid = np.arange(world).reshape(shape)
+    grid = np.arange(math.prod(shape)).reshape(shape)
     lines, groups = [], []
     for i, n in enumerate(shape):
         mine, group = (rank,), None
@@ -135,21 +153,51 @@ def make_mesh(shape, axes, *, device="cuda", backend=None) -> Mesh:
                     mine, group = tuple(members), g
         lines.append(mine)
         groups.append(group)
-    probe = torch.ones(1, device=dev)
-    for g in groups:
-        if g is not None:
-            dist.all_reduce(probe, group=g)
     return Mesh(axes, shape, coords=coords, lines=lines, groups=groups,
                 device=dev)
 
 
+@contextlib.contextmanager
+def fake_world(shape, axes):
+    """Rank 0's ``Mesh`` of ``shape`` over ``axes`` in a world of
+    ``prod(shape)`` ranks on torch's ``fake`` backend (``FakeStore``),
+    as ``make_mesh`` builds it there: coordinates, lines and groups,
+    whose collectives return at once without touching data.  Its device
+    is the CPU, the device of the dry run's fake tensors (a fake tensor
+    takes the card's path, ``device.on_card``; a build of torch without
+    CUDA cannot differentiate fake CUDA tensors).  Nothing asks for a
+    card.  The world is initialised only where no process group exists,
+    and then destroyed on exit, so a caller's state is left as found; an
+    existing world must have ``prod(shape)`` ranks."""
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    shape, axes = tuple(int(n) for n in shape), tuple(axes)
+    ours = not dist.is_initialized()
+    if ours:
+        dist.init_process_group("fake", store=FakeStore(), rank=0,
+                                world_size=math.prod(shape))
+    try:
+        if dist.get_world_size() != math.prod(shape):
+            raise ValueError(f"a {shape} mesh needs {math.prod(shape)} "
+                             f"ranks, the world has {dist.get_world_size()}")
+        yield _rank_mesh(shape, axes, dist.get_rank(), torch.device("cpu"))
+    finally:
+        if ours:
+            dist.destroy_process_group()
+
+
+def production_shape(multi_pod: bool = False) -> tuple:
+    """``(shape, axes)`` of the production mesh: (16, 16) over ("data",
+    "model"), or (2, 16, 16) over ("pod", "data", "model")."""
+    if multi_pod:
+        return (2, 16, 16), ("pod", "data", "model")
+    return (16, 16), ("data", "model")
+
+
 def make_production_mesh(*, multi_pod: bool = False,
                          device="cuda") -> Mesh:
-    """The production mesh: (16, 16) over ("data", "model"), or (2, 16,
-    16) over ("pod", "data", "model"); raises unless the world has that
-    many ranks."""
-    shape = (2, 16, 16) if multi_pod else (16, 16)
-    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    """The production mesh (``production_shape``); raises unless the
+    world has that many ranks."""
+    shape, axes = production_shape(multi_pod)
     world = dist.get_world_size() if dist.is_initialized() else 1
     if world != math.prod(shape):
         raise ValueError(f"the production mesh {shape} needs "

@@ -44,20 +44,31 @@ them (``microbatches``), and ``sync_grads`` sums the gradients of the
 encoder's, the vision projection's, the experts' and the Mamba-2
 layers' leaves like any other.
 
-The dry-run lowering (``lowering_spec``, ``lower_cell``) lowers through
-XLA in the reference and waits for the port's dry-run slice (ROADMAP
-queue 1 item 8.3, after the ``Trainer`` and the ``Server`` on a mesh).
+The dry run's lowering: ``lowering_spec(cfg, shape_name, mesh)`` gives
+a cell's step on ``mesh`` (rank 0 of a fake world,
+``launch/mesh.fake_world``) and its arguments as fake tensors of this
+rank's blocks (``input_specs``); ``lower_cell`` runs that step once
+under ``FakeTensorMode`` and counts what it would do on the card: the
+products' FLOPs, the bytes every op and kernel moves, the collectives'
+bytes by kind and link, the kernel calls, and the peak of live bytes
+(``trace``).  Where the reference lowers and compiles through XLA, the
+port traces eagerly: every layer and microbatch runs, so the counts are
+those of the whole step.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
-from typing import NamedTuple
+from typing import Any, NamedTuple
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensorMode
 
+from repro_torch import trace
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import collectives as coll
 from repro_torch.launch.mesh import abstract_mesh
+from repro_torch.launch.roofline import link
 from repro_torch.models import model as mdl
 from repro_torch.models.blocks import (count_params, param_specs,
                                        tree_leaves, tree_map)
@@ -313,16 +324,19 @@ def make_train_step(cfg: ArchConfig, opt_cfg=None, accum_steps: int = 1, *,
 #: shard may take before the decode plan falls back to FSDP sharding: the
 #: reference allows 8e9 bytes of a 16 GB accelerator, a half.
 DECODE_WEIGHT_SHARE = 0.5
-#: The memory of the card the port is built for (an H100, 80 GB), which
-#: sizes the budget where the mesh is abstract or on the CPU.
-CARD_BYTES = 80e9
+#: The memory of the card the port is built for, which sizes the budget
+#: where the mesh is abstract or on the CPU (the dry run's fake world):
+#: what ``torch.cuda.get_device_properties(0).total_memory`` reports on
+#: an NVIDIA H100 80GB HBM3.
+CARD_BYTES = 85_017_493_504
 
 
 def decode_budget(mesh) -> float:
     """Bytes of bf16 parameters one model-axis shard may hold under the
     pure tensor-parallel plan: ``DECODE_WEIGHT_SHARE`` of the memory
     ``torch.cuda.get_device_properties`` reports for the mesh's card, of
-    ``CARD_BYTES`` off the card."""
+    ``CARD_BYTES`` off the card, so that a dry run picks the plan a run
+    on the card would."""
     dev = getattr(mesh, "device", None)
     total = (torch.cuda.get_device_properties(dev).total_memory
              if dev is not None and dev.type == "cuda" else CARD_BYTES)
@@ -380,17 +394,20 @@ def _blocks(structs, specs, mesh):
         block_shape(ts.shape, sp, mesh), ts.dtype), structs, specs)
 
 
-def input_specs(cfg: ArchConfig, shape_name: str, mesh=None) -> tuple:
+def input_specs(cfg: ArchConfig, shape_name: str, mesh=None, *,
+                table=None) -> tuple:
     """The shape and dtype of this rank's block of every input of the
     cell's step (``TensorSpec`` trees), the reference's ``input_specs``
     with the reference's shardings applied, nothing allocated: ``(params,
     opt_state, batch)`` for a train cell (float32 parameters and AdamW
     moments), ``(params, batch)`` for prefill, ``(params, caches, tokens,
-    step)`` for decode (bf16 parameters under ``serve_plan``, bf16 caches
-    under ``models/model.cache_specs``).  ``mesh`` (an abstract one will
-    do) defaults to (1, 1)."""
+    step)`` for decode (bf16 parameters under ``serve_plan``, or the
+    cell's ``param_dtype``; bf16 caches under
+    ``models/model.cache_specs``).  ``mesh`` (an abstract one will do)
+    defaults to (1, 1); ``table`` (``SHAPE_TABLE`` by default) holds the
+    cell."""
     mesh = mesh or abstract_mesh((1, 1), ("data", "model"))
-    info = SHAPE_TABLE[shape_name]
+    info = (SHAPE_TABLE if table is None else table)[shape_name]
     seq, batch, kind = info["seq"], info["batch"], info["kind"]
     defs = mdl.model_defs(cfg)
     bspec = mdl._bspec(mesh)
@@ -419,5 +436,131 @@ def input_specs(cfg: ArchConfig, shape_name: str, mesh=None) -> tuple:
         mdl.cache_specs(cfg, batch, seq, mesh, shardable))
     tokens = TensorSpec(block_shape(
         (batch, 1), (bspec if shardable else None, None), mesh), torch.int32)
-    return (params(torch.bfloat16, plan), caches, tokens,
-            TensorSpec((), torch.int32))
+    return (params(info.get("param_dtype", torch.bfloat16), plan), caches,
+            tokens, TensorSpec((), torch.int32))
+
+
+# ---------------------------------------------------------------- dry run
+
+@dataclasses.dataclass
+class LoweringSpec:
+    """Everything the dry run's trace needs for one (arch x shape x mesh)
+    cell: the step, its arguments (fake tensors of this rank's blocks,
+    made in ``mode``; a decode step's position a host integer), the
+    parameter count, the step's kind, its microbatches, and the bytes of
+    its arguments (``input_specs``' sum, the decode position an int32)."""
+    fn: Any
+    args: tuple
+    mode: FakeTensorMode
+    n_params: int
+    kind: str
+    accum: int
+    argument_bytes: int
+
+
+def shape_runnable(cfg: ArchConfig, shape_name: str) -> tuple[bool, str]:
+    """long_500k needs sub-quadratic attention (the reference's rule)."""
+    if shape_name == "long_500k" and not cfg.is_subquadratic:
+        return False, ("pure full-attention arch: long_500k skipped "
+                       "(DESIGN.md §3)")
+    return True, ""
+
+
+def cell_accum(cfg: ArchConfig, info: dict, mesh) -> int:
+    """A train cell's microbatches, the reference's clamp: ``accum_steps``
+    of the config, else the cell's (``info``, a ``SHAPE_TABLE`` entry),
+    at most the rows a rank of the batch axes holds (so that every
+    microbatch still splits over them), lowered until it divides the
+    batch."""
+    batch = info["batch"]
+    accum = cfg.accum_steps or info.get("accum", 1)
+    ways = math.prod(mesh.shape[a] for a in mdl.BATCH_AXES
+                     if a in mesh.axis_names)
+    max_accum = max(batch // ways, 1) if batch % ways == 0 else batch
+    accum = min(accum, max_accum, batch)
+    while batch % accum:
+        accum -= 1
+    return accum
+
+
+def spec_bytes(tree) -> int:
+    """The bytes of a tree of ``TensorSpec``s."""
+    if isinstance(tree, TensorSpec):
+        return math.prod(tree.shape) * tree.dtype.itemsize
+    return sum(spec_bytes(v) for v in tree.values())
+
+
+def fake_tensors(tree, device):
+    """Empty tensors shaped by a tree of ``TensorSpec``s on ``device``:
+    fake ones under a ``FakeTensorMode``."""
+    if isinstance(tree, TensorSpec):
+        return torch.empty(tree.shape, dtype=tree.dtype, device=device)
+    return {k: fake_tensors(v, device) for k, v in tree.items()}
+
+
+def lowering_spec(cfg: ArchConfig, shape_name: str, mesh, *,
+                  table=None) -> LoweringSpec:
+    """The cell's step on ``mesh`` (this rank's: ``make_train_step`` with
+    the clamped ``accum`` (``cell_accum``), ``make_prefill_step`` or
+    ``make_serve_step``) and its arguments as fake tensors on the mesh's
+    device, shaped by ``input_specs``.  A decode step decodes at the
+    cache's last position (``seq - 1``), one new token against a full
+    cache, as the reference's cell does.  ``table`` (``SHAPE_TABLE`` by
+    default) holds the cell."""
+    info = (SHAPE_TABLE if table is None else table)[shape_name]
+    seq, batch, kind = info["seq"], info["batch"], info["kind"]
+    n_params = count_params(mdl.model_defs(cfg))
+    specs = input_specs(cfg, shape_name, mesh, table=table)
+    mode = FakeTensorMode()
+    accum = 1
+    with mode:
+        if kind == "train":
+            accum = cell_accum(cfg, info, mesh)
+            fn = make_train_step(cfg, accum_steps=accum, mesh=mesh)
+            args = tuple(fake_tensors(t, mesh.device) for t in specs)
+        elif kind == "prefill":
+            fn = make_prefill_step(cfg, mesh=mesh)
+            args = tuple(fake_tensors(t, mesh.device) for t in specs)
+        else:
+            fn = make_serve_step(cfg, mesh, batch_shardable(mesh, batch))
+            args = tuple(fake_tensors(t, mesh.device)
+                         for t in specs[:3]) + (seq - 1,)
+    return LoweringSpec(fn=fn, args=args, mode=mode, n_params=n_params,
+                        kind=kind, accum=accum,
+                        argument_bytes=sum(spec_bytes(t) for t in specs))
+
+
+def lower_cell(cfg: ArchConfig, shape_name: str, mesh, *, table=None):
+    """``(counts, spec)``: the cell's step (``lowering_spec``) run once on
+    its fake arguments, and what it did on this rank:
+
+    - ``flops``: the products' FLOPs (``aten_flops``, by
+      ``FlopCounterMode``'s registry) plus the kernels' operations;
+    - ``bytes``: what every aten op and kernel reads and writes
+      (``trace.Tally``, ``kernels/*.cost``);
+    - ``collectives``: one entry per (kind, group): its ranks, ``link``
+      (``roofline.link``), calls and bytes;
+    - ``kernels``: ``{name: {"calls", "ops", "bytes"}}``;
+    - ``argument_bytes`` and ``peak_bytes`` (the most fake storage alive
+      at once, the arguments included).
+
+    A trace allocates nothing and launches nothing, so it needs no card.
+    """
+    spec = lowering_spec(cfg, shape_name, mesh, table=table)
+    with spec.mode, trace.counting() as counts, \
+            trace.Tally(spec.args) as tally:
+        spec.fn(*spec.args)
+    kernels = {name: {"calls": c, "ops": o, "bytes": b}
+               for name, (c, o, b) in sorted(counts.kernels.items())}
+    return {
+        "flops": tally.flops + sum(k["ops"] for k in kernels.values()),
+        "aten_flops": tally.flops,
+        "bytes": tally.bytes + sum(k["bytes"] for k in kernels.values()),
+        "collectives": [
+            {"kind": kind, "ranks": list(ranks), "link": link(ranks),
+             "calls": c, "bytes": b}
+            for (kind, ranks), (c, b) in sorted(counts.collectives.items())],
+        "kernels": kernels,
+        "argument_bytes": spec.argument_bytes,
+        "peak_bytes": tally.peak,
+    }, spec

@@ -20,7 +20,7 @@ import math
 
 import torch
 
-from repro_torch.device import resolve_device
+from repro_torch.device import on_card, resolve_device
 from repro_torch.parallel.sharding import block_shape, shard
 
 
@@ -191,11 +191,11 @@ def wide_mm(a, b):
     one-device product rounds once; a bf16 partial would round once more
     on every rank, and those roundings move bf16 logits by several ulps
     (on the CPU the mesh's bf16 logits are the one device's bits without
-    them).  On the card cuBLAS writes the float32 result itself
-    (``torch.mm(out_dtype=)``)."""
+    them).  On the card (and in a dry run's trace, ``device.on_card``)
+    cuBLAS writes the float32 result itself (``torch.mm(out_dtype=)``)."""
     wide = torch.promote_types(a.dtype, torch.float32)
     a2 = a.reshape(-1, a.shape[-1])
-    if a2.is_cuda and a2.dtype != wide:
+    if on_card(a2) and a2.dtype != wide:
         out = _WideMM.apply(a2, b, wide)
     else:
         out = a2.to(wide) @ b.to(wide)

@@ -272,7 +272,9 @@ def _dispatch(p, x, cfg, sp, mesh):
     dest = flat_e // e_local
     order = torch.sort(dest, stable=True).indices
     sorted_dest = dest[order]
-    counts = torch.bincount(dest, minlength=ep)
+    # a shape-static count (bincount's shape depends on the data)
+    counts = torch.zeros(ep, dtype=dest.dtype, device=x.device).scatter_add_(
+        0, dest, torch.ones_like(dest))
     offsets = torch.cumsum(counts, 0) - counts
     rank = torch.arange(n, device=x.device) - offsets[sorted_dest]
     slot = torch.where(rank < cap, sorted_dest * cap + rank, ep * cap)

@@ -154,7 +154,6 @@ import torch.distributed as dist
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.join(REPO, "src"))
-sys.path.insert(0, REPO)          # chip_smoke.model_flops
 sys.path.insert(0, os.path.join(REPO, "tests"))   # the MoE mutants
 
 import _torch_mesh_cases as cases  # noqa: E402
@@ -163,6 +162,7 @@ from repro_torch.core import collectives as coll  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import flash_decode as fd  # noqa: E402
 from repro_torch.launch.mesh import make_mesh, single_device_mesh  # noqa: E402
+from repro_torch.launch.roofline import PEAK_FLOPS, train_step_flops  # noqa: E402
 from repro_torch.launch.steps import make_serve_step  # noqa: E402
 from repro_torch.models import model as mdl  # noqa: E402
 from repro_torch.models import attention as attn  # noqa: E402
@@ -1144,8 +1144,8 @@ WRONG_STEPS = {"no_model_psum": (coll, "grad_psum",
 #: (``tests/_torch_mesh_cases.MOE_MUTANTS``, the gloo worlds' own)
 MOE_WRONG_STEPS = {name: (moe_mod, "coll", cases.MoEMutant(name, coll))
                    for name, _ in cases.MOE_MUTANTS}
-#: the card's bf16 peak (dense, H100 SXM), for mfu
-PEAK_BF16 = 989e12
+#: the card's bf16 peak (dense, H100 SXM datasheet), for mfu
+PEAK_BF16 = PEAK_FLOPS[torch.bfloat16]
 
 
 def train_batch(cfg, batch, seq, mesh, seed):
@@ -1265,11 +1265,10 @@ def timed_train(cfg, mesh, whole, mine, accum, steps, label,
     """``steps`` steps of ``make_train_step`` on ``mesh`` from the seed-0
     float32 state (``init_sharded_params``), then one more under
     torch.profiler: ms a step (after the first), tok/s, mfu (the
-    one-card train phase's model FLOPs, ``chip_smoke.model_flops``, over
+    one-card train phase's model FLOPs, ``roofline.train_step_flops``, over
     four cards' bf16 peak), the steps' peak GB a rank, and the profile
     (NCCL device ms a step, the compute stream's idle share,
     ``TRAIN_RANGES``)."""
-    import chip_smoke
     from repro_torch.launch.steps import make_train_step
     from repro_torch.optim import adamw
     dev = mesh.device
@@ -1304,7 +1303,7 @@ def timed_train(cfg, mesh, whole, mine, accum, steps, label,
     peak = torch.cuda.max_memory_allocated(dev) / 1e9 \
         if dev.type == "cuda" else 0.0
     b, seq = whole["tokens"].shape
-    flops = chip_smoke.model_flops(cfg, b, seq)
+    flops = train_step_flops(cfg, b, seq)
     step_s = float(np.mean(ms[1:])) / 1e3 if steps > 1 else ms[0] / 1e3
     norm_all = torch.tensor(norms, device=DEV[0])
     row = {"arch": cfg.name, "n_layers": cfg.n_layers, "mesh": list(
